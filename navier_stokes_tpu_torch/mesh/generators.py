@@ -1,0 +1,232 @@
+"""Mesh generator for the 3D channel-with-cylinder benchmark geometry.
+
+The port's own copy of ``navier_stokes_tpu/mesh/generators.py``, trimmed to
+the straight 3D path: the 2D Schaefer-Turek channel, its extrusion to tets,
+and ``channel_with_cylinder_mesh_3d`` (reference
+templates/NavierStokesSIMPLE_test_3D.py:8-16).  Host-side numpy/scipy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .mesh import Mesh
+
+_TOL = 1e-9
+
+
+def extrude_to_tets(mesh2d: Mesh, z_levels: np.ndarray) -> Mesh:
+    """Extrude a triangle mesh along z and split each prism into 3 tets.
+
+    Prism splitting uses the vertex-index rule (Dompierre et al.): the
+    diagonal of every quad face is chosen by global vertex ids, so adjacent
+    prisms tessellate their shared faces compatibly.
+    """
+    nv2, nl = mesh2d.nv, len(z_levels)
+    pts = np.concatenate(
+        [
+            np.concatenate(
+                [mesh2d.points, np.full((nv2, 1), z)], axis=1
+            )
+            for z in z_levels
+        ]
+    )
+    tets = []
+    for layer in range(nl - 1):
+        lo, hi = layer * nv2, (layer + 1) * nv2
+        for tri in mesh2d.elements:
+            a, b, c = (int(t) for t in tri)
+            # rotate so the smallest bottom id comes first
+            v = [a, b, c]
+            r = int(np.argmin(v))
+            v0, v1, v2 = v[r], v[(r + 1) % 3], v[(r + 2) % 3]
+            b0, b1, b2 = lo + v0, lo + v1, lo + v2
+            t0, t1, t2 = hi + v0, hi + v1, hi + v2
+            if min(v1, v2 + nv2) < min(v2, v1 + nv2):
+                tets += [[b0, b1, b2, t2], [b0, b1, t2, t1], [b0, t1, t2, t0]]
+            else:
+                tets += [[b0, b1, b2, t1], [b0, t1, b2, t2], [b0, t1, t2, t0]]
+    mesh = Mesh(pts, np.array(tets, dtype=np.int32))
+    mesh.ensure_positive_orientation()
+    return mesh
+
+
+def channel_with_cylinder_mesh_3d(
+    maxh: float = 0.1,
+    length: float = 2.5,
+    height: float = 0.41,
+    cyl_center: tuple[float, float] = (0.5, 0.2),
+    cyl_radius: float = 0.05,
+    circle_resolution: int = 16,
+) -> Mesh:
+    """3D Schaefer-Turek channel: brick (0,0,0)-(length,H,H) minus a
+    z-axis-parallel cylinder at (0.5, 0.2), the geometry of
+    reference templates/NavierStokesSIMPLE_test_3D.py:8-14 (the brick
+    x-range is clipped by the inlet/outlet planes to [0, 2.5] there).
+
+    Boundary names: inlet (x=0), outlet (x=length), wall (brick faces),
+    cyl (cylinder surface)."""
+    base = channel_with_cylinder_mesh(
+        maxh, length=length, height=height,
+        cyl_center=cyl_center, cyl_radius=cyl_radius,
+        circle_resolution=circle_resolution,
+    )
+    nz = max(2, round(height / maxh))
+    mesh = extrude_to_tets(base, np.linspace(0.0, height, nz + 1))
+    cx, cy = cyl_center
+    mesh.tag_boundary_by_predicate(
+        "inlet", lambda p: np.abs(p[:, :, 0]) < _TOL
+    )
+    mesh.tag_boundary_by_predicate(
+        "outlet", lambda p: np.abs(p[:, :, 0] - length) < _TOL
+    )
+    mesh.tag_boundary_by_predicate(
+        "cyl",
+        lambda p: np.abs(
+            np.hypot(p[:, :, 0] - cx, p[:, :, 1] - cy) - cyl_radius
+        ) < 1e-6 * (1 + cyl_radius),
+    )
+    # walls: everything else on the boundary
+    tagged = np.concatenate(
+        [mesh.boundary_tags[k] for k in ("inlet", "outlet", "cyl")]
+    )
+    wall = np.setdiff1d(mesh.boundary_facets, tagged)
+    mesh.boundary_tags["wall"] = wall.astype(np.int32)
+    return mesh
+
+
+def channel_with_cylinder_mesh(
+    maxh: float = 0.1,
+    length: float = 2.0,
+    height: float = 0.41,
+    cyl_center: tuple[float, float] = (0.2, 0.2),
+    cyl_radius: float = 0.05,
+    refine_cylinder: float = 0.35,
+    circle_resolution: int = 16,
+) -> Mesh:
+    """Schaefer-Turek channel: rectangle with a circular hole.
+
+    Boundary names follow reference run.py:24-26: "inlet" (x=0),
+    "outlet" (x=length), "wall" (y=0 and y=height), "cyl" (circle).
+
+    Construction: graded background grid + concentric point rings around the
+    cylinder, Delaunay triangulation, removal of hole triangles, and exact
+    snapping of the innermost ring onto the circle.
+    """
+    from scipy.spatial import Delaunay
+
+    cx, cy = cyl_center
+    r = cyl_radius
+
+    nx = max(2, round(length / maxh))
+    ny = max(2, round(height / maxh))
+    xs = np.linspace(0.0, length, nx + 1)
+    ys = np.linspace(0.0, height, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    grid = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    # concentric rings around the cylinder (innermost exactly on the circle)
+    h_cyl = min(maxh * refine_cylinder, 2 * np.pi * r / circle_resolution)
+    n_ring = max(16, int(np.ceil(2 * np.pi * r / h_cyl)))
+    rings = []
+    ring_radii = [r]
+    rr = r
+    while rr < r + 1.2 * maxh:
+        rr = rr + h_cyl * (rr / r) ** 0.5
+        ring_radii.append(rr)
+    for i, rr in enumerate(ring_radii):
+        m = max(12, int(np.ceil(2 * np.pi * rr / (h_cyl * (rr / r) ** 0.5))))
+        th = np.linspace(0, 2 * np.pi, m, endpoint=False) + (i % 2) * np.pi / m
+        ring = np.stack([cx + rr * np.cos(th), cy + rr * np.sin(th)], axis=1)
+        rings.append(ring)
+    ring_pts = np.concatenate(rings, axis=0)
+    # keep ring points inside the rectangle
+    ring_pts = ring_pts[
+        (ring_pts[:, 0] > _TOL)
+        & (ring_pts[:, 0] < length - _TOL)
+        & (ring_pts[:, 1] > _TOL)
+        & (ring_pts[:, 1] < height - _TOL)
+    ]
+
+    # drop grid points that are inside the outermost ring region
+    d_grid = np.hypot(grid[:, 0] - cx, grid[:, 1] - cy)
+    on_boundary = (
+        (np.abs(grid[:, 0]) < _TOL)
+        | (np.abs(grid[:, 0] - length) < _TOL)
+        | (np.abs(grid[:, 1]) < _TOL)
+        | (np.abs(grid[:, 1] - height) < _TOL)
+    )
+    keep = (d_grid > ring_radii[-1] + 0.55 * h_cyl) | (
+        on_boundary & (d_grid > r + 0.5 * h_cyl)
+    )
+    pts = np.concatenate([grid[keep], ring_pts], axis=0)
+
+    def triangulate(p):
+        els = Delaunay(p).simplices
+        cent = p[els].mean(axis=1)
+        d_cent = np.hypot(cent[:, 0] - cx, cent[:, 1] - cy)
+        els = els[d_cent > r * (1.0 - 1e-12)]
+        v = p[els]
+        area2 = np.abs(
+            (v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
+            - (v[:, 2, 0] - v[:, 0, 0]) * (v[:, 1, 1] - v[:, 0, 1])
+        )
+        return els[area2 > 1e-10 * maxh * maxh]
+
+    # points that must not move: rectangle boundary + the circle ring
+    d_pts = np.hypot(pts[:, 0] - cx, pts[:, 1] - cy)
+    fixed = (
+        (np.abs(pts[:, 0]) < _TOL)
+        | (np.abs(pts[:, 0] - length) < _TOL)
+        | (np.abs(pts[:, 1]) < _TOL)
+        | (np.abs(pts[:, 1] - height) < _TOL)
+        | (np.abs(d_pts - r) < 1e-9 * (1 + r))
+    )
+
+    els = triangulate(pts)
+    # Laplacian smoothing + re-Delaunay rounds: the raw ring-to-grid
+    # transition band can contain near-degenerate slivers at coarse maxh
+    # (observed aspect ~1800 at maxh=0.2), which poison both the element
+    # conditioning and the f32 solver floor; a few smoothing rounds bring
+    # the worst aspect down to O(5).
+    for _ in range(4):
+        nbr_sum = np.zeros_like(pts)
+        nbr_cnt = np.zeros(len(pts))
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            np.add.at(nbr_sum, els[:, a], pts[els[:, b]])
+            np.add.at(nbr_cnt, els[:, a], 1.0)
+            np.add.at(nbr_sum, els[:, b], pts[els[:, a]])
+            np.add.at(nbr_cnt, els[:, b], 1.0)
+        new = nbr_sum / np.maximum(nbr_cnt, 1.0)[:, None]
+        pts = np.where(fixed[:, None], pts, new)
+        # keep smoothed points out of the hole
+        d_new = np.hypot(pts[:, 0] - cx, pts[:, 1] - cy)
+        bad = (~fixed) & (d_new < r + 0.3 * h_cyl)
+        if bad.any():
+            scale = (r + 0.3 * h_cyl) / np.maximum(d_new[bad], 1e-12)
+            pts[bad] = np.stack(
+                [cx + (pts[bad, 0] - cx) * scale,
+                 cy + (pts[bad, 1] - cy) * scale], axis=1
+            )
+        els = triangulate(pts)
+
+    # drop unused points and remap
+    used = np.unique(els)
+    remap = -np.ones(len(pts), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    mesh = Mesh(pts[used], remap[els].astype(np.int32))
+    mesh.ensure_positive_orientation()
+
+    mesh.tag_boundary_by_predicate("inlet", lambda p: np.abs(p[:, :, 0]) < _TOL)
+    mesh.tag_boundary_by_predicate(
+        "outlet", lambda p: np.abs(p[:, :, 0] - length) < _TOL
+    )
+    mesh.tag_boundary_by_predicate(
+        "wall",
+        lambda p: (np.abs(p[:, :, 1]) < _TOL) | (np.abs(p[:, :, 1] - height) < _TOL),
+    )
+    mesh.tag_boundary_by_predicate(
+        "cyl",
+        lambda p: np.abs(np.hypot(p[:, :, 0] - cx, p[:, :, 1] - cy) - r) < 1e-6 * (1 + r),
+    )
+    return mesh

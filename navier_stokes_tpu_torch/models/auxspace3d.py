@@ -1,0 +1,233 @@
+"""Skeleton preconditioner for the condensed 3D MCS operator (additive).
+
+Counterpart of ``navier_stokes_tpu/models/auxspace3d.py``, fast face-block
+path with the additive edge-star smoother (``gs=False``):
+
+  preA = E (smooth_S + T coarse T^T) E^T + I_i A_ii^{-1} I_i^T,
+
+with E the harmonic extension of skeleton values into element interiors,
+S the skeleton Schur complement, the edge-star block smoother on S
+(ops/faceblock.FaceStarSmoother) and the vector-P1 auxiliary-space coarse
+correction through the face-layout transfer.  Every table apply (extension,
+its transpose, interior solve, M_F and M_F^T, edge-star inverses) is a
+:func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv` launch.
+
+The interior Schur complement and the edge-star inverses are computed in
+f64 (host numpy, resp. torch f64 on the device) and cast to the storage
+dtypes, as the JAX package's host path does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fem.quadrature import triangle_rule
+from ..fem.reference import triangle_modal
+from ..fem.spaces import H1
+from ..ops.block_mv import make_table_apply
+from ..ops.faceblock import FaceBlockLayout, face_star_smoother
+from ..precond.twolevel import coarse_p1_solver
+
+__all__ = ["hybrid_h1_face_transfer", "build_skeleton_preconditioner_3d"]
+
+
+def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32):
+    """Face-layout P1 transfer for the skeleton coarse correction:
+    ``TF (nv, 3) -> (nface, nfb)`` and its exact transpose ``TFt``.
+
+    yF[f] = M_F[f] @ c[faces[f]] with per-face dense maps from the face's
+    3 vertices x 3 components (hdiv moment rows, then facet frame rows)."""
+    mesh = V.mesh
+    hd = V.hdiv
+    k = hd.order
+    nfd_v = hd.n_face_dofs
+    nss = V.facet.n_scalar
+    nface = mesh.nface
+    nfb = lay.nfb
+    dev = lay.device
+
+    rule2 = triangle_rule(2 * max(k, V.facet.order) + 2)
+    phi_v, _ = triangle_modal(rule2.points, k)
+    phi_f, _ = triangle_modal(rule2.points, V.facet.order)
+    lam2 = np.concatenate(
+        [1 - rule2.points.sum(1, keepdims=True), rule2.points], axis=1
+    )
+    cjv = np.einsum("q,qj,qv->jv", rule2.weights, phi_v, lam2)
+    cjv_fac = np.einsum("q,qj,qv->jv", rule2.weights, phi_f, lam2)
+
+    pts = mesh.points
+    faces = np.asarray(mesh.faces)
+    fv = pts[faces]
+    E1 = fv[:, 1] - fv[:, 0]
+    E2 = fv[:, 2] - fv[:, 0]
+    nsc = np.cross(E1, E2)
+    E = np.stack([E1, E2], axis=1)  # (nface, 2, 3)
+    G = np.einsum("fdc,fec->fde", E, E)
+    W = np.einsum("fde,fec->fdc", np.linalg.inv(G), E)  # (nface, 2, 3)
+
+    M_F = np.zeros((nface, nfb, 9))
+    M_F[:, :nfd_v] = np.einsum(
+        "jv,fc->fjvc", cjv[:nfd_v], nsc
+    ).reshape(nface, nfd_v, 9)
+    M_F[:, nfd_v: nfd_v + 2 * nss] = np.einsum(
+        "jv,fdc->fjdvc", cjv_fac[:nss], W
+    ).reshape(nface, 2 * nss, 9)
+
+    MF_apply = make_table_apply(M_F, store_dtype=dtype, device=dev)
+    MFt_apply = make_table_apply(
+        np.ascontiguousarray(M_F.transpose(0, 2, 1)), store_dtype=dtype,
+        device=dev)
+
+    # vertex accumulation plan for the transpose: (face, slot) pairs per
+    # vertex, padded to the max valence (pad index -> appended zero row)
+    nv = mesh.nv
+    flat_v = faces.ravel()
+    order = np.argsort(flat_v, kind="stable")
+    counts = np.bincount(flat_v, minlength=nv)
+    maxval = int(counts.max())
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    vs_idx = np.full((nv, maxval), 3 * nface, np.int64)
+    for s in range(maxval):
+        has = counts > s
+        vs_idx[has, s] = order[starts[:-1][has] + s]
+    faces_t = torch.as_tensor(faces.astype(np.int64), device=dev)
+    vs_idx_t = torch.as_tensor(vs_idx, device=dev)
+
+    def TF(z):
+        """(nv, 3) coarse vertex values -> (nface, nfb) face-block rows."""
+        return MF_apply(z[faces_t].reshape(nface, 9))
+
+    def TFt(rF):
+        g = MFt_apply(rF)  # (nface, 9)
+        g3 = torch.cat([g.reshape(3 * nface, 3), g.new_zeros((1, 3))])
+        return g3[vs_idx_t].sum(dim=1)  # (nv, 3)
+
+    TF.table, TFt.table = MF_apply.table, MFt_apply.table
+    return TF, TFt
+
+
+def build_skeleton_preconditioner_3d(
+    V, A_np: np.ndarray, velocity_dirichlet: str, device,
+    dtype=torch.float32, coarse_coefficient: float = 1.0,
+    dof_scale: np.ndarray | None = None, store_dtype=None,
+    ext_store_dtype=None,
+):
+    """Condensation-aware additive preconditioner for the condensed 3D MCS
+    operator: exact batched solve of the element-interior block, the
+    edge-star block smoother on the skeleton Schur complement, and the
+    vector-P1 auxiliary-space coarse correction.
+
+    ``A_np``: (ne, nb, nb) f64 element tables in FLAT element order
+    (equilibrated when ``dof_scale`` = D is given: A~ = D A D, and the
+    coarse transfer becomes D^{-1} T).  ``store_dtype`` stores the edge-star
+    inverses, ``ext_store_dtype`` the extension and interior tables;
+    arithmetic is ``dtype`` (f32)."""
+    mesh = V.mesh
+    nbv = V.hdiv.n_basis
+    n_face_tot = 4 * V.hdiv.n_face_dofs
+    nfac = V.facet.n_face * 4
+    loc_int = np.arange(n_face_tot, nbv)
+    loc_skel = np.concatenate(
+        [np.arange(n_face_tot), np.arange(nbv, nbv + nfac)]
+    )
+    # interior Schur complement in f64 on the host (flat element order)
+    A_ii = A_np[:, loc_int[:, None], loc_int[None, :]]
+    A_is = A_np[:, loc_int[:, None], loc_skel[None, :]]
+    A_ss = A_np[:, loc_skel[:, None], loc_skel[None, :]]
+    A_ii_inv = np.linalg.inv(A_ii)
+    AinvAis = np.matmul(A_ii_inv, A_is)  # (ne, n_int, n_skel)
+    S_loc = A_ss - np.matmul(A_is.transpose(0, 2, 1), AinvAis)
+
+    space = H1(mesh, 1, dirichlet=velocity_dirichlet)
+    solve1 = coarse_p1_solver(space, coarse_coefficient, dtype, device)
+
+    lay = FaceBlockLayout(V, device)
+    TF, TFt = hybrid_h1_face_transfer(V, lay, dtype)
+    tables = {"M_F": TF.table, "M_F^T": TFt.table}
+    if dof_scale is None:
+        def coarse_vc(rF):
+            return TF(solve1(TFt(rF)))
+    else:
+        dinv = 1.0 / np.asarray(dof_scale)
+        DinvF = torch.as_tensor(
+            np.concatenate(
+                [
+                    dinv[: lay.off_c].reshape(lay.nface, lay.nfd_v),
+                    dinv[lay.nhd:].reshape(lay.nface, lay.nfd_f),
+                ],
+                axis=1,
+            ),
+            device=device,
+        ).to(dtype)
+
+        def coarse_vc(rF):
+            return DinvF * TF(solve1(TFt(DinvF * rF)))
+
+    sdt = store_dtype or dtype
+    preA = _build_skeleton_fast(
+        V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, sdt,
+        ext_sdt=ext_store_dtype or sdt,
+    )
+    preA.parts["tables"].update(tables)
+    return preA
+
+
+def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, sdt,
+                         ext_sdt):
+    """Face-block rendering of the additive skeleton preconditioner, every
+    batched block matvec a :func:`block_mv` table apply.  ``preA.parts``
+    holds its components for per-part timings and, under ``"tables"``, the
+    device table of every :func:`block_mv` it launches."""
+    dev = lay.device
+    free = torch.as_tensor(V.free_mask, device=dev)
+    S_perm_np = lay.permute_skel_blocks(S_loc)
+    sm = face_star_smoother(lay, S_perm_np, V.free_mask, sdt)
+    freeF = sm.freeF
+
+    AinvAis_perm = np.ascontiguousarray(AinvAis[:, :, lay.perm_skel])
+    ext_apply = make_table_apply(AinvAis_perm, store_dtype=ext_sdt,
+                                 device=dev)
+    extT_apply = make_table_apply(
+        np.ascontiguousarray(AinvAis_perm.transpose(0, 2, 1)),
+        store_dtype=ext_sdt, device=dev)
+    inner_apply = make_table_apply(A_ii_inv, store_dtype=ext_sdt, device=dev)
+
+    def ext_fb(yF):
+        """Interiors from skeleton values (face layout)."""
+        return -ext_apply(lay.gather_skel(yF))
+
+    def extT_fb(xF, xi):
+        """Fold interior residual into the skeleton (face layout)."""
+        return xF + lay.scatter_skel(-extT_apply(xi))
+
+    def pre_skel_faces(xF):
+        yF = sm.smooth_faces(xF)
+        return yF + torch.where(freeF, coarse_vc(xF), 0.0)
+
+    def preA(x):
+        xf = torch.where(free, x, 0.0)
+        xF, xi = lay.split(xf)
+        rF = torch.where(freeF, extT_fb(xF, xi.contiguous()), 0.0)
+        yF = pre_skel_faces(rF)
+        yi = ext_fb(yF) + inner_apply(xi)
+        return torch.where(free, lay.join(yF, yi), x)
+
+    # component probes (face-layout in/out) for per-part timings
+    preA.parts = {
+        "pre_skel": pre_skel_faces,
+        "coarse_only": coarse_vc,
+        "smooth_only": sm.smooth_faces,
+        "ext": ext_fb,
+        "extT": extT_fb,
+        "layout": lay,
+        "smoother": sm,
+        "tables": {
+            "ext": ext_apply.table,
+            "ext^T": extT_apply.table,
+            "inner": inner_apply.table,
+            **{f"edge-star inv {faces_b.shape[1]} faces": solve.table
+               for faces_b, solve in sm.buckets},
+        },
+    }
+    return preA
