@@ -226,12 +226,246 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// -- split-k variants ---------------------------------------------------------
+//
+//   nstt_block_mv_splitk_{f32,bf16}  <- _mv_kernel_splitk      (:305)
+//   nstt_block_mv2_splitk_f32        <- _mv2_kernel_splitk     (:358)
+//   nstt_block_mv_comp_splitk_f32    <- _mv_comp_kernel_splitk (:397)
+//
+// The table arrives as ns <= kMaxSplit consecutive-tile sub-tables (global
+// tile i*ns+j is tile i of sub-table j; the wrapper zero-pads the block count
+// to a whole number of groups), each (nsub, m, k) row-major, passed by value
+// as an array of pointers.  Bound: the bytes of all sub-tables, zero pad
+// included, / 3.35 TB/s, as for the unsplit kernels.
+//
+// Design.  A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in
+// EVERY sub-table.  Its copy loop reads one 16-byte vector from each of the
+// ns sub-tables into registers before it stores any of them to shared
+// memory, so ns independent table streams are in flight per CTA (what a
+// split buys on Hopper; the TPU kernel instead keeps ns block DMAs in
+// flight per sequential grid step).  Each thread then computes output rows
+// in the unsplit kernel's column order -- the same fmaf chain, or the same
+// two_prod/two_sum chain -- so a split-k result is bitwise equal to the
+// unsplit kernel's on the same table.  x is read straight from global
+// memory (L2-resident, a few MB); rows of the zero pad are not computed.
+
+constexpr int kMaxSplit = 8;
+
+struct SubTables {
+  const void* p[kMaxSplit];
+};
+
+// Copy count entries at element offset off of every sub-table into dst as
+// rows of k entries at row stride ks, sub-table j at dst + j * jstride.  All
+// sub-tables share their base alignment mod 16 (the wrapper checks 16-byte
+// aligned bases), so they share the unaligned head.
+template <typename T>
+__device__ void stage_rows_split(const SubTables& subs, int ns, long long off,
+                                 int count, int k, int ks, int jstride,
+                                 float* __restrict__ dst) {
+  constexpr int V = 16 / sizeof(T);
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(static_cast<const T*>(subs.p[0]) + off);
+  int head = static_cast<int>(((16 - (addr & 15)) & 15) / sizeof(T));
+  if (head > count) head = count;
+  const int nvec = (count - head) / V;
+  const int tail0 = head + nvec * V;
+  // head and tail, one entry per thread; j stays a compile-time index into
+  // the by-value pointer array, which keeps it out of local memory
+#pragma unroll
+  for (int j = 0; j < kMaxSplit; ++j) {
+    if (j < ns) {
+      const T* src = static_cast<const T*>(subs.p[j]) + off;
+      float* d = dst + j * jstride;
+      for (int c = threadIdx.x; c < head; c += blockDim.x)
+        d[(c / k) * ks + c % k] = to_f32(src[c]);
+      for (int c = tail0 + threadIdx.x; c < count; c += blockDim.x)
+        d[(c / k) * ks + c % k] = to_f32(src[c]);
+    }
+  }
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    uint4 w[kMaxSplit];
+#pragma unroll
+    for (int j = 0; j < kMaxSplit; ++j) {
+      if (j < ns) {
+        const T* src = static_cast<const T*>(subs.p[j]) + off + head;
+        w[j] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      }
+    }
+    const int e0 = head + i * V;
+    const int row0 = e0 / k, col0 = e0 - row0 * k;
+#pragma unroll
+    for (int j = 0; j < kMaxSplit; ++j) {
+      if (j < ns) {
+        float v[V];
+        unpack<T>(w[j], v);
+        int row = row0, col = col0;
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          dst[j * jstride + row * ks + col] = v[q];
+          if (++col == k) {
+            col = 0;
+            ++row;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Global output row of row sr of sub-table j, or -1 for a row of the pad.
+__device__ __forceinline__ long long global_row(long long sr, int j, int ns,
+                                                int m, int tile,
+                                                long long nblk) {
+  const long long sb = sr / m;  // block within the sub-table
+  const long long i = sb / tile;
+  const long long gb = (i * ns + j) * tile + (sb - i * tile);
+  return gb < nblk ? gb * m + (sr - sb * m) : -1;
+}
+
+struct SplitTile {
+  long long r0;  // first sub-table row of this CTA
+  int nrows;     // sub-table rows in this tile (in each sub-table)
+};
+
+__device__ __forceinline__ SplitTile split_tile_of(long long nsub_rows,
+                                                   int R) {
+  SplitTile t;
+  t.r0 = static_cast<long long>(blockIdx.x) * R;
+  long long r1 = t.r0 + R;
+  if (r1 > nsub_rows) r1 = nsub_rows;
+  t.nrows = static_cast<int>(r1 - t.r0);
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    block_mv_splitk_kernel(SubTables subs, int ns,
+                           const float* __restrict__ x, float* __restrict__ y,
+                           long long nsub_rows, long long nblk, int m, int k,
+                           int ks, int R, int tile) {
+  extern __shared__ float smem[];
+  const SplitTile t = split_tile_of(nsub_rows, R);
+  stage_rows_split<T>(subs, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, smem);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ns * t.nrows; e += blockDim.x) {
+    const int j = e / t.nrows, rr = e - j * t.nrows;
+    const long long g = global_row(t.r0 + rr, j, ns, m, tile, nblk);
+    if (g < 0) continue;
+    const float* ar = smem + (j * R + rr) * ks;
+    const float* xb = x + (g / m) * k;
+    float acc = 0.0f;
+    for (int c = 0; c < k; ++c) acc = fmaf(ar[c], __ldg(xb + c), acc);
+    y[g] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    block_mv2_splitk_kernel(SubTables his, SubTables los, int ns,
+                            const float* __restrict__ x, float* __restrict__ y,
+                            long long nsub_rows, long long nblk, int m, int k,
+                            int ks, int R, int tile) {
+  extern __shared__ float smem[];
+  const SplitTile t = split_tile_of(nsub_rows, R);
+  float* th = smem;
+  float* tl = smem + ns * R * ks;
+  stage_rows_split<float>(his, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, th);
+  stage_rows_split<float>(los, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, tl);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ns * t.nrows; e += blockDim.x) {
+    const int j = e / t.nrows, rr = e - j * t.nrows;
+    const long long g = global_row(t.r0 + rr, j, ns, m, tile, nblk);
+    if (g < 0) continue;
+    const float* hr = th + (j * R + rr) * ks;
+    const float* lr = tl + (j * R + rr) * ks;
+    const float* xb = x + (g / m) * k;
+    float acc_hi = 0.0f, acc_lo = 0.0f;
+    for (int c = 0; c < k; ++c) {
+      const float xc = __ldg(xb + c);
+      acc_hi = fmaf(hr[c], xc, acc_hi);
+      acc_lo = fmaf(lr[c], xc, acc_lo);
+    }
+    y[g] = acc_hi + acc_lo;
+  }
+}
+
+// Same rounded-intrinsic recurrence as block_mv_comp_kernel.
+__global__ void __launch_bounds__(kMaxThreads)
+    block_mv_comp_splitk_kernel(SubTables his, SubTables los, int ns,
+                                const float* __restrict__ x_hi,
+                                const float* __restrict__ x_lo,
+                                float* __restrict__ y_hi,
+                                float* __restrict__ y_lo, long long nsub_rows,
+                                long long nblk, int m, int k, int ks, int R,
+                                int tile) {
+  extern __shared__ float smem[];
+  const SplitTile t = split_tile_of(nsub_rows, R);
+  float* th = smem;
+  float* tl = smem + ns * R * ks;
+  stage_rows_split<float>(his, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, th);
+  stage_rows_split<float>(los, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, tl);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ns * t.nrows; e += blockDim.x) {
+    const int j = e / t.nrows, rr = e - j * t.nrows;
+    const long long g = global_row(t.r0 + rr, j, ns, m, tile, nblk);
+    if (g < 0) continue;
+    const float* hr = th + (j * R + rr) * ks;
+    const float* lr = tl + (j * R + rr) * ks;
+    const long long xo = (g / m) * k;
+    float s = 0.0f, sl = 0.0f;
+    for (int c = 0; c < k; ++c) {
+      const float ah = hr[c], al = lr[c];
+      const float xhj = __ldg(x_hi + xo + c), xlj = __ldg(x_lo + xo + c);
+      const float p = __fmul_rn(ah, xhj);
+      const float err = __fmaf_rn(ah, xhj, -p);
+      const float small =
+          __fadd_rn(__fadd_rn(__fmul_rn(ah, xlj), __fmul_rn(al, xhj)), err);
+      const float tt = __fadd_rn(s, p);
+      const float bb = __fsub_rn(tt, s);
+      const float e2 =
+          __fadd_rn(__fsub_rn(s, __fsub_rn(tt, bb)), __fsub_rn(p, bb));
+      s = tt;
+      sl = __fadd_rn(sl, __fadd_rn(e2, small));
+    }
+    y_hi[g] = s;
+    y_lo[g] = sl;
+  }
+}
+
 struct Launch {
   int R = 0;        // rows per CTA
   int threads = 0;  // threads per CTA
   unsigned int grid = 0;
   size_t smem = 0;  // dynamic shared memory bytes
 };
+
+// Largest row stretch whose ntab x ns sub-table tiles fit the budget.
+Launch plan_splitk(long long nsub_rows, int ks, int ntab, int ns) {
+  Launch L;
+  const long long per_row = 4LL * ntab * ns * ks;
+  long long R = kSmemBudget / per_row;
+  if (R > kMaxThreads) R = kMaxThreads;
+  if (R < 1) return L;
+  L.R = static_cast<int>(R);
+  const long long work = static_cast<long long>(ns) * R;
+  L.threads = work >= kMaxThreads ? kMaxThreads
+                                  : static_cast<int>((work + 31) / 32 * 32);
+  L.smem = static_cast<size_t>(per_row * R);
+  L.grid = static_cast<unsigned int>((nsub_rows + R - 1) / R);
+  return L;
+}
+
+inline bool bad_split(int ns, long long nblk, long long nsub, int m, int k,
+                      int tile) {
+  return ns < 1 || ns > kMaxSplit || nblk < 0 || m <= 0 || k <= 0 ||
+         tile <= 0 || nsub % tile != 0 || nblk > ns * nsub;
+}
+
+SubTables sub_tables(const void* const* p, int ns) {
+  SubTables s;
+  for (int j = 0; j < kMaxSplit; ++j) s.p[j] = j < ns ? p[j] : p[0];
+  return s;
+}
 
 // Largest row tile whose ntab table tiles (row stride ks) and nxv x stages
 // fit the shared-memory budget.
@@ -317,6 +551,76 @@ int nstt_block_mv_comp_f32(const float* a_hi, const float* a_lo,
   block_mv_comp_kernel<<<L.grid, L.threads, L.smem,
                          static_cast<cudaStream_t>(stream)>>>(
       a_hi, a_lo, x_hi, x_lo, y_hi, y_lo, nrows, m, k, ks, L.R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Split-k entry points: subs points at ns sub-table pointers (host memory),
+// nblk is the real block count (rows of x and y), nsub the blocks of each
+// sub-table (a multiple of tile).
+
+int nstt_block_mv_splitk_f32(const void* const* subs, int ns, const float* x,
+                             float* y, long long nblk, int m, int k,
+                             long long nsub, int tile, void* stream) {
+  if (bad_split(ns, nblk, nsub, m, k, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const int ks = row_stride(k);
+  const Launch L = plan_splitk(nsub * m, ks, 1, ns);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  block_mv_splitk_kernel<float><<<L.grid, L.threads, L.smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      sub_tables(subs, ns), ns, x, y, nsub * m, nblk, m, k, ks, L.R, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nstt_block_mv_splitk_bf16(const void* const* subs, int ns, const float* x,
+                              float* y, long long nblk, int m, int k,
+                              long long nsub, int tile, void* stream) {
+  if (bad_split(ns, nblk, nsub, m, k, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const int ks = row_stride(k);
+  const Launch L = plan_splitk(nsub * m, ks, 1, ns);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  block_mv_splitk_kernel<__nv_bfloat16><<<L.grid, L.threads, L.smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
+      sub_tables(subs, ns), ns, x, y, nsub * m, nblk, m, k, ks, L.R, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nstt_block_mv2_splitk_f32(const void* const* his, const void* const* los,
+                              int ns, const float* x, float* y,
+                              long long nblk, int m, int k, long long nsub,
+                              int tile, void* stream) {
+  if (bad_split(ns, nblk, nsub, m, k, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const int ks = row_stride(k);
+  const Launch L = plan_splitk(nsub * m, ks, 2, ns);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  block_mv2_splitk_kernel<<<L.grid, L.threads, L.smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      sub_tables(his, ns), sub_tables(los, ns), ns, x, y, nsub * m, nblk, m,
+      k, ks, L.R, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nstt_block_mv_comp_splitk_f32(const void* const* his,
+                                  const void* const* los, int ns,
+                                  const float* x_hi, const float* x_lo,
+                                  float* y_hi, float* y_lo, long long nblk,
+                                  int m, int k, long long nsub, int tile,
+                                  void* stream) {
+  if (bad_split(ns, nblk, nsub, m, k, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const int ks = row_stride(k);
+  const Launch L = plan_splitk(nsub * m, ks, 2, ns);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  block_mv_comp_splitk_kernel<<<L.grid, L.threads, L.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      sub_tables(his, ns), sub_tables(los, ns), ns, x_hi, x_lo, y_hi, y_lo,
+      nsub * m, nblk, m, k, ks, L.R, tile);
   return static_cast<int>(cudaGetLastError());
 }
 

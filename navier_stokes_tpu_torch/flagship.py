@@ -2,8 +2,13 @@
 cylinder, to a true f64 relative residual of 1e-8.
 
 Counterpart of ``bench.py``'s ``measure`` / ``full_solve``
-(bench.py:338-561) for the straight geometry and the additive skeleton
-preconditioner (``BENCH_STRAIGHT=1 BENCH_GS=0``):
+(bench.py:338-561).  The defaults are bench.py's: the order-3 curved
+cylinder, the symmetric multicolor block-GS skeleton preconditioner with
+bf16 extension and inverse tables and coarse damping target 1.6, and no
+split-k.  ``build_model(curved=False)`` and ``FlagshipSolve(gs=False)``
+select the straight additive configuration (``BENCH_STRAIGHT=1
+BENCH_GS=0``); ``FlagshipSolve(split_k=k)`` streams the split tables
+through the split-k kernels (``NSTPU_SPLITK=k``).  The solve:
 
 * phase 1 -- float32 MINRES refinement passes on the Jacobi-equilibrated
   split-f32 system, with the adaptive pass tolerance, in chunks;
@@ -18,6 +23,9 @@ Usage::
     m = build_model(0.09)                 # CUDA; device="cpu" for the plain
     solver = FlagshipSolve(m)             # PyTorch versions on the CPU
     res = solver.full_solve()             # res.inner, res.seconds, res.true_rel
+
+    straight = build_model(0.09, curved=False)
+    additive = FlagshipSolve(straight, gs=False)
 """
 
 from __future__ import annotations
@@ -28,12 +36,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .mesh.curved import curve_to_cylinder_3d
 from .mesh.generators import channel_with_cylinder_mesh_3d
 from .models.navier_stokes_mcs import NavierStokesMCS
 from .solvers.minres import minres
 from .solvers.refinement import equilibrated_f32_ops
 
-__all__ = ["H", "uin", "build_model", "FlagshipSolve", "FlagshipResult"]
+__all__ = ["H", "uin", "cylinder_geometry", "build_model", "FlagshipSolve",
+           "FlagshipResult"]
 
 H = 0.41
 # MINRES iterations per call: bench.py's defaults (BENCH_CHUNK32/64); a
@@ -48,16 +58,27 @@ def uin(p):
     return out
 
 
+def cylinder_geometry(mesh):
+    """The order-3 curved cylinder of bench.py:121-136 (the reference's
+    mesh.Curve(3)).  A failed snap raises: there is no straight fallback."""
+    return curve_to_cylinder_3d(mesh, "cyl", (0.5, 0.2), 0.05, order=3)
+
+
 def build_model(maxh: float = 0.09, order: int = 2, nu: float = 1e-3,
                 device=None, assembly_cache: dict | None = None,
-                mesh=None) -> NavierStokesMCS:
-    """The bench configuration (bench.py:179-187) on straight geometry."""
+                mesh=None, curved: bool = True,
+                geometry=None) -> NavierStokesMCS:
+    """The bench configuration (bench.py:179-187): curved cylinder unless
+    ``curved=False``.  ``mesh`` and its ``geometry``
+    (:func:`cylinder_geometry`) are built here unless given."""
     if mesh is None:
         mesh = channel_with_cylinder_mesh_3d(maxh)
+    if curved and geometry is None:
+        geometry = cylinder_geometry(mesh)
     return NavierStokesMCS(
         mesh, nu=nu, inflow="inlet", outflow="outlet", wall="wall|cyl",
         uin=uin, timestep=2e-3, order=order, assembly_cache=assembly_cache,
-        device=device,
+        device=device, geometry=geometry if curved else None,
     )
 
 
@@ -78,18 +99,25 @@ class FlagshipResult:
 
 class FlagshipSolve:
     """Operators, right-hand side and refinement driver of the flagship
-    solve for a built model ``m``.  ``ext_store_dtype`` / ``store_dtype``:
-    storage of the preconditioner's extension tables (bf16, bench.py's
-    default) and of its edge-star inverses (f32)."""
+    solve for a built model ``m``.  ``gs``, the four table storage groups,
+    ``coarse_target`` and ``split_k`` are those of
+    :func:`~navier_stokes_tpu_torch.solvers.refinement.equilibrated_f32_ops`,
+    with bench.py's defaults."""
 
     def __init__(self, m: NavierStokesMCS, tol: float = 1e-8,
-                 ext_store_dtype=torch.bfloat16, store_dtype=torch.float32):
+                 gs: bool = True, split_k: int = 1,
+                 ext_dtype=torch.bfloat16, inv_dtype=torch.bfloat16,
+                 panel_dtype=torch.float32, sweep_dtype=torch.float32,
+                 coarse_target: float = 1.6):
         self.m = m
         self.tol = tol
+        self.gs, self.split_k = gs, split_k
         self.setup_seconds = {}
         t0 = time.perf_counter()
         self.ops32, self.D, self.ops_ds = equilibrated_f32_ops(
-            m, ext_store_dtype=ext_store_dtype, store_dtype=store_dtype)
+            m, gs=gs, ext_dtype=ext_dtype, inv_dtype=inv_dtype,
+            panel_dtype=panel_dtype, sweep_dtype=sweep_dtype,
+            coarse_target=coarse_target, split_k=split_k)
         self._sync()
         self.setup_seconds["equilibrated ops"] = time.perf_counter() - t0
         t0 = time.perf_counter()

@@ -1,16 +1,27 @@
-"""Skeleton preconditioner for the condensed 3D MCS operator (additive).
+"""Skeleton preconditioner for the condensed 3D MCS operator.
 
 Counterpart of ``navier_stokes_tpu/models/auxspace3d.py``, fast face-block
-path with the additive edge-star smoother (``gs=False``):
+path:
 
-  preA = E (smooth_S + T coarse T^T) E^T + I_i A_ii^{-1} I_i^T,
+  preA = E pre_skel E^T + I_i A_ii^{-1} I_i^T,
 
-with E the harmonic extension of skeleton values into element interiors,
-S the skeleton Schur complement, the edge-star block smoother on S
-(ops/faceblock.FaceStarSmoother) and the vector-P1 auxiliary-space coarse
-correction through the face-layout transfer.  Every table apply (extension,
-its transpose, interior solve, M_F and M_F^T, edge-star inverses) is a
-:func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv` launch.
+with E the harmonic extension of skeleton values into element interiors
+and pre_skel a preconditioner of the skeleton Schur complement S, built
+from the edge-star blocks of S (ops/faceblock.FaceStarSmoother) and the
+vector-P1 auxiliary-space coarse correction through the face-layout
+transfer:
+
+* ``gs=True`` (bench.py's default): the symmetric multicolor block-GS sweep
+  -- forward colors, the damped coarse correction on the residual, backward
+  colors -- with each color's residual from row panels of S;
+* ``gs=False``: the additive edge-star smoother plus the coarse correction.
+
+Every table apply (extension, its transpose, interior solve, M_F and
+M_F^T, S, edge-star inverses, GS panels and color solves) is a
+:func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv` launch, or with
+``split_k`` > 1 a :func:`~navier_stokes_tpu_torch.ops.block_mv.
+block_mv_splitk` launch for the tables the JAX package splits (all but the
+GS panels and color solves).
 
 The interior Schur complement and the edge-star inverses are computed in
 f64 (host numpy, resp. torch f64 on the device) and cast to the storage
@@ -18,6 +29,8 @@ dtypes, as the JAX package's host path does.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -27,12 +40,14 @@ from ..fem.reference import triangle_modal
 from ..fem.spaces import H1
 from ..ops.block_mv import make_table_apply
 from ..ops.faceblock import FaceBlockLayout, face_star_smoother
+from ..precond.multicolor import color_blocks, damped_coarse
 from ..precond.twolevel import coarse_p1_solver
 
 __all__ = ["hybrid_h1_face_transfer", "build_skeleton_preconditioner_3d"]
 
 
-def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32):
+def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
+                            split_k: int = 1):
     """Face-layout P1 transfer for the skeleton coarse correction:
     ``TF (nv, 3) -> (nface, nfb)`` and its exact transpose ``TFt``.
 
@@ -74,10 +89,11 @@ def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32):
         "jv,fdc->fjdvc", cjv_fac[:nss], W
     ).reshape(nface, 2 * nss, 9)
 
-    MF_apply = make_table_apply(M_F, store_dtype=dtype, device=dev)
+    MF_apply = make_table_apply(M_F, store_dtype=dtype, device=dev,
+                                split_k=split_k)
     MFt_apply = make_table_apply(
         np.ascontiguousarray(M_F.transpose(0, 2, 1)), store_dtype=dtype,
-        device=dev)
+        device=dev, split_k=split_k)
 
     # vertex accumulation plan for the transpose: (face, slot) pairs per
     # vertex, padded to the max valence (pad index -> appended zero row)
@@ -110,19 +126,28 @@ def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32):
 def build_skeleton_preconditioner_3d(
     V, A_np: np.ndarray, velocity_dirichlet: str, device,
     dtype=torch.float32, coarse_coefficient: float = 1.0,
-    dof_scale: np.ndarray | None = None, store_dtype=None,
-    ext_store_dtype=None,
+    dof_scale: np.ndarray | None = None, gs: bool = True,
+    ext_dtype=torch.bfloat16, inv_dtype=torch.bfloat16,
+    panel_dtype=torch.float32, sweep_dtype=torch.float32,
+    coarse_target: float = 1.6, split_k: int = 1,
 ):
-    """Condensation-aware additive preconditioner for the condensed 3D MCS
+    """Condensation-aware preconditioner for the condensed 3D MCS
     operator: exact batched solve of the element-interior block, the
-    edge-star block smoother on the skeleton Schur complement, and the
-    vector-P1 auxiliary-space coarse correction.
+    edge-star smoother on the skeleton Schur complement (symmetric
+    multicolor GS with ``gs=True``, additive otherwise), and the vector-P1
+    auxiliary-space coarse correction.
 
     ``A_np``: (ne, nb, nb) f64 element tables in FLAT element order
     (equilibrated when ``dof_scale`` = D is given: A~ = D A D, and the
-    coarse transfer becomes D^{-1} T).  ``store_dtype`` stores the edge-star
-    inverses, ``ext_store_dtype`` the extension and interior tables;
-    arithmetic is ``dtype`` (f32)."""
+    coarse transfer becomes D^{-1} T).  Table storage, by the JAX package's
+    groups (``NSTPU_SMOOTHER_BF16``, refinement.py:383-412; defaults are
+    bench.py's "ext,inv"): ``ext_dtype`` the extension and interior tables,
+    ``inv_dtype`` the GS color-solve inverses, ``panel_dtype`` the GS row
+    panels, ``sweep_dtype`` the skeleton table S and the additive edge-star
+    inverses.  Arithmetic, and the coarse transfer, are ``dtype`` (f32).
+    ``coarse_target``: the damping target of the multiplicative coarse
+    correction (``NSTPU_COARSE_TARGET``; bench.py's 1.6).  ``split_k``
+    (``NSTPU_SPLITK``): sub-tables of the split-k table applies."""
     mesh = V.mesh
     nbv = V.hdiv.n_basis
     n_face_tot = 4 * V.hdiv.n_face_dofs
@@ -131,19 +156,23 @@ def build_skeleton_preconditioner_3d(
     loc_skel = np.concatenate(
         [np.arange(n_face_tot), np.arange(nbv, nbv + nfac)]
     )
-    # interior Schur complement in f64 on the host (flat element order)
+    # interior Schur complement in f64 on the host (flat element order);
+    # A_ii^{-1} and S are symmetrized before they are rounded to their
+    # storage dtypes, so that the stored tables -- and with them the GS
+    # sweep -- are exactly symmetric (unsymmetrized, f64 roundoff crossing
+    # f32 rounding boundaries leaves ~1e-7 of asymmetry)
     A_ii = A_np[:, loc_int[:, None], loc_int[None, :]]
     A_is = A_np[:, loc_int[:, None], loc_skel[None, :]]
     A_ss = A_np[:, loc_skel[:, None], loc_skel[None, :]]
-    A_ii_inv = np.linalg.inv(A_ii)
+    A_ii_inv = _sym(np.linalg.inv(A_ii))
     AinvAis = np.matmul(A_ii_inv, A_is)  # (ne, n_int, n_skel)
-    S_loc = A_ss - np.matmul(A_is.transpose(0, 2, 1), AinvAis)
+    S_loc = _sym(A_ss - np.matmul(A_is.transpose(0, 2, 1), AinvAis))
 
     space = H1(mesh, 1, dirichlet=velocity_dirichlet)
     solve1 = coarse_p1_solver(space, coarse_coefficient, dtype, device)
 
     lay = FaceBlockLayout(V, device)
-    TF, TFt = hybrid_h1_face_transfer(V, lay, dtype)
+    TF, TFt = hybrid_h1_face_transfer(V, lay, dtype, split_k)
     tables = {"M_F": TF.table, "M_F^T": TFt.table}
     if dof_scale is None:
         def coarse_vc(rF):
@@ -164,34 +193,48 @@ def build_skeleton_preconditioner_3d(
         def coarse_vc(rF):
             return DinvF * TF(solve1(TFt(DinvF * rF)))
 
-    sdt = store_dtype or dtype
     preA = _build_skeleton_fast(
-        V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, sdt,
-        ext_sdt=ext_store_dtype or sdt,
+        V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, dtype, gs=gs,
+        ext_dtype=ext_dtype, inv_dtype=inv_dtype, panel_dtype=panel_dtype,
+        sweep_dtype=sweep_dtype, coarse_target=coarse_target,
+        split_k=split_k,
     )
     preA.parts["tables"].update(tables)
     return preA
 
 
-def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, sdt,
-                         ext_sdt):
-    """Face-block rendering of the additive skeleton preconditioner, every
-    batched block matvec a :func:`block_mv` table apply.  ``preA.parts``
-    holds its components for per-part timings and, under ``"tables"``, the
-    device table of every :func:`block_mv` it launches."""
+def _sym(A: np.ndarray) -> np.ndarray:
+    return 0.5 * (A + A.transpose(0, 2, 1))
+
+
+def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
+                         ext_dtype, inv_dtype, panel_dtype, sweep_dtype,
+                         coarse_target, split_k):
+    """Face-block rendering of the skeleton preconditioner, every batched
+    block matvec a table apply; ``cdt`` is the arithmetic dtype.
+    ``preA.parts`` holds its components for per-part timings and, under
+    ``"tables"``, the device table of every table apply it launches (per GS
+    color: the panels and the solve table)."""
     dev = lay.device
     free = torch.as_tensor(V.free_mask, device=dev)
     S_perm_np = lay.permute_skel_blocks(S_loc)
-    sm = face_star_smoother(lay, S_perm_np, V.free_mask, sdt)
+    sm = face_star_smoother(lay, S_perm_np, V.free_mask, sweep_dtype,
+                            split_k, cdt)
     freeF = sm.freeF
 
     AinvAis_perm = np.ascontiguousarray(AinvAis[:, :, lay.perm_skel])
-    ext_apply = make_table_apply(AinvAis_perm, store_dtype=ext_sdt,
-                                 device=dev)
+    ext_apply = make_table_apply(AinvAis_perm, store_dtype=ext_dtype,
+                                 device=dev, split_k=split_k,
+                                 compute_dtype=cdt)
     extT_apply = make_table_apply(
         np.ascontiguousarray(AinvAis_perm.transpose(0, 2, 1)),
-        store_dtype=ext_sdt, device=dev)
-    inner_apply = make_table_apply(A_ii_inv, store_dtype=ext_sdt, device=dev)
+        store_dtype=ext_dtype, device=dev, split_k=split_k,
+        compute_dtype=cdt)
+    inner_apply = make_table_apply(A_ii_inv, store_dtype=ext_dtype,
+                                   device=dev, split_k=split_k,
+                                   compute_dtype=cdt)
+    tables = {"ext": ext_apply.table, "ext^T": extT_apply.table,
+              "inner": inner_apply.table}
 
     def ext_fb(yF):
         """Interiors from skeleton values (face layout)."""
@@ -201,9 +244,74 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, sdt,
         """Fold interior residual into the skeleton (face layout)."""
         return xF + lay.scatter_skel(-extT_apply(xi))
 
-    def pre_skel_faces(xF):
-        yF = sm.smooth_faces(xF)
-        return yF + torch.where(freeF, coarse_vc(xF), 0.0)
+    parts = {"ext": ext_fb, "extT": extT_fb, "layout": lay, "smoother": sm}
+    if gs:
+        S_elem_apply = make_table_apply(S_perm_np, store_dtype=sweep_dtype,
+                                        device=dev, split_k=split_k,
+                                        compute_dtype=cdt)
+        tables["S"] = S_elem_apply.table
+
+        def S_faces(xF):
+            """Skeleton operator purely in face layout (free-masked)."""
+            xF = torch.where(freeF, xF, 0.0)
+            ye = S_elem_apply(lay.gather_skel(xF).contiguous())
+            return torch.where(freeF, lay.scatter_skel(ye), 0.0)
+
+        # color edge-stars so same-color blocks are operator-decoupled
+        # (they must not touch a common element)
+        nfb = lay.nfb
+        t0 = time.perf_counter()
+        blocks_fb = [(np.asarray(f)[:, None] * nfb
+                      + np.arange(nfb)[None, :]).ravel()
+                     for f in sm.block_faces]
+        colors = color_blocks(blocks_fb, lay.nface * nfb, lay.eldofs_fb)
+        t1 = time.perf_counter()
+        groups = sm.color_row_groups(colors, panel_dtype, inv_dtype)
+        t2 = time.perf_counter()
+        for c, g in enumerate(groups):
+            tables[f"GS color {c} panels"] = g.panels.table
+            tables[f"GS color {c} solve"] = g.solve.table
+
+        def coarse_faces(rF):
+            return torch.where(freeF, coarse_vc(rF), 0.0)
+
+        # the example vector of the JAX package (default_rng(7))
+        rng = np.random.default_rng(7)
+        exF = torch.as_tensor(rng.standard_normal((lay.nface, nfb)),
+                              device=dev).to(cdt) * freeF
+        coarse_gs, lam, theta = damped_coarse(coarse_faces, S_faces, exF,
+                                              target=coarse_target)
+        setup_seconds = {"coloring": t1 - t0, "row-panel groups": t2 - t1,
+                         "coarse damping": time.perf_counter() - t2}
+
+        def pre_skel_faces(xF):
+            """Symmetric sweep: forward colors, the damped coarse
+            correction on the residual, backward colors.  The iterate is
+            row-major (nface+1, nfb) with one zero pad row."""
+            zrow = xF.new_zeros((1, nfb))
+            xP = torch.cat([xF, zrow])
+            y = None  # zero iterate: the first color reads x directly
+            for g in groups:
+                dy = sm.solve_color_rows(g, xP, y)
+                y = dy if y is None else y + dy
+            yF = y[:-1]
+            yF = yF + coarse_gs(xF - S_faces(yF))
+            yP = torch.cat([yF, zrow])
+            for g in reversed(groups):
+                yP = yP + sm.solve_color_rows(g, xP, yP)
+            return yP[:-1]
+
+        parts.update(coarse_only=coarse_gs, S_faces=S_faces, groups=groups,
+                     colors=colors, coarse_lambda=lam, coarse_theta=theta,
+                     setup_seconds=setup_seconds)
+    else:
+        def pre_skel_faces(xF):
+            yF = sm.smooth_faces(xF)
+            return yF + torch.where(freeF, coarse_vc(xF), 0.0)
+
+        parts.update(coarse_only=coarse_vc, smooth_only=sm.smooth_faces)
+        for faces_b, solve in sm.buckets:
+            tables[f"edge-star inv {faces_b.shape[1]} faces"] = solve.table
 
     def preA(x):
         xf = torch.where(free, x, 0.0)
@@ -214,20 +322,6 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, sdt,
         return torch.where(free, lay.join(yF, yi), x)
 
     # component probes (face-layout in/out) for per-part timings
-    preA.parts = {
-        "pre_skel": pre_skel_faces,
-        "coarse_only": coarse_vc,
-        "smooth_only": sm.smooth_faces,
-        "ext": ext_fb,
-        "extT": extT_fb,
-        "layout": lay,
-        "smoother": sm,
-        "tables": {
-            "ext": ext_apply.table,
-            "ext^T": extT_apply.table,
-            "inner": inner_apply.table,
-            **{f"edge-star inv {faces_b.shape[1]} faces": solve.table
-               for faces_b, solve in sm.buckets},
-        },
-    }
+    parts.update(pre_skel=pre_skel_faces, tables=tables)
+    preA.parts = parts
     return preA

@@ -1,16 +1,20 @@
 """Navier-Stokes on the MCS discretization in 3D — the flagship model.
 
-Counterpart of ``navier_stokes_tpu/models/navier_stokes_mcs.py``, 3D and
-straight geometry only, up to the operators of the initial Stokes solve:
-V = BDM_k H(div) velocity on tets, tangential facet velocity of order k-1,
-H(curl,div) stress sigma and the vector vorticity multiplier W, with sigma
-and W eliminated per element by batched static condensation.  The
-condensed [H(div) | facet] operator A, the pressure coupling B (L2 order
-k-1) and the pressure-mass preconditioner preM are built here; element
-assembly and condensation run once on the host in f64 numpy, the
-face-major operator tables live on ``device`` in f64.
+Counterpart of ``navier_stokes_tpu/models/navier_stokes_mcs.py``, 3D only,
+up to the operators of the initial Stokes solve: V = BDM_k H(div) velocity
+on tets, tangential facet velocity of order k-1, H(curl,div) stress sigma
+and the vector vorticity multiplier W, with sigma and W eliminated per
+element by batched static condensation.  The condensed [H(div) | facet]
+operator A, the pressure coupling B (L2 order k-1) and the pressure-mass
+preconditioner preM are built here; element assembly and condensation run
+once on the host in f64 numpy, the face-major operator tables live on
+``device`` in f64.
 
-Not carried over (yet): 2D, curved geometry, convection and time stepping.
+With ``geometry=`` (mesh/curved.curve_to_cylinder_3d) the curved-layer
+element rows are re-assembled isoparametrically, as the bench's default
+order-3 curved cylinder.
+
+Not carried over (yet): 2D, convection and time stepping.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from ..device import resolve_device
 from ..fem.hcurldiv3d import hcurldiv_tet
 from ..fem.hdiv3d import HDiv3D
 from ..fem.quadrature import tetrahedron_rule
-from ..fem.reference import triangle_modal
+from ..fem.reference import TET_FACES, TET_VERTICES, triangle_modal
 from ..fem.spaces import L2
 from ..ops.assembly import mass_diagonal
 from ..ops.faceblock import FaceBlockLayout
@@ -35,7 +39,7 @@ from .stokes_hybrid3d import (
 
 __all__ = ["NavierStokesMCS", "load_host_tables"]
 
-_CACHE_KEYS = {"tabs3d": 5, "cond": 2}
+_CACHE_KEYS = {"tabs3d": 5, "cond": 2, "tabs3d_curved": 5, "cond_curved": 2}
 
 
 def _assemble_mcs_ns_local_3d(mesh, V, facet_space, sigma_basis, Wq_basis,
@@ -217,6 +221,170 @@ def _assemble_mcs_ns_local_3d(mesh, V, facet_space, sigma_basis, Wq_basis,
     return A_ret, A_rc, A_cc, M_full, B_loc
 
 
+def _assemble_mcs_ns_local_curved_3d(V, facet_space, sigma_basis, Wq_basis,
+                                     Q_basis, nu, geometry, A_ret, A_rc, A_cc,
+                                     M_full, B_loc):
+    """Overwrite the CURVED-element rows of the affine 3D MCS tables with
+    the isoparametric (order-g tet Lagrange map) assembly.
+
+    Counterpart of ``_assemble_mcs_ns_local_curved_3d`` of the JAX package.
+    Only ``geometry.curved_elements`` are re-assembled per quadrature point;
+    all other elements keep the affine tables.  Pullbacks:
+
+      sigma_phys_ij = Jinv_ai sigmahat_ab J_jb / detJ     (H(curl,div))
+      v_phys        = J vhat / detJ                        (H(div) Piola)
+      div u         = divhat u / detJ
+      d_B detJ      = detJ tr(Jinv dJ/dB)                  (Jacobi)
+
+    div(sigma_phys) picks up the curvature terms of dJinv, dJ and ddet.
+    Facet integrals use the exact curved scaled normal of each face's
+    sorted-global reference frame; the facet space keeps its affine-face
+    frame, and sigma.n is tangentialized against the curved unit normal.
+    Mutates the five tables in place."""
+    from ..mesh.curved import geometry_hessian_3d, geometry_tables_3d
+
+    mesh = V.mesh
+    sel_all = np.asarray(geometry.curved_elements)
+    if not len(sel_all):
+        return
+    gb = geometry.basis
+    k = V.order
+    nbv = V.n_basis
+    sb = sigma_basis
+    nbs = sb.n_basis
+    nfd = facet_space.n_face
+    nbw = 3 * Wq_basis.n_basis
+
+    # 2k+3: one degree above the affine assembler's exactness (the curved
+    # integrands are rational)
+    vol = tetrahedron_rule(2 * k + 3)
+    w = vol.weights
+    s_val, s_grad = sb.tabulate(vol.points)  # (nq,nbs,3,3), (nq,nbs,3,3,3)
+    w_val, _ = Wq_basis.tabulate(vol.points)
+    q_val, _ = Q_basis.tabulate(vol.points)
+    vtabs = [b.tabulate(vol.points) for b in V.bases]
+
+    A_ret[sel_all] = 0.0
+    A_rc[sel_all] = 0.0
+    A_cc[sel_all] = 0.0
+    M_full[sel_all] = 0.0
+    B_loc[sel_all] = 0.0
+
+    # 64-element chunks bound the per-point intermediates (~2.6 MB/element)
+    for chunk in np.array_split(sel_all, max(1, len(sel_all) // 64)):
+        nc = len(chunk)
+        J, detJ, Jinv, _ = geometry_tables_3d(
+            geometry.coords[chunk], gb, vol.points)
+        H = geometry_hessian_3d(geometry.coords[chunk], gb, vol.points)
+        cids = V.combo_ids[chunk]
+        v_val = np.stack([vtabs[c][0] for c in cids])  # (nc, nq, nbv, 3)
+        v_grad = np.stack([vtabs[c][1] for c in cids])
+
+        sp = np.einsum(
+            "eqai,qnab,eqjb->eqnij", Jinv, s_val, J, optimize=True
+        ) / detJ[..., None, None, None]
+        A_cc[chunk, :nbs, :nbs] += -(0.5 / nu) * np.einsum(
+            "q,eqnij,eqmij,eq->enm", w, sp, sp, detJ, optimize=True)
+        skw = np.stack(
+            [
+                sp[..., 0, 1] - sp[..., 1, 0],
+                sp[..., 2, 0] - sp[..., 0, 2],
+                sp[..., 1, 2] - sp[..., 2, 1],
+            ],
+            axis=2,
+        )  # (nc, nq, 3, nbs)
+        wr = np.einsum(
+            "q,qn,eqcm,eq->ecnm", w, w_val, skw, detJ, optimize=True
+        ).reshape(nc, nbw, nbs)
+        A_cc[chunk, nbs:, :nbs] += wr
+        A_cc[chunk, :nbs, nbs:] += wr.transpose(0, 2, 1)
+
+        # div(sigma) with curvature terms, contracted term by term
+        ddet = detJ[..., None] * np.einsum(
+            "eqdc,eqcdB->eqB", Jinv, H, optimize=True)
+        dJinv = -np.einsum(
+            "eqac,eqcdB,eqdi->eqaiB", Jinv, H, Jinv, optimize=True)
+        JJ = np.einsum("eqjb,eqBj->eqbB", J, Jinv, optimize=True)
+        div_s = (
+            np.einsum("eqaiB,qnab,eqbB->eqni", dJinv, s_val, JJ,
+                      optimize=True)
+            + np.einsum("eqai,qnabB,eqbB->eqni", Jinv, s_grad, JJ,
+                        optimize=True)
+            + np.einsum("eqai,qnab,eqjbB,eqBj->eqni", Jinv, s_val, H,
+                        Jinv, optimize=True)
+        ) / detJ[..., None, None]
+        dd2 = np.einsum("eqB,eqBj->eqj", ddet / detJ[..., None], Jinv,
+                        optimize=True)
+        div_s -= np.einsum("eqnij,eqj->eqni", sp, dd2, optimize=True)
+        Jv = np.einsum("eqcA,eqnA->eqnc", J, v_val, optimize=True)
+        A_rc[chunk, :nbv, :nbs] += np.einsum(
+            "q,eqmi,eqni->enm", w, div_s, Jv, optimize=True)
+
+        # grad-div, pressure coupling, velocity mass
+        dvr = np.einsum("eqnaa->eqn", v_grad)
+        A_ret[chunk, :nbv, :nbv] += 2.0 * nu * np.einsum(
+            "q,eqn,eqm,eq->enm", w, dvr, dvr, 1.0 / detJ, optimize=True)
+        B_loc[chunk, :, :nbv] = np.einsum(
+            "q,qp,eqn->epn", w, q_val, dvr, optimize=True)
+        G = np.einsum("eqca,eqcb->eqab", J, J, optimize=True)
+        M_full[chunk, :nbv, :nbv] = np.einsum(
+            "q,eqna,eqab,eqmb,eq->enm", w, v_val, G, v_val, 1.0 / detJ,
+            optimize=True)
+
+    # facet terms, grouped by combo so each face's (orientation-dependent)
+    # reference points are shared within a group
+    fg = facet_geometry_3d(mesh, 2 * k + 4)
+    fvals, _ = triangle_modal(fg.qp, facet_space.order)  # (nq2, nss)
+    for c in range(len(V.bases)):
+        sel_c = sel_all[V.combo_ids[sel_all] == c]
+        if not len(sel_c):
+            continue
+        for lf in range(4):
+            for sel in np.array_split(sel_c, max(1, len(sel_c) // 256)):
+                p0 = fg.ref_points[sel[0], lf]
+                Jf, detf, Jinvf, _ = geometry_tables_3d(
+                    geometry.coords[sel], gb, p0)
+                vtr, _ = V.bases[c].tabulate(p0)  # (nq2, nbv, 3)
+                str_, _ = sb.tabulate(p0)  # (nq2, nbs, 3, 3)
+                perm = fg.face_perm[sel[0], lf]
+                lv = TET_VERTICES[np.asarray(TET_FACES[lf])[perm]]
+                e1r, e2r = lv[1] - lv[0], lv[2] - lv[0]
+                t1 = np.einsum("eqcd,d->eqc", Jf, e1r, optimize=True)
+                t2 = np.einsum("eqcd,d->eqc", Jf, e2r, optimize=True)
+                nsc = np.cross(t1, t2)  # (nc, nq2, 3), |.| = dS/(ds dt)
+                sgn = np.sign(np.einsum(
+                    "eqc,ec->eq", nsc, fg.normal[sel, lf]).sum(axis=1))
+                nsc *= sgn[:, None, None]  # outward, as the affine normal
+                dsq = np.linalg.norm(nsc, axis=-1)
+                n_unit = nsc / dsq[..., None]
+
+                v_tp = np.einsum(
+                    "eqcA,qiA->eqic", Jf, vtr, optimize=True
+                ) / detf[..., None, None]
+                s_tp = np.einsum(
+                    "eqai,qnab,eqjb->eqnij", Jinvf, str_, Jf, optimize=True
+                ) / detf[..., None, None, None]
+                vn = np.einsum("eqic,eqc->eqi", v_tp, n_unit, optimize=True)
+                sn = np.einsum("eqnij,eqj->eqni", s_tp, n_unit,
+                               optimize=True)
+                snn = np.einsum("eqni,eqi->eqn", sn, n_unit, optimize=True)
+                A_rc[sel, :nbv, :nbs] -= np.einsum(
+                    "q,eqm,eqi,eq->eim", fg.qw, snn, vn, dsq, optimize=True)
+                # tangential facet pairing in the affine-face frame E_d;
+                # facet dof ordering j*2+d as the affine path
+                sn_t = sn - snn[..., None] * n_unit[:, :, None, :]
+                Ed = fg.frame[sel, lf]  # (nc, 2, 3)
+                blk2 = np.einsum(
+                    "q,qj,eqmc,edc,eq->ejdm", fg.qw, fvals, sn_t, Ed, dsq,
+                    optimize=True,
+                ).reshape(len(sel), nfd, nbs)
+                A_rc[
+                    sel[:, None, None],
+                    nbv + lf * nfd + np.arange(nfd)[None, :, None],
+                    np.arange(nbs)[None, None, :],
+                ] -= blk2
+
+
 def load_host_tables(arrays: dict) -> dict:
     """Host assembly tables of a model build, as an ``assembly_cache`` for
     :class:`NavierStokesMCS`.
@@ -225,7 +393,9 @@ def load_host_tables(arrays: dict) -> dict:
     M_full, B_loc) and ``cond`` = (Acc_inv, A_cond) -- either as tuples or
     flattened as ``tabs3d_0`` ... ``tabs3d_4``, ``cond_0``, ``cond_1`` (the
     layout of the JAX package's assembly cache and of bench.py's on-disk
-    cache).  The model then builds from exactly these tables."""
+    cache).  A curved-geometry build reads ``tabs3d_curved`` and
+    ``cond_curved`` instead (bench.py:139-141).  The model then builds from
+    exactly these tables."""
     out = {}
     for key, n in _CACHE_KEYS.items():
         if key in arrays:
@@ -243,17 +413,22 @@ def load_host_tables(arrays: dict) -> dict:
 
 
 class NavierStokesMCS:
-    """3D MCS model (straight geometry): spaces, condensed operators and
-    the initial-solve right-hand side.
+    """3D MCS model: spaces, condensed operators and the initial-solve
+    right-hand side.
 
     ``device``: where the operator tables live; CUDA unless the caller
-    passes ``device="cpu"``.  ``assembly_cache``: a dict (see
-    :func:`load_host_tables`) whose ``tabs3d`` / ``cond`` entries replace
-    host assembly and condensation; filled in when they are missing."""
+    passes ``device="cpu"``.  ``geometry``: a
+    :class:`~navier_stokes_tpu_torch.mesh.curved.CurvedGeometry3D` whose
+    curved elements are assembled isoparametrically (None: straight).
+    ``assembly_cache``: a dict (see :func:`load_host_tables`) whose
+    ``tabs3d`` / ``cond`` entries (``tabs3d_curved`` / ``cond_curved`` with
+    a geometry) replace host assembly and condensation; filled in when they
+    are missing."""
 
     def __init__(self, mesh, nu: float, inflow: str, outflow: str,
                  wall: str, uin, timestep: float, order: int = 2,
-                 assembly_cache: dict | None = None, device=None):
+                 assembly_cache: dict | None = None, device=None,
+                 geometry=None):
         if mesh.dim != 3:
             raise NotImplementedError("the port carries the 3D model only")
         self.device = dev = resolve_device(device)
@@ -271,26 +446,35 @@ class NavierStokesMCS:
         )
         self.Xv = HybridVelocitySpace3D(self.V, self.Vhat)
         self.sigma_basis = hcurldiv_tet(order, order_trace=order - 1)
-        if assembly_cache is not None and "tabs3d" in assembly_cache:
-            A_ret, A_rc, A_cc, M_full_np, B_loc_np = assembly_cache["tabs3d"]
+        self.geometry = geometry
+        tkey = "tabs3d" if geometry is None else "tabs3d_curved"
+        if assembly_cache is not None and tkey in assembly_cache:
+            A_ret, A_rc, A_cc, M_full_np, B_loc_np = assembly_cache[tkey]
         else:
             A_ret, A_rc, A_cc, M_full_np, B_loc_np = _assemble_mcs_ns_local_3d(
                 mesh, self.V, self.Vhat, self.sigma_basis,
                 self.Wspace.basis, self.Q.basis, nu,
             )
+            if geometry is not None:
+                # isoparametric overwrite of the curved-layer rows
+                _assemble_mcs_ns_local_curved_3d(
+                    self.V, self.Vhat, self.sigma_basis, self.Wspace.basis,
+                    self.Q.basis, nu, geometry, A_ret, A_rc, A_cc, M_full_np,
+                    B_loc_np)
             if assembly_cache is not None:
-                assembly_cache["tabs3d"] = (A_ret, A_rc, A_cc, M_full_np,
-                                            B_loc_np)
+                assembly_cache[tkey] = (A_ret, A_rc, A_cc, M_full_np,
+                                        B_loc_np)
         # static condensation: batched dense elimination of (sigma, W)
-        if assembly_cache is not None and "cond" in assembly_cache:
-            self._Acc_inv, self.A_cond_np = assembly_cache["cond"]
+        ckey = "cond" if geometry is None else "cond_curved"
+        if assembly_cache is not None and ckey in assembly_cache:
+            self._Acc_inv, self.A_cond_np = assembly_cache[ckey]
         else:
             self._Acc_inv = np.linalg.inv(A_cc)
             self.A_cond_np = A_ret - np.einsum(
                 "eic,ecd,ejd->eij", A_rc, self._Acc_inv, A_rc, optimize=True
             )
             if assembly_cache is not None:
-                assembly_cache["cond"] = (self._Acc_inv, self.A_cond_np)
+                assembly_cache[ckey] = (self._Acc_inv, self.A_cond_np)
         self.B_loc_np = np.asarray(B_loc_np)
 
         n = self.Xv.ndof

@@ -16,6 +16,21 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
   y_hi + y_lo carries ~2^-45 of sum_j |a_ij x_j| — the phase-2 operators
   and every per-pass residual.
 
+Three more run the same functions over a table cut into k
+consecutive-tile sub-tables (:func:`pack_splitk`), all k given to ONE
+launch as separate operands, with every sub-table's loads issued before
+the arithmetic:
+
+* :func:`block_mv_splitk` replaces ``_mv_kernel_splitk``
+  (pallas_mv.py:305);
+* :func:`block_mv2_splitk` replaces ``_mv2_kernel_splitk``
+  (pallas_mv.py:358);
+* :func:`block_mv_comp_splitk` replaces ``_mv_comp_kernel_splitk``
+  (pallas_mv.py:397).
+
+They keep their unsplit kernel's per-row accumulation order, so on the
+same table a split-k result is bitwise equal to the unsplit one.
+
 Each is bound by device memory bandwidth: it reads its table bytes once
 (plus the small x and y), against 2 (about 15 for the compensated kernel)
 flops per table element.  At the maxh=0.09 shapes the phase-1 A32 split
@@ -48,10 +63,16 @@ import torch
 __all__ = [
     "LAUNCHES", "reset_launches", "build_library", "load_library", "block_mv",
     "block_mv_plain", "block_mv2", "block_mv2_plain", "block_mv_comp",
-    "block_mv_comp_plain", "split_f64", "make_table_apply",
+    "block_mv_comp_plain", "split_f64", "make_table_apply", "MAX_SPLIT",
+    "pack_splitk", "block_mv_splitk", "block_mv_splitk_plain",
+    "block_mv2_splitk", "block_mv2_splitk_plain", "block_mv_comp_splitk",
+    "block_mv_comp_splitk_plain",
 ]
 
-LAUNCHES = {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0}
+LAUNCHES = {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0,
+            "block_mv_splitk": 0, "block_mv2_splitk": 0,
+            "block_mv_comp_splitk": 0}
+MAX_SPLIT = 8  # sub-tables one split-k launch takes (csrc kMaxSplit)
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "block_mv.cu"
@@ -113,8 +134,22 @@ def load_library():
         lib.nstt_block_mv2_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
         lib.nstt_block_mv_comp_f32.argtypes = [p, p, p, p, p, p, i64, i32,
                                                i32, p]
+        # split-k: (pointer array, k, ..., rows per sub-table, tile, stream)
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        lib.nstt_block_mv_splitk_f32.argtypes = [pp, i32, p, p, i64, i32,
+                                                 i32, i64, i32, p]
+        lib.nstt_block_mv_splitk_bf16.argtypes = [pp, i32, p, p, i64, i32,
+                                                  i32, i64, i32, p]
+        lib.nstt_block_mv2_splitk_f32.argtypes = [pp, pp, i32, p, p, i64, i32,
+                                                  i32, i64, i32, p]
+        lib.nstt_block_mv_comp_splitk_f32.argtypes = [pp, pp, i32, p, p, p, p,
+                                                      i64, i32, i32, i64, i32,
+                                                      p]
         for fn in (lib.nstt_block_mv_f32, lib.nstt_block_mv_bf16,
-                   lib.nstt_block_mv2_f32, lib.nstt_block_mv_comp_f32):
+                   lib.nstt_block_mv2_f32, lib.nstt_block_mv_comp_f32,
+                   lib.nstt_block_mv_splitk_f32, lib.nstt_block_mv_splitk_bf16,
+                   lib.nstt_block_mv2_splitk_f32,
+                   lib.nstt_block_mv_comp_splitk_f32):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -131,8 +166,9 @@ def _check_table(A, name, dtypes=(torch.float32,)):
 
 def _check_vec(x, A, name):
     nblk, _, k = A.shape
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {x.dtype}")
+    want = torch.float64 if A.dtype == torch.float64 else torch.float32
+    if x.dtype != want:
+        raise TypeError(f"{name}: expected {want}, got {x.dtype}")
     if tuple(x.shape) != (nblk, k):
         raise ValueError(f"{name}: expected {(nblk, k)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -162,19 +198,25 @@ def _stream(t) -> int:
 
 
 def block_mv_plain(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`block_mv` (f32 arithmetic)."""
-    return torch.einsum("bmk,bk->bm", A.to(torch.float32), x)
+    """Plain PyTorch version of :func:`block_mv` (arithmetic in x's dtype:
+    f32, or f64 for an f64 table)."""
+    return torch.einsum("bmk,bk->bm", A.to(x.dtype), x)
 
 
 def block_mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y (nblk, m) f32 = A (nblk, m, k) x (nblk, k), A f32 or bf16-stored.
 
     Replaces ``_mv_kernel`` (navier_stokes_tpu/ops/pallas_mv.py:118).  Bound
-    by the table stream: nblk*m*k*itemsize bytes / 3.35 TB/s."""
-    _check_table(A, "block_mv table", (torch.float32, torch.bfloat16))
+    by the table stream: nblk*m*k*itemsize bytes / 3.35 TB/s.  An f64 table
+    with an f64 x is taken on the CPU only (the host-math tests of the
+    preconditioner in f64); the kernel raises on it."""
+    _check_table(A, "block_mv table",
+                 (torch.float32, torch.bfloat16, torch.float64))
     _check_vec(x, A, "block_mv x")
     if _device_kind(A) == "cpu":
         return block_mv_plain(A, x)
+    if A.dtype == torch.float64:
+        raise TypeError("block_mv: the kernel takes f32 or bf16 tables")
     nblk, m, k = A.shape
     y = torch.empty((nblk, m), dtype=torch.float32, device=A.device)
     if y.numel() == 0:
@@ -292,20 +334,232 @@ def split_f64(x: torch.Tensor):
     return hi.contiguous(), lo.contiguous()
 
 
+# -- kernels 5-7: split-k over consecutive-tile sub-tables -------------------
+
+
+def pack_splitk(A: torch.Tensor, k: int, tile: int) -> list:
+    """(nblk, m, kk) table -> k sub-tables of (ng*tile, m, kk) each: global
+    tile i*k+j goes to sub-table j, position i, with the block count
+    zero-padded to ng*k*tile (``_pack_splitk``, pallas_mv.py:315-324, in
+    the natural layout).  Every sub-table is a fresh allocation, so it is
+    16-byte aligned as the kernels require."""
+    if not 1 <= k <= MAX_SPLIT:
+        raise ValueError(f"split_k={k} outside 1..{MAX_SPLIT}")
+    if tile < 1:
+        raise ValueError(f"tile={tile} must be positive")
+    nblk, m, kk = A.shape
+    ntile = -(-nblk // tile)
+    ng = -(-ntile // k)
+    pad = ng * k * tile - nblk
+    if pad:
+        A = torch.cat([A, A.new_zeros((pad, m, kk))])
+    grp = A.reshape(ng, k, tile, m, kk)
+    return [grp[:, j].reshape(ng * tile, m, kk).clone(
+        memory_format=torch.contiguous_format) for j in range(k)]
+
+
+def _check_subs(subs, name, dtypes=(torch.float32,)):
+    subs = list(subs)
+    if not 1 <= len(subs) <= MAX_SPLIT:
+        raise ValueError(f"{name}: {len(subs)} sub-tables, not 1..{MAX_SPLIT}")
+    for A in subs:
+        _check_table(A, name, dtypes)
+        if (A.shape, A.dtype, A.device) != (subs[0].shape, subs[0].dtype,
+                                            subs[0].device):
+            raise ValueError(f"{name}: sub-tables differ in shape, dtype or "
+                             "device")
+        if A.device.type == "cuda" and A.data_ptr() % 16:
+            raise ValueError(f"{name}: sub-table not 16-byte aligned")
+    return subs
+
+
+def _check_split_x(x, subs, tile, name):
+    nsub, _, kk = subs[0].shape
+    if nsub % tile:
+        raise ValueError(f"{name}: {nsub} blocks per sub-table, not a "
+                         f"multiple of tile={tile}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != kk or x.shape[0] > len(subs) * nsub:
+        raise ValueError(f"{name}: x of shape {tuple(x.shape)} does not fit "
+                         f"{len(subs)} sub-tables of {tuple(subs[0].shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: vector must be contiguous")
+    if x.device != subs[0].device:
+        raise ValueError(f"{name}: on {x.device}, tables on {subs[0].device}")
+
+
+def _split_x(x, k, tile, nsub):
+    """x (nblk, kk) -> k per-sub-table slices (nsub, kk) of the padded x."""
+    nblk, kk = x.shape
+    xp = torch.cat([x, x.new_zeros((k * nsub - nblk, kk))])
+    grp = xp.reshape(nsub // tile, k, tile, kk)
+    return [grp[:, j].reshape(nsub, kk) for j in range(k)]
+
+
+def _interleave(ys, tile, nblk):
+    """Per-sub-table results (nsub, m) -> (nblk, m) in global block order."""
+    nsub, m = ys[0].shape
+    y = torch.stack([t.reshape(nsub // tile, tile, m) for t in ys], dim=1)
+    return y.reshape(-1, m)[:nblk]
+
+
+def _ptrs(subs):
+    return (ctypes.c_void_p * MAX_SPLIT)(*[t.data_ptr() for t in subs])
+
+
+def block_mv_splitk_plain(subs, x, tile: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`block_mv_splitk`: per sub-table,
+    tiles interleaved back."""
+    xs = _split_x(x, len(subs), tile, subs[0].shape[0])
+    return _interleave([block_mv_plain(A, xj) for A, xj in zip(subs, xs)],
+                       tile, x.shape[0])
+
+
+def block_mv_splitk(subs, x: torch.Tensor, tile: int) -> torch.Tensor:
+    """y (nblk, m) f32 = A x for a table given as k sub-tables
+    (:func:`pack_splitk`), f32 or bf16-stored, in ONE launch.
+
+    Replaces ``_mv_kernel_splitk`` (navier_stokes_tpu/ops/pallas_mv.py:305).
+    Bound by the table stream, zero pad included: k*nsub*m*kk*itemsize
+    bytes / 3.35 TB/s.  Bitwise equal to :func:`block_mv` on the unsplit
+    table."""
+    subs = _check_subs(subs, "block_mv_splitk tables",
+                       (torch.float32, torch.bfloat16))
+    _check_split_x(x, subs, tile, "block_mv_splitk x")
+    if _device_kind(subs[0]) == "cpu":
+        return block_mv_splitk_plain(subs, x, tile)
+    nsub, m, kk = subs[0].shape
+    y = torch.empty((x.shape[0], m), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = load_library()
+    fn = (lib.nstt_block_mv_splitk_f32 if subs[0].dtype == torch.float32
+          else lib.nstt_block_mv_splitk_bf16)
+    _launch(fn, _ptrs(subs), len(subs), x.data_ptr(), y.data_ptr(),
+            x.shape[0], m, kk, nsub, tile, _stream(x))
+    LAUNCHES["block_mv_splitk"] += 1
+    return y
+
+
+def block_mv2_splitk_plain(his, los, x, tile: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`block_mv2_splitk`."""
+    xs = _split_x(x, len(his), tile, his[0].shape[0])
+    return _interleave([block_mv2_plain(h, lo, xj)
+                        for h, lo, xj in zip(his, los, xs)], tile, x.shape[0])
+
+
+def _check_pair(his, los, name):
+    his = _check_subs(his, f"{name} A_hi")
+    los = _check_subs(los, f"{name} A_lo")
+    if len(his) != len(los) or (his[0].shape, his[0].device) != (
+            los[0].shape, los[0].device):
+        raise ValueError(f"{name}: hi and lo sub-tables differ")
+    return his, los
+
+
+def block_mv2_splitk(his, los, x: torch.Tensor, tile: int) -> torch.Tensor:
+    """y = (A_hi x) + (A_lo x) for the split pair given as k hi and k lo
+    sub-tables, all streamed by ONE launch.
+
+    Replaces ``_mv2_kernel_splitk`` (navier_stokes_tpu/ops/pallas_mv.py:358).
+    Bound: 2*k*nsub*m*kk*4 bytes / 3.35 TB/s.  Bitwise equal to
+    :func:`block_mv2` on the unsplit pair."""
+    his, los = _check_pair(his, los, "block_mv2_splitk")
+    _check_split_x(x, his, tile, "block_mv2_splitk x")
+    if _device_kind(his[0]) == "cpu":
+        return block_mv2_splitk_plain(his, los, x, tile)
+    nsub, m, kk = his[0].shape
+    y = torch.empty((x.shape[0], m), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    _launch(load_library().nstt_block_mv2_splitk_f32, _ptrs(his), _ptrs(los),
+            len(his), x.data_ptr(), y.data_ptr(), x.shape[0], m, kk, nsub,
+            tile, _stream(x))
+    LAUNCHES["block_mv2_splitk"] += 1
+    return y
+
+
+def block_mv_comp_splitk_plain(his, los, x_hi, x_lo, tile: int):
+    """Plain PyTorch version of :func:`block_mv_comp_splitk`: the same
+    rounded operations on every entry as :func:`block_mv_comp_plain`, so
+    bitwise equal to it on the unsplit pair."""
+    k, nsub = len(his), his[0].shape[0]
+    parts = [block_mv_comp_plain(h, lo, xh, xl) for h, lo, xh, xl in zip(
+        his, los, _split_x(x_hi, k, tile, nsub),
+        _split_x(x_lo, k, tile, nsub))]
+    return (_interleave([p[0] for p in parts], tile, x_hi.shape[0]),
+            _interleave([p[1] for p in parts], tile, x_hi.shape[0]))
+
+
+def block_mv_comp_splitk(his, los, x_hi, x_lo, tile: int):
+    """Compensated double-single product over k hi and k lo sub-tables in
+    ONE launch: (y_hi, y_lo) as :func:`block_mv_comp`.
+
+    Replaces ``_mv_comp_kernel_splitk``
+    (navier_stokes_tpu/ops/pallas_mv.py:397).  Bound: 2*k*nsub*m*kk*4
+    bytes / 3.35 TB/s.  Bitwise equal to :func:`block_mv_comp` on the
+    unsplit pair."""
+    his, los = _check_pair(his, los, "block_mv_comp_splitk")
+    _check_split_x(x_hi, his, tile, "block_mv_comp_splitk x_hi")
+    _check_split_x(x_lo, his, tile, "block_mv_comp_splitk x_lo")
+    if x_hi.shape != x_lo.shape:
+        raise ValueError("block_mv_comp_splitk: x_hi and x_lo differ")
+    if _device_kind(his[0]) == "cpu":
+        return block_mv_comp_splitk_plain(his, los, x_hi, x_lo, tile)
+    nsub, m, kk = his[0].shape
+    y_hi = torch.empty((x_hi.shape[0], m), dtype=torch.float32,
+                       device=x_hi.device)
+    y_lo = torch.empty_like(y_hi)
+    if y_hi.numel() == 0:
+        return y_hi, y_lo
+    _launch(load_library().nstt_block_mv_comp_splitk_f32, _ptrs(his),
+            _ptrs(los), len(his), x_hi.data_ptr(), x_lo.data_ptr(),
+            y_hi.data_ptr(), y_lo.data_ptr(), x_hi.shape[0], m, kk, nsub,
+            tile, _stream(x_hi))
+    LAUNCHES["block_mv_comp_splitk"] += 1
+    return y_hi, y_lo
+
+
 # -- table applies ----------------------------------------------------------
 
+TILE = 256  # blocks per tile of the split-k grouping (pallas_mv.py:460)
+TILE_COMP = 128  # ... of the compensated pressure applies (faceblock.py:373)
 
-def make_table_apply(A, store_dtype=torch.float32, device=None):
+
+def make_table_apply(A, store_dtype=torch.float32, device=None,
+                     split_k: int = 1, tile: int = TILE,
+                     compute_dtype=torch.float32):
     """Batched block matvec fn (nblk, k) f32 -> (nblk, m) f32 for an
     (nblk, m, k) table (numpy or tensor), stored in ``store_dtype`` (f32 or
     bf16; arithmetic stays f32).  Counterpart of
     ``navier_stokes_tpu.ops.pallas_mv.make_table_apply``: every table apply
-    goes through :func:`block_mv`, whatever the batch size."""
+    goes through :func:`block_mv`, whatever the batch size, or with
+    ``split_k`` > 1 through :func:`block_mv_splitk` over ``split_k``
+    sub-tables of ``tile``-block tiles.  ``apply.table`` is the stored
+    table: one tensor, or the list of sub-tables.
+
+    ``compute_dtype=torch.float64`` (CPU only, as the JAX package's f64
+    model preconditioner): the table rounded to ``store_dtype`` is held
+    exactly in f64 and applied to f64 vectors."""
     if isinstance(A, np.ndarray):
         A = torch.from_numpy(np.ascontiguousarray(A))
     if device is None:
         device = A.device
     table = A.to(device=device, dtype=store_dtype).contiguous()
+    if compute_dtype == torch.float64:
+        if split_k > 1:
+            raise ValueError("split-k tables are applied in f32")
+        table = table.to(torch.float64)
+    if split_k > 1:
+        subs = pack_splitk(table, split_k, tile)
+        del table
+
+        def apply(x):
+            return block_mv_splitk(subs, x.contiguous(), tile)
+
+        apply.table = subs
+        return apply
 
     def apply(x):
         return block_mv(table, x.contiguous())

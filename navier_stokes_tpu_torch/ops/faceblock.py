@@ -11,22 +11,37 @@ an apply is: split -> 4-row block gather -> one batched block matvec
 
 Index plans are built on the host in numpy and moved to ``device`` once;
 applies are plain functions on tensors.
+
+``split_k`` > 1 (bench.py's ``NSTPU_SPLITK``) streams the element tables
+of the f32 A apply and of the compensated A, B, BT applies through the
+split-k kernels over ``split_k`` consecutive-tile sub-tables
+(:func:`~navier_stokes_tpu_torch.ops.block_mv.pack_splitk`); B32/BT32 stay
+on :func:`block_mv2`, as the JAX package keeps them off split-k.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
 
 from .block_mv import (
+    TILE,
+    TILE_COMP,
     block_mv,
     block_mv2,
+    block_mv2_splitk,
     block_mv_comp,
+    block_mv_comp_splitk,
     make_table_apply,
+    pack_splitk,
     split_f64,
 )
 
-__all__ = ["FaceBlockLayout", "FaceStarSmoother", "face_star_smoother"]
+__all__ = ["FaceBlockLayout", "FaceStarSmoother", "ColorGroup",
+           "face_star_smoother"]
 
 
 def _check_contiguous_rows(eldofs_p, ne: int, m: int) -> None:
@@ -106,6 +121,14 @@ class FaceBlockLayout:
         """(ne, m, nb) rectangular blocks: permute the element axis only."""
         return np.ascontiguousarray(B_np[:, :, self.perm])
 
+    @cached_property
+    def eldofs_fb(self) -> np.ndarray:
+        """(ne, 4*nfb) skeleton element dofs in FACE-BLOCK numbering
+        (dof = face * nfb + j), face-major order."""
+        ef = np.asarray(self.mesh.element_faces).astype(np.int64)
+        return (ef[:, :, None] * self.nfb
+                + np.arange(self.nfb)[None, None, :]).reshape(self.ne, -1)
+
     # -- layout conversions ------------------------------------------------
 
     def split(self, u):
@@ -183,16 +206,18 @@ class FaceBlockLayout:
 
     # -- f32 kernel operators ------------------------------------------------
 
-    def pack_elem_tables(self, mats):
+    def pack_elem_tables(self, mats, split_k: int = 1, tile: int = TILE):
         """Contiguous f32 device copies of (ne, nb, nb) face-major tables,
         shared between :meth:`elem_apply_tiled` and :meth:`elem_apply_comp`
-        (one copy of the split hi/lo tables serves both phases)."""
+        (one copy of the split hi/lo tables serves both phases).  With
+        ``split_k`` > 1 each table is a list of ``split_k`` sub-tables of
+        ``tile``-block tiles (:func:`pack_splitk`)."""
         out = []
         for A in mats:
             if isinstance(A, np.ndarray):
                 A = torch.from_numpy(np.ascontiguousarray(A))
-            out.append(A.to(device=self.device, dtype=torch.float32)
-                       .contiguous())
+            A = A.to(device=self.device, dtype=torch.float32).contiguous()
+            out.append(pack_splitk(A, split_k, tile) if split_k > 1 else A)
         return out
 
     def elem_apply_multi(self, mats_and_scales):
@@ -211,17 +236,22 @@ class FaceBlockLayout:
 
         return lambda u: self._elem_io(u, kernel)
 
-    def elem_apply_tiled(self, tabs):
+    def elem_apply_tiled(self, tabs, tile: int = TILE):
         """y = (sum_k A_k) u for one f32 device table (:func:`block_mv`) or
         the split hi/lo pair in ONE stream (:func:`block_mv2`); ``tabs``
-        from :meth:`pack_elem_tables`."""
+        from :meth:`pack_elem_tables`.  The pair as sub-table lists goes
+        through :func:`block_mv2_splitk` (kernel 6)."""
         tabs = list(tabs)
-        if len(tabs) == 1:
+        split = isinstance(tabs[0], list)
+        if len(tabs) == 1 and not split:
             kernel = lambda ue: block_mv(tabs[0], ue)
+        elif len(tabs) == 2 and split:
+            kernel = lambda ue: block_mv2_splitk(tabs[0], tabs[1], ue, tile)
         elif len(tabs) == 2:
             kernel = lambda ue: block_mv2(tabs[0], tabs[1], ue)
         else:
-            raise ValueError("elem_apply_tiled takes one table or a pair")
+            raise ValueError("elem_apply_tiled takes one table or a pair "
+                             "(split only as a pair)")
 
         def apply(u):
             return self._elem_io(u.to(torch.float32), kernel)
@@ -229,13 +259,14 @@ class FaceBlockLayout:
         apply.tables = tabs
         return apply
 
-    def elem_apply_comp(self, Ah, Al):
+    def elem_apply_comp(self, Ah, Al, tile: int = TILE):
         """COMPENSATED double-single apply: y (f64) = (A_hi + A_lo) u (f64)
         through :func:`block_mv_comp` at f32 streaming speed; the f32 device
-        tables may be the ones :meth:`elem_apply_tiled` streams."""
+        tables may be the ones :meth:`elem_apply_tiled` streams.  Sub-table
+        lists go through :func:`block_mv_comp_splitk` (kernel 7)."""
 
         def kernel(ue):
-            yh, yl = block_mv_comp(Ah, Al, *split_f64(ue))
+            yh, yl = _comp(Ah, Al, split_f64(ue), tile)
             return yh.to(torch.float64) + yl.to(torch.float64)
 
         def apply(u):
@@ -271,16 +302,22 @@ class FaceBlockLayout:
         B.tables, BT.tables = fwd, bwd
         return B, BT
 
-    def rect_apply_comp(self, fh, fl, eldofs_p):
+    def rect_apply_comp(self, fh, fl, eldofs_p, split_k: int = 1,
+                        tile: int = TILE_COMP):
         """Compensated (B, BT) for the pressure coupling (f64 in and out)
         from f32 device tables (ne, m, nb) through :func:`block_mv_comp`;
-        BT streams transposed copies."""
+        BT streams transposed copies.  With ``split_k`` > 1 all four go
+        through :func:`block_mv_comp_splitk` over sub-tables of
+        ``tile``-block tiles."""
         m = fh.shape[1]
         _check_contiguous_rows(eldofs_p, self.ne, m)
         th, tl = fh.transpose(1, 2).contiguous(), fl.transpose(1, 2).contiguous()
+        if split_k > 1:
+            fh, fl, th, tl = (pack_splitk(t, split_k, tile)
+                              for t in (fh, fl, th, tl))
 
         def comp(hi, lo, x):
-            yh, yl = block_mv_comp(hi, lo, *split_f64(x))
+            yh, yl = _comp(hi, lo, split_f64(x), tile)
             return yh.to(torch.float64) + yl.to(torch.float64)
 
         def B(u):
@@ -296,51 +333,69 @@ class FaceBlockLayout:
         return B, BT
 
 
+def _comp(hi, lo, x_pair, tile):
+    """The compensated kernel on one table pair or on sub-table lists."""
+    if isinstance(hi, list):
+        return block_mv_comp_splitk(hi, lo, *x_pair, tile)
+    return block_mv_comp(hi, lo, *x_pair)
+
+
 # ----------------------------------------------------------------------
 # Face-granular overlapping block smoother (edge-star patches)
 # ----------------------------------------------------------------------
 
 
 class FaceStarSmoother:
-    """Overlapping additive block-Jacobi over FACE-granular patches (the
+    """Overlapping block smoother over FACE-granular patches (the
     edge-stars: the faces around each mesh edge), every index op a
-    block-row gather of slice nfb.
+    block-row gather of slice nfb: additive block-Jacobi
+    (:meth:`smooth_faces`) and the row-panel multicolor block-GS color steps
+    (:meth:`color_row_groups`, :meth:`solve_color_rows`).
 
     Blocks are bucketed by face count; each bucket is one batched block
     matvec (:func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv`) with its
-    f64-inverted blocks stored in ``dtype``.  The scatter back is the
-    transpose-gather: every face belongs to exactly THREE edge-stars.
+    f64-inverted blocks stored in ``dtype``.  ``block_faces`` lists every
+    block's faces in bucket order -- the order the GS coloring sees, as in
+    the JAX package.  The scatter back is the transpose-gather: every face
+    belongs to exactly THREE edge-stars.
 
     Constrained (Dirichlet) dofs are decoupled by zeroing their block
     rows/columns and placing 1 on the diagonal before inversion.  The
     blocks are assembled in f64 from the face-major skeleton element table
     ``S5p`` by gathers (the face-level entry (f_i, f_j) sums the element
     sub-blocks of the elements adjacent to both faces) and inverted in f64
-    (``torch.linalg.inv``), on ``layout.device``.
+    (``torch.linalg.inv``, then symmetrized), on ``layout.device``.
     """
 
     def __init__(self, layout: FaceBlockLayout, S_perm, edge_faces,
-                 freeF: np.ndarray, dtype=torch.float32):
+                 freeF: np.ndarray, dtype=torch.float32, split_k: int = 1,
+                 compute_dtype=torch.float32):
         nfb, nface, ne = layout.nfb, layout.nface, layout.ne
         dev = layout.device
         self.layout = layout
+        self.compute_dtype = compute_dtype
         S = torch.as_tensor(np.asarray(S_perm), dtype=torch.float64,
                             device=dev)
-        S5p = torch.cat([S.reshape(ne, 4, nfb, 4, nfb),
-                         S.new_zeros((1, 4, nfb, 4, nfb))])
+        # f64 skeleton table plus one zero element (index ne), for the
+        # block inverses and the GS row panels
+        self.S5p = torch.cat([S.reshape(ne, 4, nfb, 4, nfb),
+                              S.new_zeros((1, 4, nfb, 4, nfb))])
+        self.freeF_np = np.asarray(freeF)
         freeF_dev = torch.as_tensor(freeF, device=dev)
 
         sizes = np.array([len(f) for f in edge_faces])
         order = np.argsort(sizes, kind="stable")
-        pos_np = layout.pos.cpu().numpy()  # topology only
+        self.pos_np = layout.pos.cpu().numpy()  # topology only
         pos3 = np.full((nface, 3), -1, np.int64)
         cnt = np.zeros(nface, np.int32)
         self.buckets = []  # (faces_b tensor, table apply)
+        self.bucket_inv = []  # f64 inverses, for the GS color tables
+        self.faces_np = []  # (nb_b, fsz) face ids per bucket
         slot_base = 0
         for fsz in np.unique(sizes):
             sel = order[sizes[order] == fsz]
             faces_b = np.stack([np.asarray(edge_faces[i]) for i in sel])
-            inv = _bucket_inverses(S5p, faces_b, pos_np, freeF_dev,
+            inv = _bucket_inverses(self.S5p, faces_b, self.pos_np, freeF_dev,
                                    nfb, ne)
             for b, i in enumerate(sel):
                 for k, f in enumerate(edge_faces[i]):
@@ -348,13 +403,21 @@ class FaceStarSmoother:
                     cnt[f] += 1
             self.buckets.append(
                 (torch.as_tensor(faces_b, device=dev),
-                 make_table_apply(inv, store_dtype=dtype))
+                 make_table_apply(inv, store_dtype=dtype, split_k=split_k,
+                                  compute_dtype=compute_dtype))
             )
+            self.bucket_inv.append(inv)
+            self.faces_np.append(faces_b)
             slot_base += len(sel) * fsz
         assert cnt.max() <= 3
         pos3 = np.where(pos3 < 0, slot_base, pos3)  # pad -> zero row
         self.pos3 = torch.as_tensor(pos3, device=dev)
         self.freeF = freeF_dev
+
+    @property
+    def block_faces(self) -> list[np.ndarray]:
+        """Every block's faces, in bucket order."""
+        return [row for faces_b in self.faces_np for row in faces_b]
 
     def smooth_faces(self, xF):
         """Additive Schwarz: yF = sum_blocks P_b S_b^{-1} P_b^T xF."""
@@ -369,6 +432,140 @@ class FaceStarSmoother:
         yF = (slots[self.pos3[:, 0]] + slots[self.pos3[:, 1]]
               + slots[self.pos3[:, 2]])
         return torch.where(self.freeF, yF, 0.0)
+
+    # -- row-panel multicolor GS ---------------------------------------------
+
+    def color_row_groups(self, colors: np.ndarray,
+                         panel_dtype=torch.float32, inv_dtype=torch.float32):
+        """Per-color groups for :meth:`solve_color_rows` that compute the
+        color's residual from ROW PANELS of S instead of a full skeleton
+        apply (the host-table path of the JAX package's
+        ``color_row_groups``).
+
+        A face belongs to exactly 3 edge-stars, all of different colors, so
+        computing the residual at just the color's faces streams each
+        face's row panel 3 times per sweep direction: 3 full-S streams per
+        direction, whatever the color count.  Per color:
+
+        * panels (nsel+1, nfb, 2*n_skel) in ``panel_dtype``: for each member
+          face, the rows of S_e at the face's slot in each of its <= 2
+          adjacent elements, free-masked in rows and columns; one trailing
+          zero block;
+        * the merged padded solve table (nblk_c+1, bmax, bmax) in
+          ``inv_dtype``: the color's edge-star inverses zero-padded to the
+          color's largest block (bmax = fsz_max * nfb), one trailing zero
+          block -- one batched stream per color.
+
+        ``colors``: (nblocks,) in bucket order (``block_faces``)."""
+        lay = self.layout
+        nfb, nface, ne, n_skel = lay.nfb, lay.nface, lay.ne, lay.n_skel
+        dev = lay.device
+        efaces = np.asarray(lay.mesh.element_faces).astype(np.int64)
+        efaces_pad = np.concatenate([efaces, np.full((1, 4), nface)])
+        # element-skeleton column mask: free dofs of e's 4 faces (+ pad)
+        colmask = np.concatenate([self.freeF_np[efaces].reshape(ne, n_skel),
+                                  np.zeros((1, n_skel), bool)])
+        freeP = np.concatenate([self.freeF_np, np.zeros((1, nfb), bool)])
+        S_ext = self.S5p.reshape(ne + 1, n_skel, n_skel)
+        base = np.cumsum([0] + [len(f) for f in self.faces_np])
+        groups = []
+        for c in range(int(np.max(colors)) + 1):
+            parts_meta = []  # (ofs, nkeep, fsz, bucket_idx, keep)
+            faces_list = []
+            ofs = 0
+            for bi, faces_b in enumerate(self.faces_np):
+                keep = np.where(colors[base[bi]: base[bi + 1]] == c)[0]
+                if not len(keep):
+                    continue
+                fb = faces_b[keep]
+                faces_list.append(fb.ravel())
+                parts_meta.append((ofs, len(keep), fb.shape[1], bi, keep))
+                ofs += fb.size
+            faces_c = np.concatenate(faces_list)
+            nsel = len(faces_c)
+            assert len(np.unique(faces_c)) == nsel, \
+                "same-color blocks share a face"
+            fsz_max, nblk_c, gpos, pos1 = _merged_color_plan(
+                parts_meta, self.faces_np, nface, nsel)
+            bmax = fsz_max * nfb
+            inv_full = torch.zeros((nblk_c + 1, bmax, bmax),
+                                   dtype=torch.float64, device=dev)
+            blk = 0
+            for (_ofs, nkeep, fsz, bi, keep) in parts_meta:
+                bdim = fsz * nfb
+                inv_full[blk: blk + nkeep, :bdim, :bdim] = \
+                    self.bucket_inv[bi][torch.as_tensor(keep, device=dev)]
+                blk += nkeep
+            # row panels at faces_c from each adjacent element (pad: the
+            # zero element ne), columns then rows free-masked
+            p2 = self.pos_np[faces_c]  # (nsel, 2) elem*4+lf, pad ne*4
+            el2, lf2 = p2 // 4, p2 % 4
+            rows = lf2[:, :, None] * nfb + np.arange(nfb)  # (nsel, 2, nfb)
+            el2_t = torch.as_tensor(el2, device=dev)
+            pan = S_ext[el2_t[:, :, None], torch.as_tensor(rows, device=dev)]
+            mask = (colmask[el2][:, :, None, :]
+                    & self.freeF_np[faces_c][:, None, :, None])
+            pan = pan * torch.as_tensor(mask, device=dev)
+            panels = torch.cat([
+                pan.permute(0, 2, 1, 3).reshape(nsel, nfb, 2 * n_skel),
+                pan.new_zeros((1, nfb, 2 * n_skel))])
+            fc = np.concatenate([faces_c, [nface]])
+            idx8 = efaces_pad[np.concatenate([el2, [[ne, ne]]])]
+            groups.append(ColorGroup(
+                faces=torch.as_tensor(fc, device=dev),
+                free=torch.as_tensor(freeP[fc], device=dev),
+                elem_faces=torch.as_tensor(idx8.reshape(nsel + 1, 8),
+                                           device=dev),
+                panels=make_table_apply(panels, store_dtype=panel_dtype,
+                                        compute_dtype=self.compute_dtype),
+                rows=torch.as_tensor(np.concatenate(
+                    [gpos, np.full((1, fsz_max), nsel)]), device=dev),
+                solve=make_table_apply(inv_full, store_dtype=inv_dtype,
+                                       compute_dtype=self.compute_dtype),
+                slot=torch.as_tensor(np.concatenate(
+                    [pos1, [nblk_c * fsz_max]]), device=dev),
+            ))
+        return groups
+
+    def solve_color_rows(self, g: "ColorGroup", xP, yP=None):
+        """One color step of the sweep with the residual from row panels:
+        dy = sum_{b in color} P_b S_b^{-1} (x - S y)|_rows(b).
+
+        ``xP``, ``yP``: the face iterate, row-major (nface+1, nfb) with one
+        zero pad row; ``yP=None`` is the zero iterate (the first forward
+        color).  The input is free-masked here, at entry.  Returns the
+        update in the same layout, its pad row zero."""
+        nfb = self.layout.nfb
+        rc = torch.where(g.free, xP[g.faces], 0.0)  # (nsel+1, nfb)
+        if yP is not None:
+            ye = yP[g.elem_faces].reshape(-1, 8 * nfb)
+            rc = rc - g.panels(ye)
+        yb = g.solve(rc[g.rows].reshape(g.rows.shape[0], -1))
+        return yb.reshape(-1, nfb)[g.slot]
+
+
+@dataclass
+class ColorGroup:
+    """One color of the row-panel GS sweep (index plans on the device):
+
+    * ``faces`` (nsel+1,): the color's faces, then the pad row nface;
+    * ``free`` (nsel+1, nfb): their free mask (pad row False);
+    * ``elem_faces`` (nsel+1, 8): the 4 faces of each adjacent element (pad
+      element -> the pad row);
+    * ``panels``: table apply of the row panels (nsel+1, nfb, 2*n_skel);
+    * ``rows`` (nblk_c+1, fsz_max): residual rows of each block (pad -> the
+      zero row nsel);
+    * ``solve``: table apply of the merged inverses (nblk_c+1, bmax, bmax);
+    * ``slot`` (nface+1,): face -> row of the solve output (pad -> a row of
+      the zero block)."""
+
+    faces: torch.Tensor
+    free: torch.Tensor
+    elem_faces: torch.Tensor
+    panels: object
+    rows: torch.Tensor
+    solve: object
+    slot: torch.Tensor
 
 
 def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
@@ -423,14 +620,45 @@ def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
         fm = fmask[c0:c1]
         blk = blk * (fm[:, :, None] * fm[:, None, :])
         blk = blk + eye[None] * (1.0 - fm)[:, None, :]
-        outs.append(torch.linalg.inv(blk))
+        inv = torch.linalg.inv(blk)
+        # the blocks are symmetric; so are their stored (rounded) inverses,
+        # which keeps the GS sweep an exactly symmetric operator
+        outs.append(0.5 * (inv + inv.transpose(1, 2)))
     return torch.cat(outs)
 
 
+def _merged_color_plan(parts_meta, faces_by_bucket, nface, nsel):
+    """Host index plans for one color's MERGED padded block solve.
+
+    ``parts_meta``: [(ofs, nkeep, fsz, bucket_idx, keep)] in color-row
+    order.  Returns (fsz_max, nblk_c, gpos, pos1): ``gpos`` (nblk_c,
+    fsz_max) row indices into the color's residual rows (pad -> nsel, a
+    zero row), ``pos1`` (nface,) face -> slot in the (nblk_c*fsz_max, nfb)
+    padded result (pad -> nblk_c*fsz_max, a zero row)."""
+    fsz_max = max(p[2] for p in parts_meta)
+    nblk_c = sum(p[1] for p in parts_meta)
+    gpos = np.full((nblk_c, fsz_max), nsel, np.int64)
+    pos1 = np.full(nface, -1, np.int64)
+    blk = 0
+    for (ofs, nkeep, fsz, bi, keep) in parts_meta:
+        rows = ofs + np.arange(nkeep * fsz).reshape(nkeep, fsz)
+        gpos[blk: blk + nkeep, :fsz] = rows
+        fb = faces_by_bucket[bi][keep]
+        pos1[fb] = ((blk + np.arange(nkeep))[:, None] * fsz_max
+                    + np.arange(fsz)[None, :])
+        blk += nkeep
+    pos1 = np.where(pos1 < 0, nblk_c * fsz_max, pos1)
+    return fsz_max, nblk_c, gpos, pos1
+
+
 def face_star_smoother(layout: FaceBlockLayout, S_skel_perm, free_mask,
-                       dtype=torch.float32) -> FaceStarSmoother:
+                       dtype=torch.float32, split_k: int = 1,
+                       compute_dtype=torch.float32) -> FaceStarSmoother:
     """Build a FaceStarSmoother from face-major skeleton element blocks
-    ``S_skel_perm`` (ne, 4nfb, 4nfb) and the (n,) full-space free mask."""
+    ``S_skel_perm`` (ne, 4nfb, 4nfb) and the (n,) full-space free mask;
+    ``dtype`` stores, and ``split_k`` splits, the additive bucket tables;
+    ``compute_dtype`` is the arithmetic of every table apply (f64 on the
+    CPU only)."""
     lay = layout
     free = np.asarray(free_mask)
     freeF = np.concatenate(
@@ -441,7 +669,7 @@ def face_star_smoother(layout: FaceBlockLayout, S_skel_perm, free_mask,
         axis=1,
     )
     return FaceStarSmoother(lay, S_skel_perm, _edge_star_faces(lay.mesh),
-                            freeF, dtype)
+                            freeF, dtype, split_k, compute_dtype)
 
 
 def _edge_star_faces(mesh) -> list[np.ndarray]:

@@ -11,7 +11,7 @@ equilibration and the hi/lo split run in f64 on the host; the f32 tables go
 to the device once and serve both solve phases:
 
 * phase 1 (``ops32``): A32 = (A_hi + A_lo) u through one :func:`block_mv2`
-  stream, B32/BT32 likewise, the additive skeleton preconditioner preA32
+  stream, B32/BT32 likewise, the skeleton preconditioner preA32
   (models/auxspace3d.py) and the pressure-mass preconditioner preM32;
 * phase 2 and the per-pass residuals (``ops_ds``): the same hi/lo tables
   through the compensated double-single kernel :func:`block_mv_comp`, f64
@@ -35,8 +35,10 @@ def split_table(A64: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
-def equilibrated_f32_ops(m, ext_store_dtype=torch.bfloat16,
-                         store_dtype=torch.float32):
+def equilibrated_f32_ops(m, gs: bool = True, ext_dtype=torch.bfloat16,
+                         inv_dtype=torch.bfloat16, panel_dtype=torch.float32,
+                         sweep_dtype=torch.float32, coarse_target: float = 1.6,
+                         split_k: int = 1):
     """Jacobi-equilibrated operator bundles for a 3D MCS model ``m``
     (:class:`~navier_stokes_tpu_torch.models.NavierStokesMCS`).
 
@@ -49,11 +51,18 @@ def equilibrated_f32_ops(m, ext_store_dtype=torch.bfloat16,
       through the compensated kernel.
 
     Residual mapping for refinement: r~0 = D r0, r~1 = r1; solution mapping
-    dx0 = D dx~0.  ``ext_store_dtype`` stores the preconditioner's harmonic
-    extension and interior tables (bench.py's default "ext" group: bf16),
-    ``store_dtype`` its edge-star inverses (f32); arithmetic is f32.  This is
-    ``equilibrated_f32_ops(gs=False, split=True, with_ds=True)`` of the JAX
-    package."""
+    dx0 = D dx~0.  This is ``equilibrated_f32_ops(gs, split=True,
+    with_ds=True)`` of the JAX package, its environment knobs made
+    arguments with bench.py's defaults: ``gs`` (``BENCH_GS``) picks the
+    symmetric multicolor GS skeleton preconditioner over the additive one;
+    the four storage groups of ``NSTPU_SMOOTHER_BF16`` (refinement.py:
+    383-412) are ``ext_dtype`` (extension and interior tables, bf16),
+    ``inv_dtype`` (GS color-solve inverses, bf16), ``panel_dtype`` (GS row
+    panels, f32) and ``sweep_dtype`` (S and the additive edge-star
+    inverses, f32); ``coarse_target`` is ``NSTPU_COARSE_TARGET`` (1.6);
+    ``split_k`` is ``NSTPU_SPLITK`` (1): above 1 the A32 pair, the
+    compensated A, B, BT and the preconditioner's split tables stream
+    through the split-k kernels.  Arithmetic is f32."""
     dev = m.device
     lay = m.fb
     A_loc = m.A_cond_np
@@ -69,7 +78,7 @@ def equilibrated_f32_ops(m, ext_store_dtype=torch.bfloat16,
 
     # one device copy of the hi/lo tables serves phase 1 and phase 2
     A_hi_np, A_lo_np = split_table(lay.permute_blocks(A_s))
-    shared = lay.pack_elem_tables([A_hi_np, A_lo_np])
+    shared = lay.pack_elem_tables([A_hi_np, A_lo_np], split_k)
     del A_hi_np, A_lo_np
     _A32 = lay.elem_apply_tiled(shared)
     _A_ds = lay.elem_apply_comp(*shared)
@@ -77,7 +86,8 @@ def equilibrated_f32_ops(m, ext_store_dtype=torch.bfloat16,
     B_sp = (m.B_loc_np * De[:, None, :])[:, :, lay.perm]
     B_shared = lay.pack_elem_tables(split_table(B_sp))
     _B32, _BT32 = lay.rect_apply_multi(B_shared, m.Q.element_dofs)
-    _B_ds, _BT_ds = lay.rect_apply_comp(*B_shared, m.Q.element_dofs)
+    _B_ds, _BT_ds = lay.rect_apply_comp(*B_shared, m.Q.element_dofs,
+                                        split_k=split_k)
 
     def A32(u):
         uf = torch.where(free, u, 0.0)
@@ -106,8 +116,10 @@ def equilibrated_f32_ops(m, ext_store_dtype=torch.bfloat16,
 
     preA32 = build_skeleton_preconditioner_3d(
         m.Xv, A_s, m._dirich, dev, torch.float32,
-        coarse_coefficient=m.nu, dof_scale=D, store_dtype=store_dtype,
-        ext_store_dtype=ext_store_dtype,
+        coarse_coefficient=m.nu, dof_scale=D, gs=gs, ext_dtype=ext_dtype,
+        inv_dtype=inv_dtype, panel_dtype=panel_dtype,
+        sweep_dtype=sweep_dtype, coarse_target=coarse_target,
+        split_k=split_k,
     )
     diag_Mp32 = torch.as_tensor(m._diag_Mp, device=dev).to(torch.float32)
     nu32 = float(np.float32(m.nu))

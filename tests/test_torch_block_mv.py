@@ -8,7 +8,12 @@ with numpy from a seed and handed to both.  Tolerances:
 * block_mv / block_mv2 / make_table_apply: |d| <= 1e-5 * sum_j |a_ij x_j|
   (f32 arithmetic, sums taken in another order);
 * block_mv_comp: y_hi + y_lo within 1e-12 of sum_j |a_ij x_j| of the f64
-  product, as the Pallas kernel is held (test_pallas_mv.py:125-151).
+  product, as the Pallas kernel is held (test_pallas_mv.py:125-151);
+* the split-k versions: the same bounds against the JAX split-k launchers,
+  fed through ``_pack_splitk`` (tests/test_pallas_mv.py:196-240); the
+  port's sub-tables EQUAL the JAX sub-tables up to layout; the compensated
+  split-k version BITWISE equal to the unsplit one on the cancellation
+  case, and the face-block applies at split_k=2 equal to split_k=1.
 
 The kernels themselves run only on the card: ``test_kernels_match_plain_on_
 card`` carries the ``cuda`` marker and skips without a GPU.
@@ -21,6 +26,10 @@ import torch
 
 from navier_stokes_tpu.ops.pallas_mv import make_table_apply as jax_table_apply
 from navier_stokes_tpu.ops.pallas_mv import (
+    _call_mv2_splitk,
+    _call_mv_comp_splitk,
+    _call_mv_splitk,
+    _pack_splitk,
     pack_tiles,
     tiled_bmv,
     tiled_bmv_comp,
@@ -29,6 +38,7 @@ from navier_stokes_tpu.ops.pallas_mv import (
 from navier_stokes_tpu_torch.ops import block_mv as bm
 
 NE, NB, TILE = 37, 14, 16  # deliberately non-multiple ne, as test_pallas_mv
+STILE = 8  # split-k tile: 5 tiles, which neither k = 2 nor k = 3 divides
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -140,6 +150,154 @@ def test_block_mv_comp_cancellation_matches_pallas():
     assert err_plain > 1e3 * float((np.abs(got - want) / scale).max())
 
 
+def _jax_splitk(A, k):
+    """The JAX split-k operands of a table: _pack_splitk of pack_tiles."""
+    subs, ng = _pack_splitk(pack_tiles(A, STILE), k)
+    return subs, ng * k * STILE
+
+
+def _soa(x, npad):
+    out = np.zeros((x.shape[1], npad), x.dtype)
+    out[:, :NE] = x.T
+    return jnp.asarray(out)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_block_mv_splitk_matches_pallas(k, dtype):
+    rng = np.random.default_rng(20 + k)
+    A = rng.standard_normal((NE, 6, NB)).astype(np.float32)
+    x = rng.standard_normal((NE, NB)).astype(np.float32)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    subs = bm.pack_splitk(torch.from_numpy(A).to(tdt), k, STILE)
+    A_r = torch.from_numpy(A).to(tdt).to(torch.float32).numpy()  # as stored
+    jsubs, npad = _jax_splitk(A_r, k)
+    for sp, sj in zip(subs, jsubs):  # the same sub-tables, natural layout
+        np.testing.assert_array_equal(
+            sp.to(torch.float32).numpy(),
+            sj.transpose(0, 3, 1, 2).reshape(sp.shape))
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    want = np.asarray(_call_mv_splitk(
+        k, _soa(x, npad), *[jnp.asarray(a).astype(jdt) for a in jsubs],
+        interpret=True))[:, :NE].T
+    got = bm.block_mv_splitk(subs, torch.from_numpy(x), STILE).numpy()
+    assert got.dtype == np.float32 and got.shape == (NE, 6)
+    _assert_within(got, want, _row_scale(A_r, x), 1e-5)
+    # the plain split-k version against the unsplit one on the same table
+    unsplit = bm.block_mv(torch.from_numpy(A).to(tdt), torch.from_numpy(x))
+    _assert_within(got, unsplit.numpy(), _row_scale(A_r, x), 1e-6)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_block_mv2_splitk_matches_pallas(k):
+    A64 = np.random.default_rng(30 + k).standard_normal((NE, NB, NB))
+    A_hi = A64.astype(np.float32)
+    A_lo = (A64 - A_hi.astype(np.float64)).astype(np.float32)
+    x = np.random.default_rng(4).standard_normal((NE, NB)).astype(np.float32)
+    hs, npad = _jax_splitk(A_hi, k)
+    ls, _ = _jax_splitk(A_lo, k)
+    want = np.asarray(_call_mv2_splitk(
+        k, _soa(x, npad), *[jnp.asarray(a) for a in hs + ls],
+        interpret=True))[:, :NE].T
+    got = bm.block_mv2_splitk(bm.pack_splitk(torch.from_numpy(A_hi), k, STILE),
+                              bm.pack_splitk(torch.from_numpy(A_lo), k, STILE),
+                              torch.from_numpy(x), STILE).numpy()
+    _assert_within(got, want, _row_scale(A64, x), 1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_block_mv_comp_splitk_matches_pallas_and_unsplit(k):
+    A64, x64 = _cancellation_case(40 + k)
+    want = np.einsum("eij,ej->ei", A64, x64)
+    scale = _row_scale(A64, x64)
+    A_hi = A64.astype(np.float32)
+    A_lo = (A64 - A_hi.astype(np.float64)).astype(np.float32)
+    x_hi, x_lo = bm.split_f64(torch.from_numpy(x64))
+    ah, al = torch.from_numpy(A_hi), torch.from_numpy(A_lo)
+    yh, yl = bm.block_mv_comp_splitk(bm.pack_splitk(ah, k, STILE),
+                                     bm.pack_splitk(al, k, STILE),
+                                     x_hi, x_lo, STILE)
+    got = yh.double().numpy() + yl.double().numpy()
+    _assert_within(got, want, scale, 1e-12)
+    hs, npad = _jax_splitk(A_hi, k)
+    ls, _ = _jax_splitk(A_lo, k)
+    jh, jl = _call_mv_comp_splitk(
+        k, _soa(x_hi.numpy(), npad), _soa(x_lo.numpy(), npad),
+        *[jnp.asarray(a) for a in hs + ls], interpret=True)
+    jax_got = (np.asarray(jh, np.float64)
+               + np.asarray(jl, np.float64))[:, :NE].T
+    _assert_within(got, jax_got, scale, 1e-12)
+    rh, rl = bm.block_mv_comp(ah, al, x_hi, x_lo)
+    assert torch.equal(yh, rh) and torch.equal(yl, rl)
+
+
+def test_make_table_apply_splitk_equals_unsplit():
+    rng = np.random.default_rng(50)
+    A = rng.standard_normal((NE, 6, NB)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((NE, NB)).astype(np.float32))
+    want = bm.make_table_apply(A, store_dtype=torch.bfloat16, device="cpu")(x)
+    f = bm.make_table_apply(A, store_dtype=torch.bfloat16, device="cpu",
+                            split_k=2, tile=STILE)
+    assert isinstance(f.table, list) and len(f.table) == 2
+    assert f.table[0].shape == (3 * STILE, 6, NB)
+    _assert_within(f(x).numpy(), want.numpy(), _row_scale(A, x.numpy()),
+                   1e-6)
+
+
+@pytest.fixture(scope="module")
+def layout():
+    """The port's face-block layout on the maxh=0.6 channel."""
+    from navier_stokes_tpu_torch.fem.hdiv3d import HDiv3D
+    from navier_stokes_tpu_torch.mesh import channel_with_cylinder_mesh_3d
+    from navier_stokes_tpu_torch.models.stokes_hybrid3d import (
+        HybridVelocitySpace3D,
+        VectorFacet3D,
+    )
+    from navier_stokes_tpu_torch.ops.faceblock import FaceBlockLayout
+
+    mesh = channel_with_cylinder_mesh_3d(0.6)
+    V = HDiv3D(mesh, 2, dirichlet="inlet|wall|cyl")
+    F = VectorFacet3D(mesh, 1, dirichlet="inlet|wall|cyl|outlet")
+    return FaceBlockLayout(HybridVelocitySpace3D(V, F), "cpu")
+
+
+@pytest.mark.parametrize("op", ["A32", "A_ds", "B_ds", "BT_ds"])
+def test_face_block_applies_splitk_equal_unsplit(layout, op):
+    """elem_apply_tiled (kernel 6), elem_apply_comp and rect_apply_comp
+    (kernel 7) at split_k=2 against split_k=1 on the CPU."""
+    lay = layout
+    rng = np.random.default_rng(60)
+    if op in ("A32", "A_ds"):
+        A64 = rng.standard_normal((lay.ne, lay.nb, lay.nb))
+    else:
+        A64 = rng.standard_normal((lay.ne, 4, lay.nb))
+    hi = A64.astype(np.float32)
+    lo = (A64 - hi.astype(np.float64)).astype(np.float32)
+    one = lay.pack_elem_tables([hi, lo])
+    two = lay.pack_elem_tables([hi, lo], split_k=2)
+    if op == "A32":
+        u = torch.from_numpy(rng.standard_normal(lay.n).astype(np.float32))
+        want = lay.elem_apply_tiled(one)(u)
+        got = lay.elem_apply_tiled(two)(u)
+    elif op == "A_ds":
+        u = torch.from_numpy(rng.standard_normal(lay.n))
+        want = lay.elem_apply_comp(*one)(u)
+        got = lay.elem_apply_comp(*two)(u)
+    else:
+        eldofs_p = np.arange(lay.ne * 4).reshape(lay.ne, 4)
+        B1 = lay.rect_apply_comp(*one, eldofs_p)
+        B2 = lay.rect_apply_comp(*one, eldofs_p, split_k=2)
+        i = 0 if op == "B_ds" else 1
+        n = lay.n if op == "B_ds" else lay.ne * 4
+        u = torch.from_numpy(rng.standard_normal(n))
+        want, got = B1[i](u), B2[i](u)
+    if op == "A32":
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-6 * scale
+    else:  # the compensated recurrence, entry by entry: bitwise
+        assert torch.equal(got, want)
+
+
 def test_split_f64_is_exact_to_f32_squared():
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(1000) * 1e3)
     hi, lo = bm.split_f64(x)
@@ -173,7 +331,14 @@ def test_cpu_tensors_launch_no_kernel():
     bm.block_mv(A, x)
     bm.block_mv2(A, A, x)
     bm.block_mv_comp(A, A, x, x)
-    assert bm.LAUNCHES == {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0}
+    subs = bm.pack_splitk(A, 2, 2)
+    bm.block_mv_splitk(subs, x, 2)
+    bm.block_mv2_splitk(subs, subs, x, 2)
+    bm.block_mv_comp_splitk(subs, subs, x, x, 2)
+    assert set(bm.LAUNCHES) == {
+        "block_mv", "block_mv2", "block_mv_comp", "block_mv_splitk",
+        "block_mv2_splitk", "block_mv_comp_splitk"}
+    assert all(v == 0 for v in bm.LAUNCHES.values())
 
 
 def test_entry_points_refuse_to_run_on_cpu_unasked():
@@ -220,4 +385,43 @@ def test_kernels_match_plain_on_card():
     yh, yl = bm.block_mv_comp(hi, lo, xh, xl)
     rh, rl = bm.block_mv_comp_plain(hi, lo, xh, xl)
     assert torch.equal(yh, rh) and torch.equal(yl, rl)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_splitk_kernels_match_plain_on_card(k):
+    """On the card: each split-k kernel against its plain version, and
+    bitwise against its unsplit kernel on the same table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    for shape, dt in (((300, 54, 54), torch.float32), ((301, 6, 48),
+                      torch.bfloat16), ((5, 3, 7), torch.bfloat16)):
+        A = torch.randn(shape, generator=gen, device=dev).to(dt)
+        x = torch.randn(shape[0], shape[2], generator=gen, device=dev)
+        subs = bm.pack_splitk(A, k, STILE)
+        y = bm.block_mv_splitk(subs, x, STILE)
+        scale = torch.einsum("bmk,bk->bm", A.double().abs(), x.double().abs())
+        d = (y - bm.block_mv_splitk_plain(subs, x, STILE)).abs()
+        assert float((d / scale).max()) <= 1e-5
+        assert torch.equal(y, bm.block_mv(A, x))
+    A64, x64 = (torch.from_numpy(a).to(dev) for a in _cancellation_case())
+    hi = A64.float()
+    lo = (A64 - hi.double()).float()
+    hs, ls = bm.pack_splitk(hi, k, STILE), bm.pack_splitk(lo, k, STILE)
+    x = x64.float()
+    scale = torch.einsum("bmk,bk->bm", A64.abs(), x.double().abs())
+    y2 = bm.block_mv2_splitk(hs, ls, x, STILE)
+    d = (y2 - bm.block_mv2_splitk_plain(hs, ls, x, STILE)).abs()
+    assert float((d / scale).max()) <= 1e-5
+    assert torch.equal(y2, bm.block_mv2(hi, lo, x))
+    xh, xl = bm.split_f64(x64)
+    yh, yl = bm.block_mv_comp_splitk(hs, ls, xh, xl, STILE)
+    rh, rl = bm.block_mv_comp_splitk_plain(hs, ls, xh, xl, STILE)
+    assert torch.equal(yh, rh) and torch.equal(yl, rl)
+    uh, ul = bm.block_mv_comp(hi, lo, xh, xl)
+    assert torch.equal(yh, uh) and torch.equal(yl, ul)
     torch.cuda.synchronize()

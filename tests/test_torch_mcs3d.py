@@ -1,11 +1,13 @@
 """Parity of the port's flagship slice (navier_stokes_tpu_torch) with the JAX
 package on ``channel_with_cylinder_mesh_3d(0.6)``, order 2, nu = 1e-3.
 
-Both packages build the bench configuration (straight geometry); the port
-also builds from the JAX model's own host tables through
-``load_host_tables``.  The JAX side runs on the CPU, where its operator
-factories take their XLA einsum paths and ``equilibrated_f32_ops`` derives
-its tables on the host -- the math the port runs on the card.  Tolerances:
+Both packages build the bench configuration on straight geometry with the
+additive skeleton preconditioner (``build_model(curved=False)``,
+``FlagshipSolve(gs=False)``); the port also builds from the JAX model's own
+host tables through ``load_host_tables``.  The JAX side runs on the CPU,
+where its operator factories take their XLA einsum paths and
+``equilibrated_f32_ops`` derives its tables on the host -- the math the
+port runs on the card.  Tolerances:
 
 * host tables: the element tables (A_ret, A_rc, A_cc, M_full, B_loc), the
   condensation (Acc_inv, A_cond), element dofs, free mask and u_bc are
@@ -61,17 +63,18 @@ def pair(one_torch_thread):
         outflow="outlet", wall="wall|cyl", uin=uin, timestep=2e-3, order=2,
         preconditioner="faceblock", assembly_cache=cache)
     own_cache = {}
-    own = build_model(MAXH, device="cpu", assembly_cache=own_cache)
+    own = build_model(MAXH, device="cpu", assembly_cache=own_cache,
+                      curved=False)
     mp = build_model(MAXH, device="cpu", assembly_cache=load_host_tables(
         {f"{key}_{i}": a for key, tup in cache.items()
-         for i, a in enumerate(tup)}))
+         for i, a in enumerate(tup)}), curved=False)
     with pytest.MonkeyPatch.context() as mpatch:
         # bench.py's defaults on the additive path (bench.py:81-87)
         mpatch.setenv("NSTPU_SMOOTHER_BF16", "ext,inv")
         mpatch.setenv("NSTPU_DEVICE_TABLES", "0")
         ops32j, Dj, odsj = jax_equilibrated_f32_ops(
             mj, gs=False, split=True, with_ds=True)
-    solver = FlagshipSolve(mp)
+    solver = FlagshipSolve(mp, gs=False)
     return dict(mj=mj, own=own, own_cache=own_cache, mp=mp, cache=cache,
                 ops32j=ops32j, Dj=Dj,
                 odsj=odsj, solver=solver)
@@ -214,7 +217,7 @@ def test_flagship_solve_control_flow_at_loose_tolerance(pair, monkeypatch):
     import navier_stokes_tpu_torch.flagship as flagship
 
     monkeypatch.setattr(flagship, "CHUNK32", 20)
-    s = FlagshipSolve(pair["mp"], tol=0.5)
+    s = FlagshipSolve(pair["mp"], tol=0.5, gs=False)
     res = s.full_solve()
     assert 0 < res.inner <= 60
     assert res.true_rel <= 0.5
