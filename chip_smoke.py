@@ -19,7 +19,9 @@ non-zero exit:
    time, its byte bound, the plain version's time and one PyTorch library
    call's time as a yardstick; the split-k kernels at k=2 and k=4 on the
    same tables, also BITWISE against their unsplit kernels; slice 1's
-   tables are checked the same way;
+   tables are checked the same way.  A bound counts the bytes the function
+   needs: the split-k kernels' on the unsplit tables (their zero pad is
+   not loaded), the merged GS solve tables' on their real inverse blocks;
 4. main path: launch counters set to 0, ``FlagshipSolve.full_solve`` of the
    curved GS configuration cold, counters read; every unsplit kernel must
    have launched; then a warm solve; the true-f64 residual of each must be
@@ -177,7 +179,10 @@ def add(rep, *a):
         rep.add(*a)
 
 
-def check_block_mv(torch, bm, timer, rep, label, A, gen):
+def check_block_mv(torch, bm, timer, rep, label, A, gen, real_bytes=None):
+    """``real_bytes``: the table bytes the function needs, where the table
+    holds zero padding (the merged GS solve tables: every block padded to
+    the color's largest); the bound counts those, not the padded table."""
     nblk, m, k = A.shape
     x = torch.randn((nblk, k), generator=gen, device="cuda")
     y = bm.block_mv(A, x)
@@ -193,12 +198,20 @@ def check_block_mv(torch, bm, timer, rep, label, A, gen):
     ms = timer(lambda: bm.block_mv(A, x))
     plain_ms = timer(lambda: bm.block_mv_plain(A, x))
     lib_ms = timer(lambda: torch.bmm(A32, xb))  # f32 copy: a yardstick
-    add(rep, ms, plain_ms, lib_ms, nbytes(A, x, y), 2 * A.numel(),
-        float(err.max()))
+    nb = nbytes(A, x, y)
+    bound = f"bound {nb / HBM_BYTES_PER_S * 1e3:.4f}"
+    flops = 2 * A.numel()
+    if real_bytes is not None:
+        real_nb = real_bytes + nbytes(x, y)
+        bound += (f" ({nb / 1e6:.1f} MB); real blocks "
+                  f"{real_bytes / 1e6:.1f} MB, bound "
+                  f"{real_nb / HBM_BYTES_PER_S * 1e3:.4f}")
+        flops = 2 * real_bytes // A.element_size()
+        nb = real_nb
+    add(rep, ms, plain_ms, lib_ms, nb, flops, float(err.max()))
     log(f"  block_mv {label} {tuple(A.shape)} {str(A.dtype)[6:]}: "
         f"max|d|={float(err.max()):.3e} rel={worst:.2e} | kernel {ms:.4f} ms"
-        f", plain {plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
-        f"{nbytes(A, x, y) / HBM_BYTES_PER_S * 1e3:.4f}")
+        f", plain {plain_ms:.4f}, bmm {lib_ms:.4f}, {bound}")
 
 
 def check_block_mv2(torch, bm, timer, rep, label, A_hi, A_lo, gen):
@@ -268,19 +281,16 @@ def check_comp(torch, bm, timer, rep, label, A_hi, A_lo, x64, timed=True):
     log(line)
 
 
-def _pad_rows(torch, x, n):
-    return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
-
-
 def check_splitk(torch, bm, timer, rep, label, kind, tabs, k, tile, gen,
                  x64=None, timed=True):
     """One split-k kernel on the sub-tables of ``tabs`` (one table, or the
     hi/lo pair) against its plain version within the stated bound, and
-    BITWISE against the unsplit kernel on the same table."""
+    BITWISE against the unsplit kernel on the same table.  The bound, the
+    operation count and the ``bmm`` yardstick are those of the function on
+    the unsplit tables: the zero pad of the sub-tables is not its work (the
+    kernel does not load it)."""
     nblk, m, kk = tabs[0].shape
     packs = [bm.pack_splitk(t, k, tile) for t in tabs]
-    npad = k * packs[0][0].shape[0]
-    cats = [torch.cat(p) for p in packs]  # the concatenated (padded) table
     if kind == "comp":
         x64 = (torch.randn((nblk, kk), generator=gen, device="cuda",
                            dtype=torch.float64) if x64 is None else x64)
@@ -293,29 +303,27 @@ def check_splitk(torch, bm, timer, rep, label, kind, tabs, k, tile, gen,
         err, worst, _ = comp_accuracy(torch, f"{label} k={k}", *tabs, *xs,
                                       got, ref)
         same = all(torch.equal(a, b) for a, b in zip(got, unsplit))
-        A64 = cats[0].double() + cats[1].double()
-        xb = _pad_rows(torch, xs[0].double() + xs[1].double(), npad)[:, :,
-                                                                     None]
+        A64 = tabs[0].double() + tabs[1].double()
+        xb = (xs[0].double() + xs[1].double())[:, :, None]
         lib = lambda: torch.bmm(A64, xb)  # noqa: E731
-        nb = nbytes(*packs[0], *packs[1], *xs, *got)
-        flops = 15 * sum(t.numel() for t in packs[0])
+        nb = nbytes(*tabs, *xs, *got)
+        flops = 15 * tabs[0].numel()
     else:
         x = torch.randn((nblk, kk), generator=gen, device="cuda")
         if kind == "mv":
             args = (packs[0], x, tile)
             fn, plain = bm.block_mv_splitk, bm.block_mv_splitk_plain
             unsplit = bm.block_mv(tabs[0], x)
-            Acat = cats[0].to(torch.float32)
-            xb = _pad_rows(torch, x, npad)[:, :, None]
-            flops = 2 * sum(t.numel() for t in packs[0])
+            Acat = tabs[0].to(torch.float32)
+            xb = x[:, :, None]
+            flops = 2 * tabs[0].numel()
         else:
             args = (packs[0], packs[1], x, tile)
             fn, plain = bm.block_mv2_splitk, bm.block_mv2_splitk_plain
             unsplit = bm.block_mv2(tabs[0], tabs[1], x)
-            Acat = torch.cat(cats, dim=2)
-            xp = _pad_rows(torch, x, npad)
-            xb = torch.cat([xp, xp], dim=1)[:, :, None]
-            flops = 4 * sum(t.numel() for t in packs[0])
+            Acat = torch.cat(tabs, dim=2)
+            xb = torch.cat([x, x], dim=1)[:, :, None]
+            flops = 4 * tabs[0].numel()
         got, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
         scale = torch.einsum("bmk,bk->bm", sum(t.double().abs() for t in tabs),
@@ -328,7 +336,7 @@ def check_splitk(torch, bm, timer, rep, label, kind, tabs, k, tile, gen,
               "sum|a x|")
         same = torch.equal(got, unsplit)
         lib = lambda: torch.bmm(Acat, xb)  # noqa: E731
-        nb = nbytes(*[t for p in packs for t in p], x, got)
+        nb = nbytes(*tabs, x, got)
     check(same, f"{label} k={k}: not bitwise equal to the unsplit kernel")
     line = (f"  {fn.__name__} {label} k={k} {tuple(tabs[0].shape)} "
             f"{str(tabs[0].dtype)[6:]}: max|d plain|={err:.3e} "
@@ -357,6 +365,21 @@ def cancellation_case(torch, nblk, nb, seed):
     lo = (A - hi.double()).to(torch.float32)
     return hi.contiguous(), lo.contiguous(), torch.as_tensor(x64,
                                                              device="cuda")
+
+
+def solve_table_real_bytes(parts):
+    """Per merged GS solve table: the bytes of its real inverse blocks
+    (block b of a color holds nf_b faces of nfb rows each: (nf_b*nfb)^2
+    entries; the rest of its (12 fsz_max)^2 is zero padding)."""
+    out = {}
+    nfb = parts["layout"].nfb
+    for c, g in enumerate(parts.get("groups", [])):
+        nsel = g.faces.shape[0] - 1
+        nf = (g.rows < nsel).sum(dim=1)  # real faces per block (pad: 0)
+        A = g.solve.table
+        out[f"GS color {c} solve"] = int(((nf * nfb) ** 2).sum()) \
+            * A.element_size()
+    return out
 
 
 def profile_minres(torch, solver, label, steps=100):
@@ -572,8 +595,16 @@ def run():
             return reports[name] if keep else None
 
         log(f"[kernels] {label}: block_mv on every table of one preA apply")
+        real = solve_table_real_bytes(o32["preA"].parts)
         for tname, A in o32["preA"].parts["tables"].items():
-            check_block_mv(torch, bm, timer, rep("block_mv"), tname, A, gen)
+            check_block_mv(torch, bm, timer, rep("block_mv"), tname, A, gen,
+                           real.get(tname))
+        if real:
+            tabs_ = o32["preA"].parts["tables"]
+            merged = sum(nbytes(tabs_[t]) for t in real)
+            log(f"[kernels] {label}: the GS solve tables hold "
+                f"{merged / 1e6:.1f} MB, of which "
+                f"{sum(real.values()) / 1e6:.1f} MB are real inverse blocks")
         log(f"[kernels] {label}: block_mv2 on the split-f32 A32, B32, BT32")
         for tname, op in (("A32", o32["A"]), ("B32", o32["B"]),
                           ("BT32", o32["BT"])):

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -235,8 +237,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 // The table arrives as ns <= kMaxSplit consecutive-tile sub-tables (global
 // tile i*ns+j is tile i of sub-table j; the wrapper zero-pads the block count
 // to a whole number of groups), each (nsub, m, k) row-major, passed by value
-// as an array of pointers.  Bound: the bytes of all sub-tables, zero pad
-// included, / 3.35 TB/s, as for the unsplit kernels.
+// as an array of pointers.  The real blocks of each sub-table are a prefix
+// of it; the kernels neither load nor compute the rows of the zero pad.
+// Bound: the bytes of the nblk real blocks (and x, y) / 3.35 TB/s, as for
+// the unsplit kernels.
 //
 // Design.  A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in
 // EVERY sub-table.  Its copy loop reads one 16-byte vector from each of the
@@ -247,7 +251,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 // in the unsplit kernel's column order -- the same fmaf chain, or the same
 // two_prod/two_sum chain -- so a split-k result is bitwise equal to the
 // unsplit kernel's on the same table.  x is read straight from global
-// memory (L2-resident, a few MB); rows of the zero pad are not computed.
+// memory (L2-resident, a few MB).
 
 constexpr int kMaxSplit = 8;
 
@@ -255,14 +259,27 @@ struct SubTables {
   const void* p[kMaxSplit];
 };
 
-// Copy count entries at element offset off of every sub-table into dst as
-// rows of k entries at row stride ks, sub-table j at dst + j * jstride.  All
-// sub-tables share their base alignment mod 16 (the wrapper checks 16-byte
-// aligned bases), so they share the unaligned head.
-template <typename T>
-__device__ void stage_rows_split(const SubTables& subs, int ns, long long off,
-                                 int count, int k, int ks, int jstride,
-                                 float* __restrict__ dst) {
+// Entries of the real rows of each sub-table (its real blocks are a prefix
+// of it), computed on the host: the kernels compare against them and do no
+// integer division for the pad.
+struct SplitReal {
+  long long n[kMaxSplit];
+};
+
+// Copy count entries at element offset off of each of the NS sub-tables
+// into dst as rows of k entries at row stride ks, sub-table j at
+// dst + j * jstride, loading only the entries of real rows (a 16-byte vector
+// that straddles the end of the real rows is loaded whole: it lies inside
+// the sub-table).  All sub-tables share their base alignment mod 16 (the
+// wrapper checks 16-byte aligned bases), so they share the unaligned head.
+// NS is a compile-time constant: j indexes the by-value pointer array with
+// compile-time indices only (a run-time index would put the kernel
+// parameters in local memory), and a thread holds NS vectors, not
+// kMaxSplit.
+template <typename T, int NS>
+__device__ __forceinline__ void stage_rows_split(
+    const SubTables& subs, const SplitReal& real, long long off, int count,
+    int k, int ks, int jstride, float* __restrict__ dst) {
   constexpr int V = 16 / sizeof(T);
   const uintptr_t addr =
       reinterpret_cast<uintptr_t>(static_cast<const T*>(subs.p[0]) + off);
@@ -270,33 +287,34 @@ __device__ void stage_rows_split(const SubTables& subs, int ns, long long off,
   if (head > count) head = count;
   const int nvec = (count - head) / V;
   const int tail0 = head + nvec * V;
-  // head and tail, one entry per thread; j stays a compile-time index into
-  // the by-value pointer array, which keeps it out of local memory
+  // head and tail, one entry per thread
 #pragma unroll
-  for (int j = 0; j < kMaxSplit; ++j) {
-    if (j < ns) {
-      const T* src = static_cast<const T*>(subs.p[j]) + off;
-      float* d = dst + j * jstride;
-      for (int c = threadIdx.x; c < head; c += blockDim.x)
-        d[(c / k) * ks + c % k] = to_f32(src[c]);
-      for (int c = tail0 + threadIdx.x; c < count; c += blockDim.x)
-        d[(c / k) * ks + c % k] = to_f32(src[c]);
-    }
+  for (int j = 0; j < NS; ++j) {
+    const T* src = static_cast<const T*>(subs.p[j]) + off;
+    float* d = dst + j * jstride;
+    const long long l = real.n[j] - off;  // real entries in this stretch
+    const int lim = static_cast<int>(l < 0 ? 0 : (l > count ? count : l));
+    const int hj = head < lim ? head : lim;
+    for (int c = threadIdx.x; c < hj; c += blockDim.x)
+      d[(c / k) * ks + c % k] = to_f32(src[c]);
+    for (int c = tail0 + threadIdx.x; c < lim; c += blockDim.x)
+      d[(c / k) * ks + c % k] = to_f32(src[c]);
   }
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    uint4 w[kMaxSplit];
+    const int e0 = head + i * V;
+    const long long pos = off + e0;
+    uint4 w[NS];
 #pragma unroll
-    for (int j = 0; j < kMaxSplit; ++j) {
-      if (j < ns) {
+    for (int j = 0; j < NS; ++j) {
+      if (pos < real.n[j]) {
         const T* src = static_cast<const T*>(subs.p[j]) + off + head;
         w[j] = __ldg(reinterpret_cast<const uint4*>(src) + i);
       }
     }
-    const int e0 = head + i * V;
     const int row0 = e0 / k, col0 = e0 - row0 * k;
 #pragma unroll
-    for (int j = 0; j < kMaxSplit; ++j) {
-      if (j < ns) {
+    for (int j = 0; j < NS; ++j) {
+      if (pos < real.n[j]) {
         float v[V];
         unpack<T>(w[j], v);
         int row = row0, col = col0;
@@ -338,19 +356,20 @@ __device__ __forceinline__ SplitTile split_tile_of(long long nsub_rows,
   return t;
 }
 
-template <typename T>
+template <typename T, int NS>
 __global__ void __launch_bounds__(kMaxThreads)
-    block_mv_splitk_kernel(SubTables subs, int ns,
+    block_mv_splitk_kernel(SubTables subs, SplitReal real,
                            const float* __restrict__ x, float* __restrict__ y,
                            long long nsub_rows, long long nblk, int m, int k,
                            int ks, int R, int tile) {
   extern __shared__ float smem[];
   const SplitTile t = split_tile_of(nsub_rows, R);
-  stage_rows_split<T>(subs, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, smem);
+  stage_rows_split<T, NS>(subs, real, t.r0 * k, t.nrows * k, k, ks, R * ks,
+                          smem);
   __syncthreads();
-  for (int e = threadIdx.x; e < ns * t.nrows; e += blockDim.x) {
+  for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
     const int j = e / t.nrows, rr = e - j * t.nrows;
-    const long long g = global_row(t.r0 + rr, j, ns, m, tile, nblk);
+    const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
     if (g < 0) continue;
     const float* ar = smem + (j * R + rr) * ks;
     const float* xb = x + (g / m) * k;
@@ -360,21 +379,24 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+template <int NS>
 __global__ void __launch_bounds__(kMaxThreads)
-    block_mv2_splitk_kernel(SubTables his, SubTables los, int ns,
+    block_mv2_splitk_kernel(SubTables his, SubTables los, SplitReal real,
                             const float* __restrict__ x, float* __restrict__ y,
                             long long nsub_rows, long long nblk, int m, int k,
                             int ks, int R, int tile) {
   extern __shared__ float smem[];
   const SplitTile t = split_tile_of(nsub_rows, R);
   float* th = smem;
-  float* tl = smem + ns * R * ks;
-  stage_rows_split<float>(his, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, th);
-  stage_rows_split<float>(los, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, tl);
+  float* tl = smem + NS * R * ks;
+  stage_rows_split<float, NS>(his, real, t.r0 * k, t.nrows * k, k, ks,
+                              R * ks, th);
+  stage_rows_split<float, NS>(los, real, t.r0 * k, t.nrows * k, k, ks,
+                              R * ks, tl);
   __syncthreads();
-  for (int e = threadIdx.x; e < ns * t.nrows; e += blockDim.x) {
+  for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
     const int j = e / t.nrows, rr = e - j * t.nrows;
-    const long long g = global_row(t.r0 + rr, j, ns, m, tile, nblk);
+    const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
     if (g < 0) continue;
     const float* hr = th + (j * R + rr) * ks;
     const float* lr = tl + (j * R + rr) * ks;
@@ -390,8 +412,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // Same rounded-intrinsic recurrence as block_mv_comp_kernel.
+template <int NS>
 __global__ void __launch_bounds__(kMaxThreads)
-    block_mv_comp_splitk_kernel(SubTables his, SubTables los, int ns,
+    block_mv_comp_splitk_kernel(SubTables his, SubTables los, SplitReal real,
                                 const float* __restrict__ x_hi,
                                 const float* __restrict__ x_lo,
                                 float* __restrict__ y_hi,
@@ -401,13 +424,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ float smem[];
   const SplitTile t = split_tile_of(nsub_rows, R);
   float* th = smem;
-  float* tl = smem + ns * R * ks;
-  stage_rows_split<float>(his, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, th);
-  stage_rows_split<float>(los, ns, t.r0 * k, t.nrows * k, k, ks, R * ks, tl);
+  float* tl = smem + NS * R * ks;
+  stage_rows_split<float, NS>(his, real, t.r0 * k, t.nrows * k, k, ks,
+                              R * ks, th);
+  stage_rows_split<float, NS>(los, real, t.r0 * k, t.nrows * k, k, ks,
+                              R * ks, tl);
   __syncthreads();
-  for (int e = threadIdx.x; e < ns * t.nrows; e += blockDim.x) {
+  for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
     const int j = e / t.nrows, rr = e - j * t.nrows;
-    const long long g = global_row(t.r0 + rr, j, ns, m, tile, nblk);
+    const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
     if (g < 0) continue;
     const float* hr = th + (j * R + rr) * ks;
     const float* lr = tl + (j * R + rr) * ks;
@@ -465,6 +490,39 @@ SubTables sub_tables(const void* const* p, int ns) {
   SubTables s;
   for (int j = 0; j < kMaxSplit; ++j) s.p[j] = j < ns ? p[j] : p[0];
   return s;
+}
+
+// Calls f(std::integral_constant<int, ns>()) for ns in 1..kMaxSplit: the
+// split-k kernels are instantiated per sub-table count.
+template <typename F>
+void with_split(int ns, F&& f) {
+  switch (ns) {
+    case 1: f(std::integral_constant<int, 1>()); break;
+    case 2: f(std::integral_constant<int, 2>()); break;
+    case 3: f(std::integral_constant<int, 3>()); break;
+    case 4: f(std::integral_constant<int, 4>()); break;
+    case 5: f(std::integral_constant<int, 5>()); break;
+    case 6: f(std::integral_constant<int, 6>()); break;
+    case 7: f(std::integral_constant<int, 7>()); break;
+    case 8: f(std::integral_constant<int, 8>()); break;
+  }
+}
+static_assert(kMaxSplit == 8, "with_split covers 1..kMaxSplit");
+
+// Global tile i*ns+j is tile i of sub-table j: the tiles below nblk / tile
+// are full, the one at it holds the remainder, the rest are zero pad.
+SplitReal split_real(int ns, long long nblk, int m, int k, int tile) {
+  SplitReal r;
+  const long long full = nblk / tile, rem = nblk - full * tile;
+  for (int j = 0; j < kMaxSplit; ++j) {
+    long long blocks = 0;
+    if (j < ns) {
+      blocks = full > j ? (full - j + ns - 1) / ns * tile : 0;
+      if (rem > 0 && full >= j && (full - j) % ns == 0) blocks += rem;
+    }
+    r.n[j] = blocks * m * k;
+  }
+  return r;
 }
 
 // Largest row tile whose ntab table tiles (row stride ks) and nxv x stages
@@ -567,9 +625,12 @@ int nstt_block_mv_splitk_f32(const void* const* subs, int ns, const float* x,
   const int ks = row_stride(k);
   const Launch L = plan_splitk(nsub * m, ks, 1, ns);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_splitk_kernel<float><<<L.grid, L.threads, L.smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      sub_tables(subs, ns), ns, x, y, nsub * m, nblk, m, k, ks, L.R, tile);
+  with_split(ns, [&](auto c) {
+    block_mv_splitk_kernel<float, decltype(c)::value>
+        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
+            sub_tables(subs, ns), split_real(ns, nblk, m, k, tile), x, y,
+            nsub * m, nblk, m, k, ks, L.R, tile);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,9 +643,12 @@ int nstt_block_mv_splitk_bf16(const void* const* subs, int ns, const float* x,
   const int ks = row_stride(k);
   const Launch L = plan_splitk(nsub * m, ks, 1, ns);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_splitk_kernel<__nv_bfloat16><<<L.grid, L.threads, L.smem,
-                                          static_cast<cudaStream_t>(stream)>>>(
-      sub_tables(subs, ns), ns, x, y, nsub * m, nblk, m, k, ks, L.R, tile);
+  with_split(ns, [&](auto c) {
+    block_mv_splitk_kernel<__nv_bfloat16, decltype(c)::value>
+        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
+            sub_tables(subs, ns), split_real(ns, nblk, m, k, tile), x, y,
+            nsub * m, nblk, m, k, ks, L.R, tile);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -598,10 +662,13 @@ int nstt_block_mv2_splitk_f32(const void* const* his, const void* const* los,
   const int ks = row_stride(k);
   const Launch L = plan_splitk(nsub * m, ks, 2, ns);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv2_splitk_kernel<<<L.grid, L.threads, L.smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      sub_tables(his, ns), sub_tables(los, ns), ns, x, y, nsub * m, nblk, m,
-      k, ks, L.R, tile);
+  with_split(ns, [&](auto c) {
+    block_mv2_splitk_kernel<decltype(c)::value>
+        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
+            sub_tables(his, ns), sub_tables(los, ns),
+            split_real(ns, nblk, m, k, tile), x, y, nsub * m, nblk, m, k, ks,
+            L.R, tile);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -617,10 +684,13 @@ int nstt_block_mv_comp_splitk_f32(const void* const* his,
   const int ks = row_stride(k);
   const Launch L = plan_splitk(nsub * m, ks, 2, ns);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_comp_splitk_kernel<<<L.grid, L.threads, L.smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      sub_tables(his, ns), sub_tables(los, ns), ns, x_hi, x_lo, y_hi, y_lo,
-      nsub * m, nblk, m, k, ks, L.R, tile);
+  with_split(ns, [&](auto c) {
+    block_mv_comp_splitk_kernel<decltype(c)::value>
+        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
+            sub_tables(his, ns), sub_tables(los, ns),
+            split_real(ns, nblk, m, k, tile), x_hi, x_lo, y_hi, y_lo,
+            nsub * m, nblk, m, k, ks, L.R, tile);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -99,25 +99,19 @@ class FlagshipResult:
 
 class FlagshipSolve:
     """Operators, right-hand side and refinement driver of the flagship
-    solve for a built model ``m``.  ``gs``, the four table storage groups,
-    ``coarse_target`` and ``split_k`` are those of
+    solve for a built model ``m``.  ``gs`` and ``split_k`` are those of
     :func:`~navier_stokes_tpu_torch.solvers.refinement.equilibrated_f32_ops`,
     with bench.py's defaults."""
 
     def __init__(self, m: NavierStokesMCS, tol: float = 1e-8,
-                 gs: bool = True, split_k: int = 1,
-                 ext_dtype=torch.bfloat16, inv_dtype=torch.bfloat16,
-                 panel_dtype=torch.float32, sweep_dtype=torch.float32,
-                 coarse_target: float = 1.6):
+                 gs: bool = True, split_k: int = 1):
         self.m = m
         self.tol = tol
         self.gs, self.split_k = gs, split_k
         self.setup_seconds = {}
         t0 = time.perf_counter()
         self.ops32, self.D, self.ops_ds = equilibrated_f32_ops(
-            m, gs=gs, ext_dtype=ext_dtype, inv_dtype=inv_dtype,
-            panel_dtype=panel_dtype, sweep_dtype=sweep_dtype,
-            coarse_target=coarse_target, split_k=split_k)
+            m, gs=gs, split_k=split_k)
         self._sync()
         self.setup_seconds["equilibrated ops"] = time.perf_counter() - t0
         t0 = time.perf_counter()

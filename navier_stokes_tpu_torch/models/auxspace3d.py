@@ -39,7 +39,11 @@ from ..fem.quadrature import triangle_rule
 from ..fem.reference import triangle_modal
 from ..fem.spaces import H1
 from ..ops.block_mv import make_table_apply
-from ..ops.faceblock import FaceBlockLayout, face_star_smoother
+from ..ops.faceblock import (
+    FaceBlockLayout,
+    face_star_smoother,
+    symmetric_part,
+)
 from ..precond.multicolor import color_blocks, damped_coarse
 from ..precond.twolevel import coarse_p1_solver
 
@@ -129,7 +133,7 @@ def build_skeleton_preconditioner_3d(
     dof_scale: np.ndarray | None = None, gs: bool = True,
     ext_dtype=torch.bfloat16, inv_dtype=torch.bfloat16,
     panel_dtype=torch.float32, sweep_dtype=torch.float32,
-    coarse_target: float = 1.6, split_k: int = 1,
+    coarse_target: float = 1.6, split_k: int = 1, symmetrize: bool = True,
 ):
     """Condensation-aware preconditioner for the condensed 3D MCS
     operator: exact batched solve of the element-interior block, the
@@ -147,7 +151,15 @@ def build_skeleton_preconditioner_3d(
     inverses.  Arithmetic, and the coarse transfer, are ``dtype`` (f32).
     ``coarse_target``: the damping target of the multiplicative coarse
     correction (``NSTPU_COARSE_TARGET``; bench.py's 1.6).  ``split_k``
-    (``NSTPU_SPLITK``): sub-tables of the split-k table applies."""
+    (``NSTPU_SPLITK``): sub-tables of the split-k table applies.
+
+    ``symmetrize`` (a departure from the JAX package, which stores its f64
+    tables as computed): A_ii^{-1}, S and the edge-star inverses are
+    averaged with their transposes before they are rounded to their
+    storage dtypes, so that the stored tables -- and with them the GS sweep
+    -- are exactly symmetric.  Unsymmetrized, f64 roundoff crossing
+    rounding boundaries leaves ~1e-7 of asymmetry in f32 storage.
+    ``False`` stores the reference's tables."""
     mesh = V.mesh
     nbv = V.hdiv.n_basis
     n_face_tot = 4 * V.hdiv.n_face_dofs
@@ -156,17 +168,14 @@ def build_skeleton_preconditioner_3d(
     loc_skel = np.concatenate(
         [np.arange(n_face_tot), np.arange(nbv, nbv + nfac)]
     )
-    # interior Schur complement in f64 on the host (flat element order);
-    # A_ii^{-1} and S are symmetrized before they are rounded to their
-    # storage dtypes, so that the stored tables -- and with them the GS
-    # sweep -- are exactly symmetric (unsymmetrized, f64 roundoff crossing
-    # f32 rounding boundaries leaves ~1e-7 of asymmetry)
+    # interior Schur complement in f64 on the host (flat element order)
+    sym = symmetric_part if symmetrize else (lambda a: a)
     A_ii = A_np[:, loc_int[:, None], loc_int[None, :]]
     A_is = A_np[:, loc_int[:, None], loc_skel[None, :]]
     A_ss = A_np[:, loc_skel[:, None], loc_skel[None, :]]
-    A_ii_inv = _sym(np.linalg.inv(A_ii))
+    A_ii_inv = sym(np.linalg.inv(A_ii))
     AinvAis = np.matmul(A_ii_inv, A_is)  # (ne, n_int, n_skel)
-    S_loc = _sym(A_ss - np.matmul(A_is.transpose(0, 2, 1), AinvAis))
+    S_loc = sym(A_ss - np.matmul(A_is.transpose(0, 2, 1), AinvAis))
 
     space = H1(mesh, 1, dirichlet=velocity_dirichlet)
     solve1 = coarse_p1_solver(space, coarse_coefficient, dtype, device)
@@ -197,19 +206,15 @@ def build_skeleton_preconditioner_3d(
         V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, dtype, gs=gs,
         ext_dtype=ext_dtype, inv_dtype=inv_dtype, panel_dtype=panel_dtype,
         sweep_dtype=sweep_dtype, coarse_target=coarse_target,
-        split_k=split_k,
+        split_k=split_k, symmetrize=symmetrize,
     )
     preA.parts["tables"].update(tables)
     return preA
 
 
-def _sym(A: np.ndarray) -> np.ndarray:
-    return 0.5 * (A + A.transpose(0, 2, 1))
-
-
 def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
                          ext_dtype, inv_dtype, panel_dtype, sweep_dtype,
-                         coarse_target, split_k):
+                         coarse_target, split_k, symmetrize):
     """Face-block rendering of the skeleton preconditioner, every batched
     block matvec a table apply; ``cdt`` is the arithmetic dtype.
     ``preA.parts`` holds its components for per-part timings and, under
@@ -218,9 +223,11 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
     dev = lay.device
     free = torch.as_tensor(V.free_mask, device=dev)
     S_perm_np = lay.permute_skel_blocks(S_loc)
-    sm = face_star_smoother(lay, S_perm_np, V.free_mask, sweep_dtype,
-                            split_k, cdt)
+    sm = face_star_smoother(lay, V.free_mask, cdt)
     freeF = sm.freeF
+    # the f64 setup tables: passed to the smoother's build step, then dropped
+    S5p = sm.skeleton_table(S_perm_np)
+    invs = sm.bucket_inverses(S5p, symmetrize)
 
     AinvAis_perm = np.ascontiguousarray(AinvAis[:, :, lay.perm_skel])
     ext_apply = make_table_apply(AinvAis_perm, store_dtype=ext_dtype,
@@ -266,7 +273,9 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
                      for f in sm.block_faces]
         colors = color_blocks(blocks_fb, lay.nface * nfb, lay.eldofs_fb)
         t1 = time.perf_counter()
-        groups = sm.color_row_groups(colors, panel_dtype, inv_dtype)
+        groups = sm.color_row_groups(colors, S5p, invs, panel_dtype,
+                                     inv_dtype)
+        del S5p, invs
         t2 = time.perf_counter()
         for c, g in enumerate(groups):
             tables[f"GS color {c} panels"] = g.panels.table
@@ -305,6 +314,9 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
                      colors=colors, coarse_lambda=lam, coarse_theta=theta,
                      setup_seconds=setup_seconds)
     else:
+        sm.build_additive(invs, sweep_dtype, split_k)
+        del S5p, invs
+
         def pre_skel_faces(xF):
             yF = sm.smooth_faces(xF)
             return yF + torch.where(freeF, coarse_vc(xF), 0.0)

@@ -421,9 +421,9 @@ def block_mv_splitk(subs, x: torch.Tensor, tile: int) -> torch.Tensor:
     (:func:`pack_splitk`), f32 or bf16-stored, in ONE launch.
 
     Replaces ``_mv_kernel_splitk`` (navier_stokes_tpu/ops/pallas_mv.py:305).
-    Bound by the table stream, zero pad included: k*nsub*m*kk*itemsize
-    bytes / 3.35 TB/s.  Bitwise equal to :func:`block_mv` on the unsplit
-    table."""
+    Bound by the table stream of the real blocks: nblk*m*kk*itemsize
+    bytes / 3.35 TB/s (the kernel does not load the zero pad).  Bitwise
+    equal to :func:`block_mv` on the unsplit table."""
     subs = _check_subs(subs, "block_mv_splitk tables",
                        (torch.float32, torch.bfloat16))
     _check_split_x(x, subs, tile, "block_mv_splitk x")
@@ -463,8 +463,8 @@ def block_mv2_splitk(his, los, x: torch.Tensor, tile: int) -> torch.Tensor:
     sub-tables, all streamed by ONE launch.
 
     Replaces ``_mv2_kernel_splitk`` (navier_stokes_tpu/ops/pallas_mv.py:358).
-    Bound: 2*k*nsub*m*kk*4 bytes / 3.35 TB/s.  Bitwise equal to
-    :func:`block_mv2` on the unsplit pair."""
+    Bound: 2*nblk*m*kk*4 bytes / 3.35 TB/s (the zero pad is not loaded).
+    Bitwise equal to :func:`block_mv2` on the unsplit pair."""
     his, los = _check_pair(his, los, "block_mv2_splitk")
     _check_split_x(x, his, tile, "block_mv2_splitk x")
     if _device_kind(his[0]) == "cpu":
@@ -497,9 +497,9 @@ def block_mv_comp_splitk(his, los, x_hi, x_lo, tile: int):
     ONE launch: (y_hi, y_lo) as :func:`block_mv_comp`.
 
     Replaces ``_mv_comp_kernel_splitk``
-    (navier_stokes_tpu/ops/pallas_mv.py:397).  Bound: 2*k*nsub*m*kk*4
-    bytes / 3.35 TB/s.  Bitwise equal to :func:`block_mv_comp` on the
-    unsplit pair."""
+    (navier_stokes_tpu/ops/pallas_mv.py:397).  Bound: 2*nblk*m*kk*4
+    bytes / 3.35 TB/s (the zero pad is not loaded).  Bitwise equal to
+    :func:`block_mv_comp` on the unsplit pair."""
     his, los = _check_pair(his, los, "block_mv_comp_splitk")
     _check_split_x(x_hi, his, tile, "block_mv_comp_splitk x_hi")
     _check_split_x(x_lo, his, tile, "block_mv_comp_splitk x_lo")

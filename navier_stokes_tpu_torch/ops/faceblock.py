@@ -41,7 +41,7 @@ from .block_mv import (
 )
 
 __all__ = ["FaceBlockLayout", "FaceStarSmoother", "ColorGroup",
-           "face_star_smoother"]
+           "face_star_smoother", "symmetric_part"]
 
 
 def _check_contiguous_rows(eldofs_p, ne: int, m: int) -> None:
@@ -349,75 +349,92 @@ class FaceStarSmoother:
     """Overlapping block smoother over FACE-granular patches (the
     edge-stars: the faces around each mesh edge), every index op a
     block-row gather of slice nfb: additive block-Jacobi
-    (:meth:`smooth_faces`) and the row-panel multicolor block-GS color steps
-    (:meth:`color_row_groups`, :meth:`solve_color_rows`).
+    (:meth:`build_additive`, :meth:`smooth_faces`) and the row-panel
+    multicolor block-GS color steps (:meth:`color_row_groups`,
+    :meth:`solve_color_rows`).
 
-    Blocks are bucketed by face count; each bucket is one batched block
-    matvec (:func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv`) with its
-    f64-inverted blocks stored in ``dtype``.  ``block_faces`` lists every
-    block's faces in bucket order -- the order the GS coloring sees, as in
-    the JAX package.  The scatter back is the transpose-gather: every face
-    belongs to exactly THREE edge-stars.
+    The constructor builds the topology only.  Blocks are bucketed by face
+    count; ``block_faces`` lists every block's faces in bucket order -- the
+    order the GS coloring sees, as in the JAX package.  The scatter back is
+    the transpose-gather: every face belongs to exactly THREE edge-stars.
 
-    Constrained (Dirichlet) dofs are decoupled by zeroing their block
-    rows/columns and placing 1 on the diagonal before inversion.  The
-    blocks are assembled in f64 from the face-major skeleton element table
-    ``S5p`` by gathers (the face-level entry (f_i, f_j) sums the element
-    sub-blocks of the elements adjacent to both faces) and inverted in f64
-    (``torch.linalg.inv``, then symmetrized), on ``layout.device``.
-    """
+    The f64 setup tables -- the face-major skeleton table
+    (:meth:`skeleton_table`) and the bucket inverses
+    (:meth:`bucket_inverses`) -- are passed to the mode's build method and not
+    kept: the smoother holds only the tables its applies stream.
+    ``compute_dtype`` is the arithmetic of every table apply (f64 on the
+    CPU only)."""
 
-    def __init__(self, layout: FaceBlockLayout, S_perm, edge_faces,
-                 freeF: np.ndarray, dtype=torch.float32, split_k: int = 1,
-                 compute_dtype=torch.float32):
-        nfb, nface, ne = layout.nfb, layout.nface, layout.ne
+    def __init__(self, layout: FaceBlockLayout, edge_faces,
+                 freeF: np.ndarray, compute_dtype=torch.float32):
+        nface = layout.nface
         dev = layout.device
         self.layout = layout
         self.compute_dtype = compute_dtype
-        S = torch.as_tensor(np.asarray(S_perm), dtype=torch.float64,
-                            device=dev)
-        # f64 skeleton table plus one zero element (index ne), for the
-        # block inverses and the GS row panels
-        self.S5p = torch.cat([S.reshape(ne, 4, nfb, 4, nfb),
-                              S.new_zeros((1, 4, nfb, 4, nfb))])
         self.freeF_np = np.asarray(freeF)
-        freeF_dev = torch.as_tensor(freeF, device=dev)
+        self.freeF = torch.as_tensor(freeF, device=dev)
 
         sizes = np.array([len(f) for f in edge_faces])
         order = np.argsort(sizes, kind="stable")
         self.pos_np = layout.pos.cpu().numpy()  # topology only
         pos3 = np.full((nface, 3), -1, np.int64)
         cnt = np.zeros(nface, np.int32)
-        self.buckets = []  # (faces_b tensor, table apply)
-        self.bucket_inv = []  # f64 inverses, for the GS color tables
         self.faces_np = []  # (nb_b, fsz) face ids per bucket
         slot_base = 0
         for fsz in np.unique(sizes):
             sel = order[sizes[order] == fsz]
             faces_b = np.stack([np.asarray(edge_faces[i]) for i in sel])
-            inv = _bucket_inverses(self.S5p, faces_b, self.pos_np, freeF_dev,
-                                   nfb, ne)
             for b, i in enumerate(sel):
                 for k, f in enumerate(edge_faces[i]):
                     pos3[f, cnt[f]] = slot_base + b * fsz + k
                     cnt[f] += 1
-            self.buckets.append(
-                (torch.as_tensor(faces_b, device=dev),
-                 make_table_apply(inv, store_dtype=dtype, split_k=split_k,
-                                  compute_dtype=compute_dtype))
-            )
-            self.bucket_inv.append(inv)
             self.faces_np.append(faces_b)
             slot_base += len(sel) * fsz
         assert cnt.max() <= 3
         pos3 = np.where(pos3 < 0, slot_base, pos3)  # pad -> zero row
         self.pos3 = torch.as_tensor(pos3, device=dev)
-        self.freeF = freeF_dev
+        self.buckets = []  # (faces_b tensor, table apply): additive mode
 
     @property
     def block_faces(self) -> list[np.ndarray]:
         """Every block's faces, in bucket order."""
         return [row for faces_b in self.faces_np for row in faces_b]
+
+    def skeleton_table(self, S_perm) -> torch.Tensor:
+        """The f64 face-major skeleton table (ne+1, 4, nfb, 4, nfb) on the
+        device: ``S_perm`` (ne, 4nfb, 4nfb) plus one zero element (index
+        ne), the source of the block inverses and the GS row panels."""
+        lay = self.layout
+        S = torch.as_tensor(np.asarray(S_perm), dtype=torch.float64,
+                            device=lay.device)
+        return torch.cat([S.reshape(lay.ne, 4, lay.nfb, 4, lay.nfb),
+                          S.new_zeros((1, 4, lay.nfb, 4, lay.nfb))])
+
+    def bucket_inverses(self, S5p, symmetrize: bool = True) -> list:
+        """Per bucket, the f64 inverses of its edge-star blocks of S5p.
+
+        Constrained (Dirichlet) dofs are decoupled by zeroing their block
+        rows/columns and placing 1 on the diagonal before inversion
+        (``torch.linalg.inv``).  ``symmetrize``: average each inverse with
+        its transpose -- the blocks are symmetric, and so then are the
+        stored (rounded) inverses, which keeps the GS sweep an exactly
+        symmetric operator.  The JAX package does not; ``False`` gives its
+        tables."""
+        lay = self.layout
+        return [_bucket_inverses(S5p, faces_b, self.pos_np, self.freeF,
+                                 lay.nfb, lay.ne, symmetrize)
+                for faces_b in self.faces_np]
+
+    def build_additive(self, invs, dtype=torch.float32, split_k: int = 1):
+        """Additive mode: one table apply per bucket of the inverses
+        ``invs`` (:meth:`bucket_inverses`), stored in ``dtype`` and split
+        ``split_k`` ways."""
+        dev = self.layout.device
+        self.buckets = [
+            (torch.as_tensor(faces_b, device=dev),
+             make_table_apply(inv, store_dtype=dtype, split_k=split_k,
+                              compute_dtype=self.compute_dtype))
+            for faces_b, inv in zip(self.faces_np, invs)]
 
     def smooth_faces(self, xF):
         """Additive Schwarz: yF = sum_blocks P_b S_b^{-1} P_b^T xF."""
@@ -435,7 +452,7 @@ class FaceStarSmoother:
 
     # -- row-panel multicolor GS ---------------------------------------------
 
-    def color_row_groups(self, colors: np.ndarray,
+    def color_row_groups(self, colors: np.ndarray, S5p, invs,
                          panel_dtype=torch.float32, inv_dtype=torch.float32):
         """Per-color groups for :meth:`solve_color_rows` that compute the
         color's residual from ROW PANELS of S instead of a full skeleton
@@ -456,7 +473,9 @@ class FaceStarSmoother:
           color's largest block (bmax = fsz_max * nfb), one trailing zero
           block -- one batched stream per color.
 
-        ``colors``: (nblocks,) in bucket order (``block_faces``)."""
+        ``colors``: (nblocks,) in bucket order (``block_faces``); ``S5p``
+        and ``invs``: the f64 setup tables (:meth:`skeleton_table`,
+        :meth:`bucket_inverses`)."""
         lay = self.layout
         nfb, nface, ne, n_skel = lay.nfb, lay.nface, lay.ne, lay.n_skel
         dev = lay.device
@@ -466,7 +485,7 @@ class FaceStarSmoother:
         colmask = np.concatenate([self.freeF_np[efaces].reshape(ne, n_skel),
                                   np.zeros((1, n_skel), bool)])
         freeP = np.concatenate([self.freeF_np, np.zeros((1, nfb), bool)])
-        S_ext = self.S5p.reshape(ne + 1, n_skel, n_skel)
+        S_ext = S5p.reshape(ne + 1, n_skel, n_skel)
         base = np.cumsum([0] + [len(f) for f in self.faces_np])
         groups = []
         for c in range(int(np.max(colors)) + 1):
@@ -494,7 +513,7 @@ class FaceStarSmoother:
             for (_ofs, nkeep, fsz, bi, keep) in parts_meta:
                 bdim = fsz * nfb
                 inv_full[blk: blk + nkeep, :bdim, :bdim] = \
-                    self.bucket_inv[bi][torch.as_tensor(keep, device=dev)]
+                    invs[bi][torch.as_tensor(keep, device=dev)]
                 blk += nkeep
             # row panels at faces_c from each adjacent element (pad: the
             # zero element ne), columns then rows free-masked
@@ -569,7 +588,7 @@ class ColorGroup:
 
 
 def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
-                     chunk_bytes: float = 2.5e8):
+                     symmetrize: bool, chunk_bytes: float = 2.5e8):
     """One bucket's edge-star blocks, gathered from the face-major skeleton
     table (plus one zero element) and inverted in f64.
 
@@ -621,9 +640,7 @@ def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
         blk = blk * (fm[:, :, None] * fm[:, None, :])
         blk = blk + eye[None] * (1.0 - fm)[:, None, :]
         inv = torch.linalg.inv(blk)
-        # the blocks are symmetric; so are their stored (rounded) inverses,
-        # which keeps the GS sweep an exactly symmetric operator
-        outs.append(0.5 * (inv + inv.transpose(1, 2)))
+        outs.append(symmetric_part(inv) if symmetrize else inv)
     return torch.cat(outs)
 
 
@@ -651,14 +668,16 @@ def _merged_color_plan(parts_meta, faces_by_bucket, nface, nsel):
     return fsz_max, nblk_c, gpos, pos1
 
 
-def face_star_smoother(layout: FaceBlockLayout, S_skel_perm, free_mask,
-                       dtype=torch.float32, split_k: int = 1,
+def symmetric_part(A):
+    """(A + A^T) / 2 over the last two axes (numpy array or tensor)."""
+    return 0.5 * (A + A.swapaxes(-1, -2))
+
+
+def face_star_smoother(layout: FaceBlockLayout, free_mask,
                        compute_dtype=torch.float32) -> FaceStarSmoother:
-    """Build a FaceStarSmoother from face-major skeleton element blocks
-    ``S_skel_perm`` (ne, 4nfb, 4nfb) and the (n,) full-space free mask;
-    ``dtype`` stores, and ``split_k`` splits, the additive bucket tables;
-    ``compute_dtype`` is the arithmetic of every table apply (f64 on the
-    CPU only)."""
+    """The edge-star smoother's topology for ``layout`` and the (n,)
+    full-space free mask; ``compute_dtype`` is the arithmetic of every
+    table apply (f64 on the CPU only)."""
     lay = layout
     free = np.asarray(free_mask)
     freeF = np.concatenate(
@@ -668,8 +687,8 @@ def face_star_smoother(layout: FaceBlockLayout, S_skel_perm, free_mask,
         ],
         axis=1,
     )
-    return FaceStarSmoother(lay, S_skel_perm, _edge_star_faces(lay.mesh),
-                            freeF, dtype, split_k, compute_dtype)
+    return FaceStarSmoother(lay, _edge_star_faces(lay.mesh), freeF,
+                            compute_dtype)
 
 
 def _edge_star_faces(mesh) -> list[np.ndarray]:

@@ -35,10 +35,7 @@ def split_table(A64: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
-def equilibrated_f32_ops(m, gs: bool = True, ext_dtype=torch.bfloat16,
-                         inv_dtype=torch.bfloat16, panel_dtype=torch.float32,
-                         sweep_dtype=torch.float32, coarse_target: float = 1.6,
-                         split_k: int = 1):
+def equilibrated_f32_ops(m, gs: bool = True, split_k: int = 1):
     """Jacobi-equilibrated operator bundles for a 3D MCS model ``m``
     (:class:`~navier_stokes_tpu_torch.models.NavierStokesMCS`).
 
@@ -52,17 +49,15 @@ def equilibrated_f32_ops(m, gs: bool = True, ext_dtype=torch.bfloat16,
 
     Residual mapping for refinement: r~0 = D r0, r~1 = r1; solution mapping
     dx0 = D dx~0.  This is ``equilibrated_f32_ops(gs, split=True,
-    with_ds=True)`` of the JAX package, its environment knobs made
-    arguments with bench.py's defaults: ``gs`` (``BENCH_GS``) picks the
-    symmetric multicolor GS skeleton preconditioner over the additive one;
-    the four storage groups of ``NSTPU_SMOOTHER_BF16`` (refinement.py:
-    383-412) are ``ext_dtype`` (extension and interior tables, bf16),
-    ``inv_dtype`` (GS color-solve inverses, bf16), ``panel_dtype`` (GS row
-    panels, f32) and ``sweep_dtype`` (S and the additive edge-star
-    inverses, f32); ``coarse_target`` is ``NSTPU_COARSE_TARGET`` (1.6);
-    ``split_k`` is ``NSTPU_SPLITK`` (1): above 1 the A32 pair, the
-    compensated A, B, BT and the preconditioner's split tables stream
-    through the split-k kernels.  Arithmetic is f32."""
+    with_ds=True)`` of the JAX package with bench.py's settings: ``gs``
+    (``BENCH_GS``) picks the symmetric multicolor GS skeleton
+    preconditioner over the additive one; ``split_k`` is ``NSTPU_SPLITK``
+    (1): above 1 the A32 pair, the compensated A, B, BT and the
+    preconditioner's split tables stream through the split-k kernels.  The
+    preconditioner's table storage groups (``NSTPU_SMOOTHER_BF16=ext,inv``)
+    and coarse damping target (``NSTPU_COARSE_TARGET=1.6``) are bench.py's,
+    the defaults of :func:`~navier_stokes_tpu_torch.models.auxspace3d.
+    build_skeleton_preconditioner_3d`.  Arithmetic is f32."""
     dev = m.device
     lay = m.fb
     A_loc = m.A_cond_np
@@ -116,10 +111,7 @@ def equilibrated_f32_ops(m, gs: bool = True, ext_dtype=torch.bfloat16,
 
     preA32 = build_skeleton_preconditioner_3d(
         m.Xv, A_s, m._dirich, dev, torch.float32,
-        coarse_coefficient=m.nu, dof_scale=D, gs=gs, ext_dtype=ext_dtype,
-        inv_dtype=inv_dtype, panel_dtype=panel_dtype,
-        sweep_dtype=sweep_dtype, coarse_target=coarse_target,
-        split_k=split_k,
+        coarse_coefficient=m.nu, dof_scale=D, gs=gs, split_k=split_k,
     )
     diag_Mp32 = torch.as_tensor(m._diag_Mp, device=dev).to(torch.float32)
     nu32 = float(np.float32(m.nu))

@@ -24,9 +24,9 @@ Tolerances:
   compute in different orders;
 * symmetry of the GS preA with f32-stored tables applied in f64: 1e-8 of
   the product's size, as tests/test_skeleton_fast.py:57-61;
-* the first 30 MINRES error-history entries: 1e-4 relative to the same
-  iteration in f64 arithmetic, 2e-4 to the JAX package's f32 run (the two
-  f32 runs differ by up to 1.5e-4; see the test).
+* the first 30 MINRES error-history entries: 1e-4 relative to the JAX
+  package's MINRES in f64 arithmetic on its own stored tables, and no
+  further from it than the JAX package's own f32 run (see the test).
 """
 
 import jax.numpy as jnp
@@ -171,10 +171,11 @@ def test_row_panel_sweep_matches_recompute_sweep_f64(pair):
     lay = m.fb
     S_perm = _schur_f64(m)
     f64 = torch.float64
-    sm = face_star_smoother(lay, S_perm, m.Xv.free_mask, f64,
-                            compute_dtype=f64)
+    sm = face_star_smoother(lay, m.Xv.free_mask, compute_dtype=f64)
+    S5p = sm.skeleton_table(S_perm)
     groups = sm.color_row_groups(
-        pair["solver"].ops32["preA"].parts["colors"], f64, f64)
+        pair["solver"].ops32["preA"].parts["colors"], S5p,
+        sm.bucket_inverses(S5p), f64, f64)
     S_t = torch.from_numpy(S_perm)
     freeF = sm.freeF
 
@@ -233,18 +234,35 @@ def test_gs_preA_is_symmetric_with_f32_tables(pair):
     assert abs(lhs - rhs) < 1e-8 * max(abs(lhs), 1.0)
 
 
+def test_unsymmetrized_gs_preA32_matches_jax(pair):
+    """``symmetrize=False`` stores the JAX package's tables as computed (the
+    port's one deliberate departure switched off): preA32 against the JAX
+    preA32 at the tolerance of :func:`test_gs_preA32_matches_jax`."""
+    s, mp = pair["solver"], pair["mp"]
+    D = s.D.numpy()
+    De = D[np.asarray(mp.Xv.element_dofs)]
+    pre = build_skeleton_preconditioner_3d(
+        mp.Xv, mp.A_cond_np * De[:, :, None] * De[:, None, :], mp._dirich,
+        "cpu", torch.float32, coarse_coefficient=mp.nu, dof_scale=D, gs=True,
+        symmetrize=False)
+    x = np.random.default_rng(3).standard_normal(mp.n).astype(np.float32)
+    want = np.asarray(pair["ops32j"]["preA"](jnp.asarray(x)))
+    assert _rel(want, pre(torch.from_numpy(x)).numpy()) <= 2e-5
+
+
 def test_gs_minres_error_history_matches_jax(pair):
     """30 preconditioned MINRES iterations on the equilibrated split-f32
     saddle system with the GS preconditioner, from the same f32
-    right-hand side, against the JAX package's f32 run and against the
-    same iteration in f64 arithmetic on the same stored tables.
+    right-hand side, against the JAX package's witness: its MINRES in f64
+    arithmetic on its own stored tables (its preA32 applied to f64
+    vectors, its model's f64 operator).
 
-    The two f32 runs differ by up to 1.5e-4 over these 30 iterations,
-    while the port's stays within 1e-4 of the f64-arithmetic run: the
-    JAX run is the one that drifts (its f32 inner products over 1e5
-    entries).  The port is held to 1e-4 of the f64 run and to 2e-4 of the
-    JAX run."""
-    s, o32j, mp = pair["solver"], pair["ops32j"], pair["mp"]
+    The port's f32 run is held to 1e-4 of the witness, and to no more
+    drift from it than the JAX package's own f32 run, with its symmetrized
+    tables and with the reference's (``symmetrize=False``).  The drifts
+    are printed (``pytest -s``): the JAX f32 run's is the largest, so the
+    symmetrization is not what separates the two f32 runs."""
+    s, o32j, mp, mj = pair["solver"], pair["ops32j"], pair["mp"], pair["mj"]
     r0 = (s.D * s.f_mod).to(torch.float32)
     r1 = s.g_mod.to(torch.float32)
 
@@ -254,32 +272,44 @@ def test_gs_minres_error_history_matches_jax(pair):
     def prej(x):
         return (o32j["preA"](x[0]), o32j["preM"](x[1]))
 
-    D = s.D.numpy()
-    De = D[np.asarray(mp.Xv.element_dofs)]
-    pre64 = build_skeleton_preconditioner_3d(
-        mp.Xv, mp.A_cond_np * De[:, :, None] * De[:, None, :], mp._dirich,
-        "cpu", torch.float64, coarse_coefficient=mp.nu, dof_scale=D, gs=True)
+    Dj = jnp.asarray(s.D.numpy())
 
-    def K64(x):
-        return (s.D * mp.A(s.D * x[0]) + s.D * mp.BT(x[1]),
-                mp.B(s.D * x[0]))
+    def Kj64(x):
+        return (Dj * mj.A(Dj * x[0]) + Dj * mj.BT(x[1]), mj.B(Dj * x[0]))
 
-    def pre64_(x):
-        return (pre64(x[0]), s.ops32["preM"](x[1].float()).double())
+    def prej64(x):
+        y = o32j["preA"](x[0])
+        assert y.dtype == jnp.float64  # f64 arithmetic on the f32/bf16 tables
+        return (y, o32j["preM"](x[1].astype(jnp.float32)).astype(jnp.float64))
 
     steps = 30
-    resj = jax_minres(Kj, (jnp.asarray(r0.numpy()), jnp.asarray(r1.numpy())),
-                      pre=prej, maxsteps=steps, tol=1e-12, abs_test=False)
+    rhs = (r0.numpy(), r1.numpy())
+    resj = jax_minres(Kj, tuple(jnp.asarray(r) for r in rhs), pre=prej,
+                      maxsteps=steps, tol=1e-12, abs_test=False)
+    resj64 = jax_minres(Kj64, tuple(jnp.asarray(r, jnp.float64) for r in rhs),
+                        pre=prej64, maxsteps=steps, tol=1e-12, abs_test=False)
     resp = minres(s.K32, (r0, r1), pre=s.pre32, maxsteps=steps, tol=1e-12,
                   abs_test=False)
-    res64 = minres(K64, (r0.double(), r1.double()), pre=pre64_,
-                   maxsteps=steps, tol=1e-12, abs_test=False)
-    ej, ep, e64 = (np.asarray(r.errors, np.float64)[:steps + 1]
-                   for r in (resj, resp, res64))
+    D = s.D.numpy()
+    De = D[np.asarray(mp.Xv.element_dofs)]
+    pre_ref = build_skeleton_preconditioner_3d(
+        mp.Xv, mp.A_cond_np * De[:, :, None] * De[:, None, :], mp._dirich,
+        "cpu", torch.float32, coarse_coefficient=mp.nu, dof_scale=D, gs=True,
+        symmetrize=False)
+    resr = minres(s.K32, (r0, r1), maxsteps=steps, tol=1e-12, abs_test=False,
+                  pre=lambda x: (pre_ref(x[0]), s.ops32["preM"](x[1])))
+    ej, ej64, ep, er = (np.asarray(r.errors, np.float64)[:steps + 1]
+                        for r in (resj, resj64, resp, resr))
     assert resp.iterations == int(resj.iterations) == steps
     assert np.all(ep[1:] < 1.0) and ep[-1] < ep[1]
-    np.testing.assert_allclose(ep, e64, rtol=1e-4)
-    np.testing.assert_allclose(ep, ej, rtol=2e-4)
+    drift = {name: float(np.max(np.abs(e / ej64 - 1))) for name, e in
+             (("port", ep), ("port, symmetrize=False", er), ("JAX f32", ej))}
+    print(f"drift from the JAX f64 witness over {steps} iterations: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in drift.items()))
+    for e in (ep, er):
+        np.testing.assert_allclose(e, ej64, rtol=1e-4)
+    assert max(drift["port"], drift["port, symmetrize=False"]) \
+        <= drift["JAX f32"]
 
 
 def test_gs_flagship_solve_control_flow_at_loose_tolerance(pair, monkeypatch):
