@@ -3,11 +3,12 @@
 
 Drives the port's paths -- the initial Stokes solve of the 3D MCS channel
 with cylinder at maxh=0.09, order 2, nu=1e-3, to a true f64 relative
-residual of 1e-8 -- in phases; any failed phase ends the run with a
-non-zero exit:
+residual of 1e-8, and the transient SIMPLE step on its float32 twin -- in
+phases; any failed phase ends the run with a non-zero exit:
 
-1. build: compile ``navier_stokes_tpu_torch/csrc/block_mv.cu`` with nvcc
-   (sm_90a) and print the build seconds and the card;
+1. build: compile ``navier_stokes_tpu_torch/csrc/block_mv.cu`` and
+   ``local_mv.cu`` with nvcc (sm_90a), both at once, and print the build
+   seconds and the card;
 2. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
@@ -36,7 +37,23 @@ non-zero exit:
    configurations, with the GS parts: S_faces, one color step, coarse_gs;
 8. profile: the device busy share of 100 phase-1 MINRES iterations
    (torch.profiler kernel time over unprofiled wall time) of each
-   configuration and the kernels that take most of it.
+   configuration and the kernels that take most of it;
+9. ds: the residual of the converged solution through the plain 3 x f32
+   double-single applies (``elem_apply_ds`` / ``rect_apply_ds``, one
+   ``block_mv_ds`` launch each) beside the compensated one, both against
+   the true f64 residual;
+10. transient: the float32 twin of the curved model (same host tables),
+    ``make_step_fn(project_tol=1e-5)`` from ``u = u_bc`` as bench.py's
+    ``measure_transient``: one cold step with the launch counters set to 0
+    just before it, then n warm steps (n calibrated to about 10 s, 3..200):
+    steps/s, the M* and projection CG counts of every step, the
+    projection's reduction of ||B u||, whether a step is bitwise
+    repeatable, per-piece milliseconds and the device busy share; then 3
+    float64 steps (project_tol=1e-9) from the flagship solution.
+
+The kernel checks of phase 3 also cover ``batched_local_matvec`` (float32
+and float64, on the mass, condensed-operator and pressure-block tables of
+the transient step) and ``block_mv_ds`` (on the split A, B, BT tables).
 
 It prints the kernels' JSON line and the card's name and power limit on
 lines before the last, and as its last line
@@ -63,7 +80,11 @@ SPLIT_K = 2  # the split-k path's k; kernels are also checked at 4
 TILE, TILE_COMP = 256, 128  # split-k tiles (bench.py's NSTPU_TILE, comp B)
 REPS = 25
 SRC = "navier_stokes_tpu_torch/csrc/block_mv.cu"
+SRC_LOCAL = "navier_stokes_tpu_torch/csrc/local_mv.cu"
 PALLAS = "navier_stokes_tpu/ops/pallas_mv.py"
+PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
+F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
+PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 
 
 def log(*a):
@@ -140,8 +161,8 @@ def per_apply_ms(torch, fn, x, k=20):
 class KernelReport:
     """Sums one kernel's checks over the shapes of the main path."""
 
-    def __init__(self, name, replaces):
-        self.name, self.replaces = name, replaces
+    def __init__(self, name, replaces, source=SRC):
+        self.name, self.replaces, self.source = name, replaces, source
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.bytes = self.flops = 0
         self.max_abs_err = 0.0
@@ -162,7 +183,7 @@ class KernelReport:
     def entry(self, launches):
         bound_ms, bound_by = self.bound()
         return {
-            "name": self.name, "route": "cuda", "source": SRC,
+            "name": self.name, "route": "cuda", "source": self.source,
             "replaces": self.replaces, "launches": int(launches),
             "max_abs_err": float(self.max_abs_err), "ms": self.ms,
             "plain_ms": self.plain_ms, "bound_ms": bound_ms,
@@ -351,6 +372,74 @@ def check_splitk(torch, bm, timer, rep, label, kind, tabs, k, tile, gen,
     log(line)
 
 
+def check_local_mv(torch, lm, timer, rep, label, A, gen):
+    """``batched_local_matvec`` on the (ne, nb, nb) table ``A`` (f32 or
+    f64) against its plain version: within 2e-6 (f32) or 1e-13 (f64) of
+    sum_j |a_ij u_j|.  The yardstick is one ``torch.bmm``."""
+    ne, nb, _ = A.shape
+    f64 = A.dtype == torch.float64
+    u = torch.randn((ne, nb), generator=gen, device="cuda", dtype=A.dtype)
+    y = lm.batched_local_matvec(A, u)
+    y_ref = lm.batched_local_matvec_plain(A, u)
+    torch.cuda.synchronize()
+    scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
+    err = (y - y_ref).abs()
+    worst = float((err.double() / scale.clamp_min(1e-300)).max())
+    tol = 1e-13 if f64 else 2e-6
+    name = f"batched_local_matvec {label} {tuple(A.shape)} {str(A.dtype)[6:]}"
+    check(bool(torch.isfinite(y).all()), f"{name}: non-finite")
+    check(worst <= tol, f"{name}: {worst:.2e} > {tol:.0e} of sum|a u|")
+    ub = u[:, :, None]
+    ms = timer(lambda: lm.batched_local_matvec(A, u))
+    plain_ms = timer(lambda: lm.batched_local_matvec_plain(A, u))
+    lib_ms = timer(lambda: torch.bmm(A, ub))
+    nb_ = nbytes(A, u, y)
+    rate = F64_FLOPS_PER_S if f64 else F32_FLOPS_PER_S
+    add(rep, ms, plain_ms, lib_ms, nb_, 2 * A.numel(), float(err.max()))
+    log(f"  {name}: max|d|={float(err.max()):.3e} rel={worst:.2e} | kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
+        f"{nb_ / HBM_BYTES_PER_S * 1e3:.4f} (bytes; operations "
+        f"{2 * A.numel() / rate * 1e3:.4f})")
+
+
+def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
+    """``block_mv_ds`` against its plain version, each of the three
+    products within 2e-6 of sum_j |a_ij x_j|, and their f64 sum against the
+    f64 product of the same operands (printed: plain f32 accumulation).
+    The yardstick is one f32 ``torch.bmm`` of the stacked tables with
+    [x_hi, x_lo] (it also computes A_lo x_lo)."""
+    nblk, m, k = A_hi.shape
+    x64 = torch.randn((nblk, k), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    x_hi, x_lo = bm.split_f64(x64)
+    got = bm.block_mv_ds(A_hi, A_lo, x_hi, x_lo)
+    ref = bm.block_mv_ds_plain(A_hi, A_lo, x_hi, x_lo)
+    torch.cuda.synchronize()
+    A64 = A_hi.double() + A_lo.double()
+    scale = torch.einsum("bmk,bk->bm", A64.abs(), x64.abs()).clamp_min(1e-300)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    worst = max(float(((g - r).abs().double() / scale).max())
+                for g, r in zip(got, ref))
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"block_mv_ds {label}: non-finite")
+    check(worst <= 2e-6, f"block_mv_ds {label}: {worst:.2e} > 2e-6 of "
+          "sum|a x|")
+    ds = sum(g.double() for g in got)
+    ds_rel = float(((ds - torch.einsum("bmk,bk->bm", A64, x64)).abs()
+                    / scale).max())
+    Acat = torch.cat([A_hi, A_lo], dim=1)
+    xcat = torch.stack([x_hi, x_lo], dim=2)
+    ms = timer(lambda: bm.block_mv_ds(A_hi, A_lo, x_hi, x_lo))
+    plain_ms = timer(lambda: bm.block_mv_ds_plain(A_hi, A_lo, x_hi, x_lo))
+    lib_ms = timer(lambda: torch.bmm(Acat, xcat))
+    nb = nbytes(A_hi, A_lo, x_hi, x_lo, *got)
+    add(rep, ms, plain_ms, lib_ms, nb, 6 * A_hi.numel(), err)
+    log(f"  block_mv_ds {label} {tuple(A_hi.shape)}: max|d plain|={err:.3e} "
+        f"rel={worst:.2e}, f64 sum vs f64 product row-rel {ds_rel:.2e} | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
+        f"{nb / HBM_BYTES_PER_S * 1e3:.4f}")
+
+
 def cancellation_case(torch, nblk, nb, seed):
     """tests/test_pallas_mv.py's engineered ~1e5 row cancellation."""
     import numpy as np
@@ -383,11 +472,7 @@ def solve_table_real_bytes(parts):
 
 
 def profile_minres(torch, solver, label, steps=100):
-    """Device busy share of phase-1 MINRES: the card's kernel time under
-    torch.profiler over the wall time of the same call run unprofiled."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device busy share of phase-1 MINRES (:func:`profile_device`)."""
     from navier_stokes_tpu_torch.solvers.minres import minres
 
     f32 = torch.float32
@@ -397,6 +482,16 @@ def profile_minres(torch, solver, label, steps=100):
         minres(solver.K32, rhs, pre=solver.pre32, maxsteps=steps, tol=1e-30,
                abs_test=False)
         torch.cuda.synchronize()
+
+    profile_device(torch, run, label, f"{steps} MINRES iterations")
+
+
+def profile_device(torch, run, label, what):
+    """Device busy share of ``run`` (which ends in a synchronize): the
+    card's kernel time under torch.profiler over the wall time of the same
+    call run unprofiled, and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     run()
     t0 = time.perf_counter()
@@ -416,11 +511,11 @@ def profile_minres(torch, solver, label, steps=100):
             rows.append((us / 1e3, ev.count, ev.key))
     dev_ms = sum(r[0] for r in rows)
     if dev_ms == 0:
-        log(f"[profile {label}] {steps} MINRES iterations: wall "
+        log(f"[profile {label}] {what}: wall "
             f"{wall_ms:.2f} ms; device time not measured (the profiler saw "
             "no device time)")
         return
-    log(f"[profile {label}] {steps} MINRES iterations: wall {wall_ms:.2f} ms "
+    log(f"[profile {label}] {what}: wall {wall_ms:.2f} ms "
         f"unprofiled, device kernel time {dev_ms:.2f} ms, device busy "
         f"{dev_ms / wall_ms:.3f} (idle {1 - dev_ms / wall_ms:.3f})")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
@@ -489,6 +584,208 @@ def apply_probes(torch, label, solver):
         log(f"[apply {label}] {name:22s} {per_apply_ms(torch, fn, x):.4f} ms")
 
 
+def ds_phase(torch, bm, solver, res):
+    """The residual of the converged solution ``res`` through the plain
+    3 x f32 double-single applies, beside the compensated one, both held
+    against the true f64 residual (plain f64 torch operators).  Returns the
+    ``block_mv_ds`` launches of the phase."""
+    m, ods = solver.m, solver.ops_ds
+    _A3 = m.fb.elem_apply_ds(*ods["A"].tables)
+    _B3, _BT3 = m.fb.rect_apply_ds(*ods["B"].tables, m.Q.element_dofs)
+    free = m.free
+
+    def A3(u):  # masked as the compensated operators are
+        uf = torch.where(free, u, 0.0)
+        return torch.where(free, _A3(uf), u)
+
+    def B3(u):
+        return _B3(torch.where(free, u, 0.0))
+
+    def BT3(p):
+        return torch.where(free, _BT3(p), 0.0)
+
+    x0, x1 = res.x
+    Dinv = 1.0 / solver.D
+    bm.reset_launches()
+    r_ds = (solver.f_mod - Dinv * A3(Dinv * x0) - Dinv * BT3(x1),
+            solver.g_mod - B3(Dinv * x0))
+    torch.cuda.synchronize()
+    launches = bm.LAUNCHES["block_mv_ds"]
+    r_comp = solver.residual_pass(x0, x1)
+    r64 = solver.residual64(x0, x1)
+
+    def dist(r):
+        return solver.true_rel(r[0] - r64[0], r[1] - r64[1])
+
+    rel_ds, rel_comp = solver.true_rel(*r_ds), solver.true_rel(*r_comp)
+    e_ds, e_comp = dist(r_ds), dist(r_comp)
+    log(f"[ds] residual of the converged solution: true f64 "
+        f"{solver.true_rel(*r64):.3e}; 3 x f32 double-single {rel_ds:.3e} "
+        f"(off the f64 residual vector by {e_ds:.3e} of |rhs|); compensated "
+        f"{rel_comp:.3e} (off by {e_comp:.3e}); {launches} block_mv_ds "
+        "launches")
+    check(all(bool(torch.isfinite(r).all()) for r in r_ds),
+          "[ds] residual is not finite")
+    check(launches == 3, f"[ds] {launches} block_mv_ds launches, expected 3")
+    check(e_ds >= e_comp, f"[ds] the plain double-single residual "
+          f"({e_ds:.3e}) is closer to f64 than the compensated ({e_comp:.3e})")
+    return launches
+
+
+def host_ms(torch, fn, reps=3):
+    """Median host-clock milliseconds of ``fn()`` ending in a synchronize
+    (pieces with their own host reads, as the CG solves)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def transient_phase(torch, bm, m, step, m64, u64_start):
+    """bench.py's second metric on the port: the f32 SIMPLE step ``step`` of
+    the stepping model ``m``, then 3 f64 steps of ``m64`` from the flagship
+    solution.  Returns the launch counts of one (the cold) f32 step."""
+    from navier_stokes_tpu_torch.flagship import transient_steps
+    from navier_stokes_tpu_torch.solvers.cg import cg
+
+    def norm(v):
+        return float(torch.linalg.norm(v.double()))
+
+    # one cold step from u = u_bc, counters at 0 just before it
+    u0 = m.u
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = step(u0)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    counts = [dict(m.last_iterations)]
+    check(bool(torch.isfinite(u).all()), "[transient] cold step not finite")
+    log(f"[transient] f32 cold step {t_cold:.3f} s, M* CG "
+        f"{counts[0]['mstar']}, projection CG {counts[0]['project']}, "
+        f"launches {launches}")
+    check(launches["batched_local_matvec"] > 0,
+          "batched_local_matvec never launched in the step")
+    # is a step bitwise repeatable?  (index_add_ uses float atomics)
+    u_again = step(u0)
+    same = torch.equal(u, u_again)
+    log(f"[transient] the same step again: bitwise "
+        f"{'equal' if same else 'different'}, max |d| "
+        f"{float((u - u_again).abs().max()):.3e} (max |u1 - u0| "
+        f"{float((u - u0).abs().max()):.3e}), CG counts "
+        f"{dict(m.last_iterations)}")
+
+    # warm steps, calibrated as bench.py:228-240
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = step(u)
+    torch.cuda.synchronize()
+    dt1 = time.perf_counter() - t0
+    counts.append(dict(m.last_iterations))
+    n_steps = max(3, min(200, int(10.0 / max(dt1, 1e-3))))
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        u = step(u)
+        counts.append(dict(m.last_iterations))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check(bool(torch.isfinite(u).all()), "[transient] the steps blew up")
+    ms_, pr_ = ([c[k] for c in counts] for k in ("mstar", "project"))
+    log(f"[transient] f32: {n_steps} warm steps in {t_warm:.3f} s "
+        f"({n_steps / t_warm:.3f} steps/s, {t_warm / n_steps * 1e3:.1f} "
+        f"ms/step; calibration step {dt1:.3f} s); M* CG per step "
+        f"{min(ms_)}..{max(ms_)} (first {ms_[:4]}, last {ms_[-1]}), "
+        f"projection CG {min(pr_)}..{max(pr_)} (first {pr_[:4]}, last "
+        f"{pr_[-1]}); max |u| {float(u.abs().max()):.4f}")
+    check(max(pr_) < 2000 and max(ms_) < 2000, "a CG ran into maxsteps")
+
+    # the pieces of one step, and what the projection does to ||B u||
+    free, conv, A_step = m.free, m.convection, m._A_raw_step
+    Minv, pre2 = m._mass_chebyshev(), m._pre_proj_twolevel()
+    temp = torch.where(free, conv(u) + m.f - A_step(u), 0.0)
+    v = m._inv_mstar(temp, precision=MSTAR_TOL)
+    w, p = m._project_velocity(v, tol=PROJECT_TOL32)
+    bv, bw = norm(m.B_raw(v)), norm(m.B_raw(w))
+    log(f"[transient] projection: ||B v|| {bv:.3e} -> ||B P v|| {bw:.3e} "
+        f"(ratio {bw / bv:.3e}); ||B u|| after the steps "
+        f"{norm(m.B_raw(u)):.3e}, of u_bc {norm(m.B_raw(u0)):.3e}")
+    check(bw <= 1e-4 * bv, f"the projection reduced ||B u|| only by "
+          f"{bw / bv:.3e}")
+    rhs_p = m.B_raw(v)
+
+    def S(q):
+        return m.B(Minv(m.BT(q)))
+
+    pieces = [
+        ("conv", lambda: conv(u)),
+        ("A_raw (kernel route)", lambda: A_step(u)),
+        ("mass_raw", lambda: m._mass_raw(u)),
+        ("mstar apply", lambda: m.mstar(u)),
+        ("Minv (Chebyshev 16)", lambda: Minv(temp)),
+        ("B_raw", lambda: m.B_raw(u)),
+        ("BT", lambda: m.BT(p)),
+        ("S apply (B Minv BT)", lambda: S(p)),
+        ("twolevel pre", lambda: pre2(p)),
+        ("twolevel block", lambda: pre2.block(p)),
+    ]
+    for name, fn in pieces:
+        log(f"[piece f32] {name:22s} "
+            f"{per_apply_ms(torch, lambda _x: fn(), None, k=10):.4f} ms")
+    for name, fn in (
+            ("inv_mstar (CG 1e-4)", lambda: m._inv_mstar(temp, MSTAR_TOL)),
+            ("project (CG 1e-5)", lambda: m._project_velocity(
+                v, tol=PROJECT_TOL32)),
+            ("projection CG alone", lambda: cg(S, rhs_p, pre=pre2,
+                                               tol=PROJECT_TOL32,
+                                               maxsteps=2000)),
+            ("whole step", lambda: step(u))):
+        log(f"[piece f32] {name:22s} {host_ms(torch, fn):.2f} ms (host "
+            "clock, median of 3)")
+
+    def run3():
+        x = u
+        for _ in range(3):
+            x = step(x)
+        torch.cuda.synchronize()
+
+    profile_device(torch, run3, "transient f32", "3 steps")
+
+    # 3 f64 steps from the flagship solution
+    t0 = time.perf_counter()
+    step64 = m64.make_step_fn(project_tol=PROJECT_TOL64, mstar_tol=MSTAR_TOL)
+    torch.cuda.synchronize()
+    log(f"[setup] transient f64: step setup {time.perf_counter() - t0:.1f} "
+        "s: " + ", ".join(f"{k} {v:.1f} s"
+                          for k, v in m64.setup_seconds.items()))
+    del step64
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u64, counts64 = transient_steps(m64, 3, project_tol=PROJECT_TOL64,
+                                    mstar_tol=MSTAR_TOL, u=u64_start)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    check(bool(torch.isfinite(u64).all()), "[transient] f64 steps blew up")
+    check(u64.dtype == torch.float64, "[transient] f64 steps lost precision")
+    log(f"[transient] f64: 3 steps from the flagship solution in {t64:.3f} s "
+        f"({t64 / 3 * 1e3:.1f} ms/step, the first one cold), CG counts "
+        f"{counts64}, ||B u|| {norm(m64.B_raw(u64_start)):.3e} -> "
+        f"{norm(m64.B_raw(u64)):.3e}, max |u3 - u0| "
+        f"{float((u64 - u64_start).abs().max()):.3e}, launches "
+        f"{dict(bm.LAUNCHES)}")
+    check(bm.LAUNCHES["batched_local_matvec"] > 0,
+          "batched_local_matvec never launched in the f64 steps")
+    check(max(c["project"] for c in counts64) < 2000,
+          "the f64 projection CG ran into maxsteps")
+    return launches
+
+
 # -- the run ---------------------------------------------------------------------
 
 
@@ -513,6 +810,7 @@ def run():
         channel_with_cylinder_mesh_3d,
     )
     from navier_stokes_tpu_torch.ops import block_mv as bm
+    from navier_stokes_tpu_torch.ops import local_mv as lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -522,10 +820,12 @@ def run():
 
     # 1. build
     t0 = time.perf_counter()
-    path, secs = bm.build_library(verbose=True)
+    built = bm.build_all(verbose=True)
     bm.load_library()
-    log(f"[build] {path.name}: nvcc {secs:.1f} s "
-        f"(with load {time.perf_counter() - t0:.1f} s)")
+    lm.load_library()
+    log("[build] " + ", ".join(f"{path.name}: nvcc {secs:.1f} s"
+                               for path, secs in built.values())
+        + f" (both at once, with load {time.perf_counter() - t0:.1f} s)")
     card = card_line()
     log(f"[card] {card}")
 
@@ -537,8 +837,9 @@ def run():
     geo = cylinder_geometry(mesh)
     t_curve = time.perf_counter() - t0
     t0 = time.perf_counter()
+    cache = {}  # host tables, shared with the f32 stepping model
     m = build_model(MAXH, order=ORDER, nu=NU, device="cuda", mesh=mesh,
-                    geometry=geo)
+                    geometry=geo, assembly_cache=cache)
     torch.cuda.synchronize()
     t_model = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -573,6 +874,26 @@ def run():
     check(m_s.n == 243312 and m_s.Q.ndof == 30960,
           f"unexpected size {m_s.n}+{m_s.Q.ndof}")
 
+    # the f32 stepping model (bench.py:210) and the step's lazy setup
+    t0 = time.perf_counter()
+    m32 = build_model(MAXH, order=ORDER, nu=NU, device="cuda", mesh=mesh,
+                      geometry=geo, assembly_cache=cache,
+                      dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_model32 = time.perf_counter() - t0
+    del cache
+    t0 = time.perf_counter()
+    step32 = m32.make_step_fn(project_tol=PROJECT_TOL32, mstar_tol=MSTAR_TOL)
+    torch.cuda.synchronize()
+    alpha, beta = m32._mass_chebyshev().bounds
+    log(f"[setup] transient f32: model build {t_model32:.1f} s (host tables "
+        f"shared), step setup {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in m32.setup_seconds.items())
+        + f"; Chebyshev bounds ({alpha:.5f}, {beta:.5f})")
+    check(m32.dtype == torch.float32 and m32.u.dtype == torch.float32,
+          "the stepping model is not float32")
+    check(m32.n == m.n and m32.Q.ndof == m.Q.ndof, "the twin differs in size")
+
     # 3. kernel checks on the main path's tables (and slice 1's)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda")
@@ -586,6 +907,9 @@ def run():
                                          f"{PALLAS}:358"),
         "block_mv_comp_splitk": KernelReport("block_mv_comp_splitk",
                                              f"{PALLAS}:397"),
+        "block_mv_ds": KernelReport("block_mv_ds", f"{PALLAS}:129"),
+        "batched_local_matvec": KernelReport(
+            "batched_local_matvec", f"{PALLAS_LOCAL}:26", SRC_LOCAL),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -644,6 +968,21 @@ def run():
             check_splitk(torch, bm, timer, None, "cancellation 1e5", "comp",
                          [hi, lo], k, 8 if nblk < 100 else TILE, gen,
                          x64=x64, timed=False)
+
+    log("[kernels] batched_local_matvec on the transient step's tables "
+        "(f32: the stepping model's, reported; f64: the model's own)")
+    for mm, keep in ((m32, True), (m, False)):
+        pre2 = mm._pre_proj_twolevel()
+        for tname, A in (("M_loc", mm._M_loc), ("A_cond", mm._A_cond),
+                         ("S_inv", pre2.S_inv)):
+            check_local_mv(torch, lm, timer,
+                           reports["batched_local_matvec"] if keep else None,
+                           tname, A, gen)
+    log("[kernels] block_mv_ds on the split A, B, BT tables")
+    for tname, op in (("A_ds", ods["A"]), ("B_ds", ods["B"]),
+                      ("BT_ds", ods["BT"])):
+        check_ds(torch, bm, timer, reports["block_mv_ds"], tname, *op.tables,
+                 gen)
 
     # 4. main path: the curved GS solve, cold then warm
     cold, launches = solve_and_check(torch, bm, solver, "curved GS cold",
@@ -704,11 +1043,20 @@ def run():
     profile_minres(torch, solver, "curved GS")
     profile_minres(torch, solver_s, "straight additive")
 
+    # 9. the plain double-single residual of the converged solution
+    launches_ds = ds_phase(torch, bm, solver, warm)
+
+    # 10. the transient step: f32 as bench.py, then f64 from the solution
+    launches_t = transient_phase(torch, bm, m32, step32, m,
+                                 m.u_bc + warm.x[0])
+
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
               **{k: launches_k[k] for k in ("block_mv_splitk",
                                             "block_mv2_splitk",
-                                            "block_mv_comp_splitk")}}
+                                            "block_mv_comp_splitk")},
+              "block_mv_ds": launches_ds,
+              "batched_local_matvec": launches_t["batched_local_matvec"]}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     print(json.dumps(kernels), flush=True)

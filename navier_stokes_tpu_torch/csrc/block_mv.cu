@@ -4,6 +4,7 @@
 //
 //   nstt_block_mv_{f32,bf16}  <- _mv_kernel      (pallas_mv.py:118)
 //   nstt_block_mv2_f32        <- _mv2_kernel     (pallas_mv.py:124)
+//   nstt_block_mv_ds_f32      <- _mv_ds_kernel   (pallas_mv.py:129)
 //   nstt_block_mv_comp_f32    <- _mv_comp_kernel (pallas_mv.py:166)
 //
 // Each computes y[b, i] = sum_j A[b, i, j] x[b, j] for a batch of small dense
@@ -171,6 +172,47 @@ __global__ void __launch_bounds__(kMaxThreads)
       acc_lo = fmaf(lr[j], xb[j], acc_lo);
     }
     y[r] = acc_hi + acc_lo;
+  }
+}
+
+// The three f32 products of the plain double-single apply, A_hi x_hi,
+// A_hi x_lo and A_lo x_hi, from ONE pass over both tables (the caller sums
+// them in f64; A_lo x_lo is below f64 roundoff of the result).  Each is a
+// plain f32 fmaf chain, as _mv_ds_kernel's three _bmv reductions.
+__global__ void __launch_bounds__(kMaxThreads)
+    block_mv_ds_kernel(const float* __restrict__ a_hi,
+                       const float* __restrict__ a_lo,
+                       const float* __restrict__ x_hi,
+                       const float* __restrict__ x_lo,
+                       float* __restrict__ y_hh, float* __restrict__ y_hl,
+                       float* __restrict__ y_lh, long long nrows_all, int m,
+                       int k, int ks, int R) {
+  extern __shared__ float smem[];
+  const Tile t = tile_of(nrows_all, R, m, k);
+  float* th = smem;
+  float* tl = smem + R * ks;
+  float* xh = smem + 2 * R * ks;
+  float* xl = xh + t.nx;
+  stage_rows(a_hi + t.r0 * k, t.nrows * k, k, ks, th);
+  stage_rows(a_lo + t.r0 * k, t.nrows * k, k, ks, tl);
+  stage_x(x_hi + t.b0 * k, t.nx, xh);
+  stage_x(x_lo + t.b0 * k, t.nx, xl);
+  __syncthreads();
+  for (int rr = threadIdx.x; rr < t.nrows; rr += blockDim.x) {
+    const long long r = t.r0 + rr;
+    const float* hr = th + rr * ks;
+    const float* lr = tl + rr * ks;
+    const long long xo = (r / m - t.b0) * k;
+    float hh = 0.0f, hl = 0.0f, lh = 0.0f;
+    for (int j = 0; j < k; ++j) {
+      const float ah = hr[j], xhj = xh[xo + j];
+      hh = fmaf(ah, xhj, hh);
+      hl = fmaf(ah, xl[xo + j], hl);
+      lh = fmaf(lr[j], xhj, lh);
+    }
+    y_hh[r] = hh;
+    y_hl[r] = hl;
+    y_lh[r] = lh;
   }
 }
 
@@ -593,6 +635,22 @@ int nstt_block_mv2_f32(const float* a_hi, const float* a_lo, const float* x,
   block_mv2_kernel<<<L.grid, L.threads, L.smem,
                      static_cast<cudaStream_t>(stream)>>>(
       a_hi, a_lo, x, y, nrows, m, k, ks, L.R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nstt_block_mv_ds_f32(const float* a_hi, const float* a_lo,
+                         const float* x_hi, const float* x_lo, float* y_hh,
+                         float* y_hl, float* y_lh, long long nblk, int m,
+                         int k, void* stream) {
+  if (bad_shape(nblk, m, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nrows = nblk * m;
+  if (nrows == 0) return 0;
+  const int ks = row_stride(k);
+  const Launch L = plan(nrows, m, k, ks, 2, 2);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  block_mv_ds_kernel<<<L.grid, L.threads, L.smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      a_hi, a_lo, x_hi, x_lo, y_hh, y_hl, y_lh, nrows, m, k, ks, L.R);
   return static_cast<int>(cudaGetLastError());
 }
 

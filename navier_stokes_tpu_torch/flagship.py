@@ -26,6 +26,15 @@ Usage::
 
     straight = build_model(0.09, curved=False)
     additive = FlagshipSolve(straight, gs=False)
+
+The transient SIMPLE step (bench.py's second metric, ``measure_transient``)
+runs on a float32 twin built from the same host tables::
+
+    cache = {}
+    m = build_model(0.09, assembly_cache=cache)
+    m32 = build_model(0.09, assembly_cache=cache, dtype=torch.float32,
+                      mesh=m.mesh, geometry=m.geometry)
+    u, counts = transient_steps(m32, 3, project_tol=1e-5)
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ from .solvers.minres import minres
 from .solvers.refinement import equilibrated_f32_ops
 
 __all__ = ["H", "uin", "cylinder_geometry", "build_model", "FlagshipSolve",
-           "FlagshipResult"]
+           "FlagshipResult", "transient_steps"]
 
 H = 0.41
 # MINRES iterations per call: bench.py's defaults (BENCH_CHUNK32/64); a
@@ -66,11 +75,13 @@ def cylinder_geometry(mesh):
 
 def build_model(maxh: float = 0.09, order: int = 2, nu: float = 1e-3,
                 device=None, assembly_cache: dict | None = None,
-                mesh=None, curved: bool = True,
-                geometry=None) -> NavierStokesMCS:
+                mesh=None, curved: bool = True, geometry=None,
+                dtype=torch.float64) -> NavierStokesMCS:
     """The bench configuration (bench.py:179-187): curved cylinder unless
     ``curved=False``.  ``mesh`` and its ``geometry``
-    (:func:`cylinder_geometry`) are built here unless given."""
+    (:func:`cylinder_geometry`) are built here unless given.  ``dtype``:
+    float64 for the initial solve, float32 for the bench's stepping model
+    (bench.py:210)."""
     if mesh is None:
         mesh = channel_with_cylinder_mesh_3d(maxh)
     if curved and geometry is None:
@@ -78,8 +89,25 @@ def build_model(maxh: float = 0.09, order: int = 2, nu: float = 1e-3,
     return NavierStokesMCS(
         mesh, nu=nu, inflow="inlet", outflow="outlet", wall="wall|cyl",
         uin=uin, timestep=2e-3, order=order, assembly_cache=assembly_cache,
-        device=device, geometry=geometry if curved else None,
+        device=device, geometry=geometry if curved else None, dtype=dtype,
     )
+
+
+def transient_steps(m: NavierStokesMCS, n: int, project_tol: float = 1e-9,
+                    mstar_tol: float = 1e-4, u=None):
+    """``n`` SIMPLE steps of ``m`` from ``u`` (default: the model's state
+    ``m.u``), as bench.py's ``measure_transient`` without the timing.
+    Returns (u, counts): the state after the last step -- the model's own
+    state is left alone -- and per step the CG iteration counts
+    ``{"mstar": ..., "project": ...}``.  A float32 model needs a reachable
+    ``project_tol`` (bench.py passes 1e-5)."""
+    step = m.make_step_fn(project_tol=project_tol, mstar_tol=mstar_tol)
+    u = m.u if u is None else u
+    counts = []
+    for _ in range(n):
+        u = step(u)
+        counts.append(dict(m.last_iterations))
+    return u, counts
 
 
 @dataclass
@@ -105,6 +133,9 @@ class FlagshipSolve:
 
     def __init__(self, m: NavierStokesMCS, tol: float = 1e-8,
                  gs: bool = True, split_k: int = 1):
+        if m.dtype != torch.float64:
+            raise TypeError("the flagship solve needs the float64 model, "
+                            f"got {m.dtype}")
         self.m = m
         self.tol = tol
         self.gs, self.split_k = gs, split_k

@@ -1,23 +1,40 @@
 """Navier-Stokes on the MCS discretization in 3D — the flagship model.
 
-Counterpart of ``navier_stokes_tpu/models/navier_stokes_mcs.py``, 3D only,
-up to the operators of the initial Stokes solve: V = BDM_k H(div) velocity
-on tets, tangential facet velocity of order k-1, H(curl,div) stress sigma
-and the vector vorticity multiplier W, with sigma and W eliminated per
-element by batched static condensation.  The condensed [H(div) | facet]
-operator A, the pressure coupling B (L2 order k-1) and the pressure-mass
-preconditioner preM are built here; element assembly and condensation run
-once on the host in f64 numpy, the face-major operator tables live on
-``device`` in f64.
+Counterpart of ``navier_stokes_tpu/models/navier_stokes_mcs.py``, 3D only:
+V = BDM_k H(div) velocity on tets, tangential facet velocity of order k-1,
+H(curl,div) stress sigma and the vector vorticity multiplier W, with sigma
+and W eliminated per element by batched static condensation.  The condensed
+[H(div) | facet] operator A, the pressure coupling B (L2 order k-1) and the
+pressure-mass preconditioner preM are built here; element assembly and
+condensation run once on the host in f64 numpy, the face-major operator
+tables live on ``device`` in the model's ``dtype`` (f64 unless asked).
 
 With ``geometry=`` (mesh/curved.curve_to_cylinder_3d) the curved-layer
 element rows are re-assembled isoparametrically, as the bench's default
 order-3 curved cylinder.
 
-Not carried over (yet): 2D, convection and time stepping.
+The transient SIMPLE step (``make_step_fn``, ``DoTimeStep``, ``Project``,
+``SolveInitial(timesteps=n)``): explicit upwind-DG convection
+(ops/convection3d.py), the implicit M* = M + dt A solve by Jacobi-
+preconditioned CG, and the divergence projection by CG on
+S = B Mv^-1 B^T with a Chebyshev mass inverse and the element-block + P1
+two-level preconditioner.  Every square per-element product of the step --
+the mass and condensed-operator applies and the element-block Jacobi --
+goes through ``ops.local_mv.batched_local_matvec``, the hand-written kernel
+on the card; ``A`` and ``A_raw`` stay plain tensor operations (the
+flagship's true-residual check is independent of every kernel).  The mass
+table, the Chebyshev bounds, the projection preconditioner and the
+convection tables are built lazily: the steady solve never touches them.
+
+Not carried over (each raises NotImplementedError naming its ROADMAP item):
+the BPCG ``SolveInitial`` (Queue 1 item 13; the port's initial solve is
+``flagship.FlagshipSolve``), enclosed flow (no outflow boundary), the 2D
+model, ``reconstruct_stress`` and ``AddForce``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -27,10 +44,15 @@ from ..fem.hcurldiv3d import hcurldiv_tet
 from ..fem.hdiv3d import HDiv3D
 from ..fem.quadrature import tetrahedron_rule
 from ..fem.reference import TET_FACES, TET_VERTICES, triangle_modal
-from ..fem.spaces import L2
+from ..fem.spaces import H1, L2
 from ..ops.assembly import mass_diagonal
+from ..ops.convection3d import build_upwind_convection_3d
 from ..ops.faceblock import FaceBlockLayout
 from ..ops.facets3d import facet_geometry_3d
+from ..ops.local_mv import batched_local_matvec
+from ..precond.chebyshev import chebyshev_preconditioner
+from ..precond.twolevel import coarse_p1_solver
+from ..solvers.cg import cg
 from .stokes_hybrid3d import (
     HybridVelocitySpace3D,
     VectorFacet3D,
@@ -395,8 +417,17 @@ def load_host_tables(arrays: dict) -> dict:
     layout of the JAX package's assembly cache and of bench.py's on-disk
     cache).  A curved-geometry build reads ``tabs3d_curved`` and
     ``cond_curved`` instead (bench.py:139-141).  The model then builds from
-    exactly these tables."""
+    exactly these tables.
+
+    State carried across: ``u`` and ``p`` (dof vectors of another model of
+    the same spaces) and ``cheb_bounds`` = (alpha, beta) of its Chebyshev
+    mass inverse, where present, go into a ``state`` entry that the model
+    takes up at construction (:meth:`NavierStokesMCS.load_state`)."""
     out = {}
+    state = {k: np.asarray(arrays[k], np.float64)
+             for k in ("u", "p", "cheb_bounds") if k in arrays}
+    if state:
+        out["state"] = state
     for key, n in _CACHE_KEYS.items():
         if key in arrays:
             tup = tuple(arrays[key])
@@ -407,31 +438,40 @@ def load_host_tables(arrays: dict) -> dict:
         if len(tup) != n:
             raise ValueError(f"{key}: expected {n} arrays, got {len(tup)}")
         out[key] = tuple(np.asarray(a, np.float64) for a in tup)
-    if not out:
+    if not set(out) - {"state"}:
         raise ValueError(f"no assembly tables among {sorted(arrays)}")
     return out
 
 
 class NavierStokesMCS:
-    """3D MCS model: spaces, condensed operators and the initial-solve
-    right-hand side.
+    """3D MCS model: spaces, condensed operators, the initial-solve
+    right-hand side and the transient SIMPLE step.
 
     ``device``: where the operator tables live; CUDA unless the caller
-    passes ``device="cpu"``.  ``geometry``: a
+    passes ``device="cpu"``.  ``dtype``: the model's working precision
+    (tables, state and every operator): float64, or float32 for a stepping
+    model as the bench's transient metric (the flagship initial solve needs
+    the float64 model).  ``geometry``: a
     :class:`~navier_stokes_tpu_torch.mesh.curved.CurvedGeometry3D` whose
     curved elements are assembled isoparametrically (None: straight).
     ``assembly_cache``: a dict (see :func:`load_host_tables`) whose
     ``tabs3d`` / ``cond`` entries (``tabs3d_curved`` / ``cond_curved`` with
     a geometry) replace host assembly and condensation; filled in when they
-    are missing."""
+    are missing, so that a second model of the same mesh, order and nu
+    (the f32 stepping twin of an f64 model) skips both."""
 
     def __init__(self, mesh, nu: float, inflow: str, outflow: str,
                  wall: str, uin, timestep: float, order: int = 2,
                  assembly_cache: dict | None = None, device=None,
-                 geometry=None):
+                 geometry=None, dtype=torch.float64):
         if mesh.dim != 3:
-            raise NotImplementedError("the port carries the 3D model only")
+            raise NotImplementedError(
+                "the port carries the 3D model only (2D: ROADMAP Queue 1 "
+                "item 13)")
+        if dtype not in (torch.float64, torch.float32):
+            raise TypeError(f"dtype {dtype} is neither float64 nor float32")
         self.device = dev = resolve_device(device)
+        self.dtype = dtype
         self.nu, self.timestep, self.uin = nu, timestep, uin
         self.inflow, self.outflow, self.wall = inflow, outflow, wall
         self.mesh, self.order = mesh, order
@@ -476,23 +516,32 @@ class NavierStokesMCS:
             if assembly_cache is not None:
                 assembly_cache[ckey] = (self._Acc_inv, self.A_cond_np)
         self.B_loc_np = np.asarray(B_loc_np)
+        self._M_loc_np = np.asarray(M_full_np)
 
         n = self.Xv.ndof
         self.n = n
         self.free_np = self.Xv.free_mask
         self.free = free = torch.as_tensor(self.free_np, device=dev)
+
+        def ship(a):
+            return torch.as_tensor(a, device=dev).to(dtype)
+
         # scatter-free face-block applies; element tables ship face-major
         self.fb = FaceBlockLayout(self.Xv, dev)
-        self._A_cond = torch.as_tensor(
-            self.fb.permute_blocks(self.A_cond_np), device=dev)
-        self._B_perm = torch.as_tensor(
-            self.fb.permute_cols(self.B_loc_np), device=dev)
+        self._A_cond = ship(self.fb.permute_blocks(self.A_cond_np))
+        self._B_perm = ship(self.fb.permute_cols(self.B_loc_np))
+        self._M_loc_t = None  # face-major mass table, shipped at first use
         _A_apply = self.fb.elem_apply(self._A_cond)
+        # the transient step's route: the same table through the kernel
+        _A_step = self.fb.elem_apply(self._A_cond, use_kernel=True)
         _B_apply, _BT_apply = self.fb.rect_apply(self._B_perm,
                                                   self.Q.element_dofs)
 
         def A_raw(u):
             return _A_apply(u)
+
+        def mass_raw(u):
+            return self.fb.elem_apply(self._M_loc, use_kernel=True)(u)
 
         def B_raw(u):
             return _B_apply(u)
@@ -504,23 +553,121 @@ class NavierStokesMCS:
             uf = torch.where(free, u, 0.0)
             return torch.where(free, A_raw(uf), u)
 
+        def mstar(u):
+            uf = torch.where(free, u, 0.0)
+            y = mass_raw(uf) + timestep * _A_step(uf)
+            return torch.where(free, y, u)
+
         def B(u):
             return B_raw(torch.where(free, u, 0.0))
 
-        self.A, self.A_raw = A, A_raw
+        self.A, self.A_raw, self.mstar = A, A_raw, mstar
         self.B, self.B_raw, self.BT = B, B_raw, BT
+        self._A_raw_step, self._mass_raw = _A_step, mass_raw
+
+        eld = self.Xv.element_dofs.ravel()
+        diag_m_np = np.zeros(n)
+        np.add.at(diag_m_np, eld, np.einsum(
+            "eii->ei", self._M_loc_np + timestep * self.A_cond_np).ravel())
+        diag_m = torch.where(free, ship(diag_m_np).abs(), 1.0)
+        self.preMstar = lambda u: torch.where(free, u / diag_m, u)
 
         self._diag_Mp = mass_diagonal(self.Q)
-        diag_Mp = torch.as_tensor(self._diag_Mp, device=dev)
+        diag_Mp = ship(self._diag_Mp)
         if not outflow:
             raise NotImplementedError(
-                "enclosed flow (pressure demeaning) is not ported yet")
+                "enclosed flow (pressure demeaning, the block-only "
+                "projection preconditioner) is not ported: ROADMAP Queue 1 "
+                "item 13")
         self.preM = lambda p: nu * p / diag_Mp
+        diag_Mv_np = np.zeros(n)
+        np.add.at(diag_Mv_np, eld,
+                  np.einsum("eii->ei", self._M_loc_np).ravel())
+        diag_Mv = ship(diag_Mv_np)
+        diag_Mv = torch.where(free & (diag_Mv.abs() > 1e-30), diag_Mv, 1.0)
+        self._preMv = lambda u: torch.where(free, u / diag_Mv, u)
+
+        # mass (masked, identity off the u block) for projection solves
+        umask = torch.arange(n, device=dev) < self.V.ndof
+        self._umask = umask
+        fu = free & umask
+
+        def Mv(u):
+            y = mass_raw(torch.where(fu, u, 0.0))
+            return torch.where(fu, y, u)
+
+        self._Mv = Mv
 
         self._uin_np = self._wrap_uin(uin)
-        self.f = torch.zeros(n, dtype=torch.float64, device=dev)
+        self._conv_v = None
+        self._mass_cheb = None
+        self._pre_proj2 = None
+        self.setup_seconds = {}  # lazy transient setup, seconds per piece
+        self.last_iterations = {}  # CG counts of the last mstar / project
+
+        # rhs + state
+        self.f = torch.zeros(n, dtype=dtype, device=dev)
         u_bc = interpolate_hybrid_boundary_3d(self.Xv, self._uin_np, inflow)
-        self.u_bc = torch.as_tensor(u_bc, device=dev)
+        self.u_bc = ship(u_bc)
+        self.u = self.u_bc
+        self.p = torch.zeros(self.Q.ndof, dtype=dtype, device=dev)
+        if assembly_cache is not None and "state" in assembly_cache:
+            self.load_state(**assembly_cache["state"])
+
+    # ------------------------------------------------------------------
+
+    def load_state(self, u=None, p=None, cheb_bounds=None):
+        """Take up another model's state, given as numpy: the velocity and
+        pressure dof vectors and the (alpha, beta) bounds of its Chebyshev
+        mass inverse (which then replace the Lanczos estimate)."""
+        if u is not None:
+            u = np.asarray(u)
+            if u.shape != (self.n,):
+                raise ValueError(f"u of shape {u.shape}, expected {(self.n,)}")
+            self.u = torch.as_tensor(u, device=self.device).to(self.dtype)
+        if p is not None:
+            p = np.asarray(p)
+            if p.shape != (self.Q.ndof,):
+                raise ValueError(
+                    f"p of shape {p.shape}, expected {(self.Q.ndof,)}")
+            self.p = torch.as_tensor(p, device=self.device).to(self.dtype)
+        if cheb_bounds is not None:
+            alpha, beta = (float(b) for b in cheb_bounds)
+            self._mass_cheb = None
+            self._mass_chebyshev(bounds=(alpha, beta))
+
+    @property
+    def _M_loc(self):
+        """The face-major velocity mass table on the device, shipped at
+        first use (the steady solve never touches it)."""
+        if self._M_loc_t is None:
+            self._M_loc_t = torch.as_tensor(
+                self.fb.permute_blocks(self._M_loc_np),
+                device=self.device).to(self.dtype)
+        return self._M_loc_t
+
+    def _timed(self, key, build):
+        t0 = time.perf_counter()
+        out = build()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.setup_seconds[key] = time.perf_counter() - t0
+        return out
+
+    def _build_convection(self):
+        """Materialize the convection tables (the largest setup artifact;
+        built lazily because the steady solve never needs them)."""
+        if self._conv_v is None:
+            self._conv_v = self._timed(
+                "convection", lambda: build_upwind_convection_3d(
+                    self.V, self._uin_np, dtype=self.dtype,
+                    device=self.device))
+        return self._conv_v
+
+    def convection(self, u):
+        conv = self._build_convection()
+        nhd = self.V.ndof
+        return torch.cat([conv(u[:nhd]), u.new_zeros(self.n - nhd)])
 
     def _wrap_uin(self, uin):
         def f(p):
@@ -532,3 +679,169 @@ class NavierStokesMCS:
             return out
 
         return f
+
+    @property
+    def velocity(self) -> np.ndarray:
+        """H(div) velocity dof vector (normal-moment + interior coeffs)."""
+        return self.u[: self.V.ndof].cpu().numpy()
+
+    @property
+    def pressure(self) -> np.ndarray:
+        return -self.p.cpu().numpy()
+
+    def AddForce(self, force):
+        raise NotImplementedError(
+            "volume forces are not ported: ROADMAP Queue 1 item 13")
+
+    def reconstruct_stress(self, u=None):
+        raise NotImplementedError(
+            "stress reconstruction is not ported: ROADMAP Queue 1 item 13")
+
+    def SolveInitial(self, timesteps=None):
+        """``timesteps`` pseudo-time Stokes steps from the current state,
+        each projected (the JAX package's ``SolveInitial(timesteps=n)``).
+        The iterative BPCG initial solve is not ported; the port's initial
+        Stokes solve is :class:`~navier_stokes_tpu_torch.flagship.FlagshipSolve`."""
+        if not timesteps:
+            raise NotImplementedError(
+                "the BPCG SolveInitial (solvers/bpcg.py) is not ported: "
+                "ROADMAP Queue 1 item 13; use flagship.FlagshipSolve")
+        self.Project()
+        for _ in range(timesteps):
+            temp = torch.where(self.free, -self._A_raw_step(self.u), 0.0)
+            temp2, _ = self._project_velocity(self._inv_mstar(temp))
+            self.u = self.u + self.timestep * temp2
+            self.Project()
+
+    def _inv_mstar(self, rhs, precision: float = 1e-4, maxsteps: int = 2000):
+        res = cg(self.mstar, rhs, pre=self.preMstar, tol=precision,
+                 maxsteps=maxsteps)
+        self.last_iterations["mstar"] = res.iterations
+        return res.x
+
+    def _mass_chebyshev(self, degree: int = 16, bounds=None):
+        """Fixed-degree Chebyshev approximation of Mv^{-1}; the projection
+        stays exactly divergence-free for any SPD inner operator.  Built
+        once: ``bounds`` (alpha, beta) replace the Lanczos estimate of the
+        first call (``.bounds`` of the result carries them to another
+        model)."""
+        if self._mass_cheb is None:
+            self._mass_cheb = self._timed(
+                "mass chebyshev", lambda: chebyshev_preconditioner(
+                    self._Mv, self._preMv, self.u_bc, degree=degree,
+                    bounds=bounds, lower_fraction=0.02))
+        return self._mass_cheb
+
+    def _pre_proj_twolevel(self):
+        """Element-block Jacobi + vertex-P1 Laplacian coarse for the
+        projection Schur complement S = B Mv^{-1} B^T.
+
+        S is spectrally a pressure POISSON operator (Neumann at walls,
+        Dirichlet-like at the outflow) whose conditioning is dominated by
+        the anisotropic sliver elements near the cylinder.  The block is
+        the ELEMENT-LOCAL Schur B_e Mloc_e^+ B_e^T (shared velocity faces
+        double-counted -- a factor-~2 spectral perturbation the CG
+        tolerates), inverted on the host in f64 and applied through
+        :func:`batched_local_matvec`; the coarse transfer is ONE
+        reference-frame matrix (m, d+1): pressure is elementwise modal, and
+        the L2 projection of a vertex-linear field onto the element basis
+        has the same coefficients on every affine element."""
+        if self._pre_proj2 is None:
+            self._pre_proj2 = self._timed("projection twolevel",
+                                          self._build_pre_proj_twolevel)
+        return self._pre_proj2
+
+    def _build_pre_proj_twolevel(self):
+        dev, dtype = self.device, self.dtype
+        # element-block Jacobi on S (host setup, batched tiny inverses)
+        B_loc = np.asarray(self.B_loc_np, np.float64)
+        M_loc = np.asarray(self._M_loc_np, np.float64)
+        ne, mQ, _ = B_loc.shape
+        Mpinv = np.linalg.pinv(M_loc, rcond=1e-10)
+        S_blk = np.einsum("epi,eij,eqj->epq", B_loc, Mpinv, B_loc,
+                          optimize=True)
+        S_inv = torch.as_tensor(np.linalg.pinv(S_blk, rcond=1e-8),
+                                device=dev).to(dtype).contiguous()
+
+        def block(p):
+            pe = p.reshape(ne, mQ).contiguous()
+            return batched_local_matvec(S_inv, pe).reshape(-1)
+
+        mesh = self.mesh
+        qb = self.Q.basis
+        rule = tetrahedron_rule(2 * max(self.Q.order, 1) + 1)
+        q_val, _ = qb.tabulate(rule.points)  # (nq, m)
+        lam = np.concatenate(
+            [1 - rule.points.sum(1, keepdims=True), rule.points], axis=1
+        )  # (nq, d+1)
+        Mref = np.einsum("q,qa,qb->ab", rule.weights, q_val, q_val)
+        Tref = np.linalg.solve(
+            Mref, np.einsum("q,qa,qv->av", rule.weights, q_val, lam)
+        )  # (m, d+1): element coefficients of a vertex-linear field
+        solve1 = coarse_p1_solver(H1(mesh, 1, dirichlet=self.outflow), 1.0,
+                                  dtype, device=dev)
+        els = torch.as_tensor(mesh.elements.astype(np.int64), device=dev)
+        Tref_t = torch.as_tensor(Tref, device=dev).to(dtype)
+        nv = mesh.nv
+
+        def pre(p):
+            pe = p.reshape(ne, mQ)
+            g = p.new_zeros(nv).index_add_(
+                0, els.reshape(-1), (pe @ Tref_t).reshape(-1))
+            z = solve1(g)
+            coarse = (z[els] @ Tref_t.T).reshape(-1)
+            return block(p) + coarse
+
+        pre.block = block
+        pre.S_inv = S_inv
+        return pre
+
+    def _project_velocity(self, u, tol: float = 1e-9, maxsteps: int = 2000):
+        Minv = self._mass_chebyshev()
+
+        def S(p):
+            return self.B(Minv(self.BT(p)))
+
+        rhs = self.B_raw(u)
+        pres = cg(S, rhs, pre=self._pre_proj_twolevel(), tol=tol,
+                  maxsteps=maxsteps)
+        self.last_iterations["project"] = pres.iterations
+        return u - Minv(self.BT(pres.x)), pres.x
+
+    def Project(self, vel=None):
+        if vel is None:
+            self.u, self.p = self._project_velocity(self.u)
+            return None
+        u_new, self.p = self._project_velocity(vel)
+        return u_new
+
+    def make_step_fn(self, project_tol: float = 1e-9,
+                     mstar_tol: float = 1e-4):
+        """The SIMPLE step u -> u + dt * P(M*^-1 (conv(u) + f - A u)) as a
+        function of the state.  ``project_tol``: relative tolerance of the
+        divergence projection CG -- the default matches DoTimeStep's f64
+        semantics; an f32 stepping model must pass a reachable one (~1e-5)
+        or the projection burns its full maxsteps every step.  The lazy
+        setup (Chebyshev bounds, projection preconditioner, convection and
+        mass tables) happens here, not in the first step."""
+        self._mass_chebyshev()
+        self._pre_proj_twolevel()
+        self._build_convection()
+        _ = self._M_loc  # ship the mass table now
+        free, f, dt = self.free, self.f, self.timestep
+        conv, A_raw = self.convection, self._A_raw_step
+        inv_mstar, project = self._inv_mstar, self._project_velocity
+
+        def step(u):
+            temp = conv(u) + f - A_raw(u)
+            temp = torch.where(free, temp, 0.0)
+            temp2, _ = project(inv_mstar(temp, precision=mstar_tol),
+                               tol=project_tol)
+            return u + dt * temp2
+
+        return step
+
+    def DoTimeStep(self):
+        if getattr(self, "_step", None) is None:
+            self._step = self.make_step_fn()
+        self.u = self._step(self.u)

@@ -1,17 +1,21 @@
-"""Host-side assembly helpers of the straight 3D path (numpy / scipy).
+"""Assembly helpers: host-side setup (numpy / scipy) and the matrix-free
+gather -> local matvec -> scatter apply (torch).
 
-The parts of ``navier_stokes_tpu/ops/assembly.py`` that the flagship setup
-uses: global CSR assembly of element matrices (the P1 coarse stiffness,
-precond/twolevel.py), the P1 stiffness element tables, and the pressure
-mass diagonal behind ``preM`` (models/navier_stokes_mcs.py).
+The parts of ``navier_stokes_tpu/ops/assembly.py`` that the port uses:
+global CSR assembly of element matrices (the P1 coarse stiffness,
+precond/twolevel.py), the P1 stiffness element tables, the pressure mass
+diagonal behind ``preM`` (models/navier_stokes_mcs.py), and
+``gather`` / ``scatter_add`` / ``apply_local_matrices``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..fem.quadrature import simplex_rule
 from ..fem.spaces import FunctionSpace
+from .local_mv import batched_local_matvec
 
 
 def assemble_csr(a_local, eldofs, ndof: int, ndof_col: int | None = None):
@@ -52,3 +56,34 @@ def mass_diagonal(space: FunctionSpace) -> np.ndarray:
     np.add.at(d, space.element_dofs.ravel(),
               (detJ[:, None] * m_diag[None, :]).ravel())
     return d
+
+
+# -- matrix-free applies and scatters (torch) --------------------------------
+
+
+def gather(u: torch.Tensor, eldofs: torch.Tensor) -> torch.Tensor:
+    return u[eldofs]
+
+
+def scatter_add(local: torch.Tensor, eldofs: torch.Tensor,
+                ndof: int) -> torch.Tensor:
+    """(ne, nb) local contributions -> (ndof,) global vector
+    (``index_add_``: on the card its float atomics add in an order that
+    changes from run to run)."""
+    out = local.new_zeros(ndof)
+    return out.index_add_(0, eldofs.reshape(-1), local.reshape(-1))
+
+
+def apply_local_matrices(a_local: torch.Tensor, eldofs: torch.Tensor,
+                         ndof: int, u: torch.Tensor,
+                         use_kernel: bool = False) -> torch.Tensor:
+    """y = A u with A given by per-element dense blocks (gather -> local
+    matvec -> scatter).  ``use_kernel`` routes the batched local matvec
+    through :func:`~navier_stokes_tpu_torch.ops.local_mv.batched_local_matvec`
+    (``use_pallas`` of the JAX package); the einsum is the default."""
+    ue = gather(u, eldofs)
+    if use_kernel:
+        ye = batched_local_matvec(a_local, ue.contiguous())
+    else:
+        ye = torch.einsum("eij,ej->ei", a_local, ue)
+    return scatter_add(ye, eldofs, ndof)

@@ -1,7 +1,7 @@
 """Hand-written CUDA block matvecs of the flagship solve, with their plain
 PyTorch versions.  Counterpart of ``navier_stokes_tpu/ops/pallas_mv.py``.
 
-Three kernels live in ``csrc/block_mv.cu``, all of the form
+Four kernels live in ``csrc/block_mv.cu``, all of the form
 y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 
 * :func:`block_mv` replaces ``_mv_kernel`` (pallas_mv.py:118): f32 or
@@ -11,6 +11,10 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 * :func:`block_mv2` replaces ``_mv2_kernel`` (pallas_mv.py:124): the split
   operator (A_hi + A_lo) x streamed in one pass sharing x — the phase-1
   f32 operators A32, B32 and BT32.
+* :func:`block_mv_ds` replaces ``_mv_ds_kernel`` (pallas_mv.py:129): the
+  three f32 products A_hi x_hi, A_hi x_lo, A_lo x_hi of the plain
+  double-single apply from one pass over both tables
+  (``FaceBlockLayout.elem_apply_ds`` / ``rect_apply_ds``).
 * :func:`block_mv_comp` replaces ``_mv_comp_kernel`` (pallas_mv.py:166):
   the compensated double-single product (two_prod / two_sum), whose
   y_hi + y_lo carries ~2^-45 of sum_j |a_ij x_j| — the phase-2 operators
@@ -38,12 +42,14 @@ table is 2 x 7740 x 54 x 54 x 4 B = 181 MB, i.e. 54 us at 3.35 TB/s.
 
 Wrappers check device, dtype, shape and contiguity.  A wrapper takes its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+kernel or raises.  ``LAUNCHES`` counts kernel launches per wrapper (those of
+``ops/local_mv.py`` too).
 
-The library is compiled from the repository's source at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` into ``build/`` at the
-repository root (a temporary name renamed into place, so a half-written
-library is never loaded) and bound with ctypes.
+Each source under ``csrc/`` is compiled from the repository at first use
+with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` into its own library
+under ``build/`` at the repository root (a temporary name renamed into
+place, so a half-written library is never loaded) and bound with ctypes;
+:func:`build_all` compiles all of them at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -55,14 +61,16 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 __all__ = [
-    "LAUNCHES", "reset_launches", "build_library", "load_library", "block_mv",
-    "block_mv_plain", "block_mv2", "block_mv2_plain", "block_mv_comp",
+    "LAUNCHES", "reset_launches", "SOURCES", "build_library", "build_all",
+    "load_library", "block_mv", "block_mv_plain", "block_mv2",
+    "block_mv2_plain", "block_mv_ds", "block_mv_ds_plain", "block_mv_comp",
     "block_mv_comp_plain", "split_f64", "make_table_apply", "MAX_SPLIT",
     "pack_splitk", "block_mv_splitk", "block_mv_splitk_plain",
     "block_mv2_splitk", "block_mv2_splitk_plain", "block_mv_comp_splitk",
@@ -71,11 +79,12 @@ __all__ = [
 
 LAUNCHES = {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0,
             "block_mv_splitk": 0, "block_mv2_splitk": 0,
-            "block_mv_comp_splitk": 0}
+            "block_mv_comp_splitk": 0, "block_mv_ds": 0,
+            "batched_local_matvec": 0}
 MAX_SPLIT = 8  # sub-tables one split-k launch takes (csrc kMaxSplit)
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "block_mv.cu"
+SOURCES = ("block_mv", "local_mv")  # csrc/<name>.cu -> build/lib<name>_*.so
 _BUILD_DIR = _PKG.parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -97,19 +106,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build_library(verbose: bool = False) -> tuple[Path, float]:
-    """Compile ``csrc/block_mv.cu`` unless a library of the same source and
+def build_library(verbose: bool = False,
+                  name: str = "block_mv") -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
     flags is already built.  Returns (path, seconds spent compiling)."""
-    src = _SRC.read_bytes()
+    src_path = _PKG / "csrc" / f"{name}.cu"
+    src = src_path.read_bytes()
     tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libblock_mv_{tag}.so"
+    out = _BUILD_DIR / f"lib{name}_{tag}.so"
     if out.exists():
         return out, 0.0
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(src_path)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -120,6 +131,15 @@ def build_library(verbose: bool = False) -> tuple[Path, float]:
         print(proc.stderr, flush=True)
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Compile every source of :data:`SOURCES` at once, one nvcc process
+    each.  Returns {name: (path, seconds spent compiling)}."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futs = {name: pool.submit(build_library, verbose, name)
+                for name in SOURCES}
+        return {name: fut.result() for name, fut in futs.items()}
 
 
 def load_library():
@@ -134,6 +154,8 @@ def load_library():
         lib.nstt_block_mv2_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
         lib.nstt_block_mv_comp_f32.argtypes = [p, p, p, p, p, p, i64, i32,
                                                i32, p]
+        lib.nstt_block_mv_ds_f32.argtypes = [p, p, p, p, p, p, p, i64, i32,
+                                             i32, p]
         # split-k: (pointer array, k, ..., rows per sub-table, tile, stream)
         pp = ctypes.POINTER(ctypes.c_void_p)
         lib.nstt_block_mv_splitk_f32.argtypes = [pp, i32, p, p, i64, i32,
@@ -147,7 +169,7 @@ def load_library():
                                                       p]
         for fn in (lib.nstt_block_mv_f32, lib.nstt_block_mv_bf16,
                    lib.nstt_block_mv2_f32, lib.nstt_block_mv_comp_f32,
-                   lib.nstt_block_mv_splitk_f32, lib.nstt_block_mv_splitk_bf16,
+                   lib.nstt_block_mv_ds_f32, lib.nstt_block_mv_splitk_f32, lib.nstt_block_mv_splitk_bf16,
                    lib.nstt_block_mv2_splitk_f32,
                    lib.nstt_block_mv_comp_splitk_f32):
             fn.restype = ctypes.c_int
@@ -260,6 +282,46 @@ def block_mv2(A_hi: torch.Tensor, A_lo: torch.Tensor,
             x.data_ptr(), y.data_ptr(), nblk, m, k, _stream(A_hi))
     LAUNCHES["block_mv2"] += 1
     return y
+
+
+# -- kernel 3: the three products of the plain double-single apply ---------
+
+
+def block_mv_ds_plain(A_hi, A_lo, x_hi, x_lo):
+    """Plain PyTorch version of :func:`block_mv_ds`."""
+    return (torch.einsum("bmk,bk->bm", A_hi, x_hi),
+            torch.einsum("bmk,bk->bm", A_hi, x_lo),
+            torch.einsum("bmk,bk->bm", A_lo, x_hi))
+
+
+def block_mv_ds(A_hi, A_lo, x_hi, x_lo):
+    """Double-single products (A_hi x_hi, A_hi x_lo, A_lo x_hi), three f32
+    (nblk, m) outputs from ONE pass over both f32 tables, any m x k.
+
+    Replaces ``_mv_ds_kernel`` (navier_stokes_tpu/ops/pallas_mv.py:129,
+    ``tiled_bmv_ds``).  Bound by the two table streams: 2*nblk*m*k*4
+    bytes / 3.35 TB/s.  Summed in f64 the three approximate
+    (A_hi + A_lo)(x_hi + x_lo) with plain f32 accumulation error: row
+    cancellation floors the apply near 1e-6, which is why the solve's
+    phase 2 runs on :func:`block_mv_comp` instead."""
+    _check_table(A_hi, "block_mv_ds A_hi")
+    _check_table(A_lo, "block_mv_ds A_lo")
+    if A_lo.shape != A_hi.shape or A_lo.device != A_hi.device:
+        raise ValueError("block_mv_ds: A_hi and A_lo differ")
+    _check_vec(x_hi, A_hi, "block_mv_ds x_hi")
+    _check_vec(x_lo, A_hi, "block_mv_ds x_lo")
+    if _device_kind(A_hi) == "cpu":
+        return block_mv_ds_plain(A_hi, A_lo, x_hi, x_lo)
+    nblk, m, k = A_hi.shape
+    hh = torch.empty((nblk, m), dtype=torch.float32, device=A_hi.device)
+    hl, lh = torch.empty_like(hh), torch.empty_like(hh)
+    if hh.numel() == 0:
+        return hh, hl, lh
+    _launch(load_library().nstt_block_mv_ds_f32, A_hi.data_ptr(),
+            A_lo.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(), hh.data_ptr(),
+            hl.data_ptr(), lh.data_ptr(), nblk, m, k, _stream(A_hi))
+    LAUNCHES["block_mv_ds"] += 1
+    return hh, hl, lh
 
 
 # -- kernel 4: compensated double-single product ---------------------------

@@ -35,10 +35,12 @@ from .block_mv import (
     block_mv2_splitk,
     block_mv_comp,
     block_mv_comp_splitk,
+    block_mv_ds,
     make_table_apply,
     pack_splitk,
     split_f64,
 )
+from .local_mv import batched_local_matvec
 
 __all__ = ["FaceBlockLayout", "FaceStarSmoother", "ColorGroup",
            "face_star_smoother", "symmetric_part"]
@@ -179,9 +181,15 @@ class FaceBlockLayout:
 
     # -- f64 operators (plain tensor ops, as the JAX package's XLA einsums)
 
-    def elem_apply(self, A_perm):
-        """y = A u from face-major element blocks (ne, nb, nb), any dtype;
-        the model's f64 operators."""
+    def elem_apply(self, A_perm, use_kernel: bool = False):
+        """y = A u from face-major element blocks (ne, nb, nb), f32 or f64.
+        The default is a plain einsum (the model's f64 operators of the
+        true-residual check, independent of every kernel); ``use_kernel``
+        takes the product through :func:`batched_local_matvec` (the
+        transient step's operators)."""
+        if use_kernel:
+            return lambda u: self._elem_io(
+                u, lambda ue: batched_local_matvec(A_perm, ue))
         return lambda u: self._elem_io(
             u, lambda ue: torch.einsum("eij,ej->ei", A_perm, ue))
 
@@ -275,6 +283,41 @@ class FaceBlockLayout:
         apply.tables = [Ah, Al]
         return apply
 
+    def elem_apply_ds(self, A_hi, A_lo):
+        """Plain double-single apply: y (f64) = (A_hi + A_lo) u (f64) as
+        the f64 sum of the three f32 products hi*hi, hi*lo, lo*hi, one
+        :func:`block_mv_ds` launch over the (ne, nb, nb) f32 device tables.
+        Accurate to f32 accumulation noise relative to the input (row
+        cancellation floors it near 1e-6); :meth:`elem_apply_comp` is the
+        compensated companion the solve uses."""
+
+        def apply(u):
+            return self._elem_io(u, lambda ue: _ds3(A_hi, A_lo, ue))
+
+        apply.tables = [A_hi, A_lo]
+        return apply
+
+    def rect_apply_ds(self, B_hi, B_lo, eldofs_p):
+        """Plain double-single (B, BT) for the pressure coupling: f64 in and
+        out through one :func:`block_mv_ds` launch each (see
+        :meth:`elem_apply_ds`); BT streams transposed copies made here."""
+        m = B_hi.shape[1]
+        _check_contiguous_rows(eldofs_p, self.ne, m)
+        T_hi = B_hi.transpose(1, 2).contiguous()
+        T_lo = B_lo.transpose(1, 2).contiguous()
+
+        def B(u):
+            uF, ui = self.split(u)
+            return _ds3(B_hi, B_lo, self.gather_elem(uF, ui)).reshape(-1)
+
+        def BT(p):
+            ye = _ds3(T_hi, T_lo, p.reshape(self.ne, m))
+            yF, yi = self.scatter_elem(ye)
+            return self.join(yF, yi)
+
+        B.tables, BT.tables = [B_hi, B_lo], [T_hi, T_lo]
+        return B, BT
+
     def rect_apply_multi(self, fwd, eldofs_p):
         """(B, BT) applying sum_k B_k (one f32 device table or the split
         pair, (ne, m, nb)) through :func:`block_mv` / :func:`block_mv2`; BT
@@ -331,6 +374,13 @@ class FaceBlockLayout:
 
         B.tables, BT.tables = [fh, fl], [th, tl]
         return B, BT
+
+
+def _ds3(hi, lo, x):
+    """f64 sum of the three f32 products of :func:`block_mv_ds`."""
+    f64 = torch.float64
+    hh, hl, lh = block_mv_ds(hi, lo, *split_f64(x))
+    return hh.to(f64) + hl.to(f64) + lh.to(f64)
 
 
 def _comp(hi, lo, x_pair, tile):

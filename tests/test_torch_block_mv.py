@@ -36,6 +36,7 @@ from navier_stokes_tpu.ops.pallas_mv import (
     tiled_bmv_multi,
 )
 from navier_stokes_tpu_torch.ops import block_mv as bm
+from navier_stokes_tpu_torch.ops.local_mv import batched_local_matvec
 
 NE, NB, TILE = 37, 14, 16  # deliberately non-multiple ne, as test_pallas_mv
 STILE = 8  # split-k tile: 5 tiles, which neither k = 2 nor k = 3 divides
@@ -335,9 +336,12 @@ def test_cpu_tensors_launch_no_kernel():
     bm.block_mv_splitk(subs, x, 2)
     bm.block_mv2_splitk(subs, subs, x, 2)
     bm.block_mv_comp_splitk(subs, subs, x, x, 2)
+    bm.block_mv_ds(A, A, x, x)
+    batched_local_matvec(A, x)
     assert set(bm.LAUNCHES) == {
         "block_mv", "block_mv2", "block_mv_comp", "block_mv_splitk",
-        "block_mv2_splitk", "block_mv_comp_splitk"}
+        "block_mv2_splitk", "block_mv_comp_splitk", "block_mv_ds",
+        "batched_local_matvec"}
     assert all(v == 0 for v in bm.LAUNCHES.values())
 
 
