@@ -6,9 +6,9 @@ with cylinder at maxh=0.09, order 2, nu=1e-3, to a true f64 relative
 residual of 1e-8, and the transient SIMPLE step on its float32 twin -- in
 phases; any failed phase ends the run with a non-zero exit:
 
-1. build: compile ``navier_stokes_tpu_torch/csrc/block_mv.cu`` and
-   ``local_mv.cu`` with nvcc (sm_90a), both at once, and print the build
-   seconds and the card;
+1. build: compile ``navier_stokes_tpu_torch/csrc/block_mv.cu``,
+   ``local_mv.cu`` and ``stream_mv.cu`` with nvcc (sm_90a), all at once,
+   and print the build seconds and the card;
 2. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
@@ -49,11 +49,25 @@ phases; any failed phase ends the run with a non-zero exit:
     steps/s, the M* and projection CG counts of every step, the
     projection's reduction of ||B u||, whether a step is bitwise
     repeatable, per-piece milliseconds and the device busy share; then 3
-    float64 steps (project_tol=1e-9) from the flagship solution.
+    float64 steps (project_tol=1e-9) from the flagship solution;
+11. microbench: the two ported microbenchmark scripts
+    (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
+    7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
+    launch counters set to 0 just before; each of the five table-stream
+    wrappers must have launched;
+12. amg: at maxh=0.04 (5,859 free velocity-P1 vertices, above the dense
+    limit of 5,000, so both coarse solves are SA-AMG V-cycles):
+    AMG-preconditioned CG on the P1 stiffness to 1e-8 in under 40
+    iterations with the V-cycle symmetric to 1e-10, the curved GS flagship
+    solve cold and warm to a true f64 residual <= 1.01e-8, and one cold and
+    three warm float32 transient steps.
 
 The kernel checks of phase 3 also cover ``batched_local_matvec`` (float32
 and float64, on the mass, condensed-operator and pressure-block tables of
-the transient step) and ``block_mv_ds`` (on the split A, B, BT tables).
+the transient step), ``block_mv_ds`` (on the split A, B, BT tables), and
+every variant of the table-stream kernels (``block_mv_rows``, split-k at
+k = 2, 4, 8, ``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the
+bench table, each also bitwise against ``block_mv``.
 
 It prints the kernels' JSON line and the card's name and power limit on
 lines before the last, and as its last line
@@ -78,9 +92,13 @@ MAXH, ORDER, NU, TOL = 0.09, 2, 1e-3, 1e-8
 MAX_INNER = 460  # the bench's iteration budget at this size
 SPLIT_K = 2  # the split-k path's k; kernels are also checked at 4
 TILE, TILE_COMP = 256, 128  # split-k tiles (bench.py's NSTPU_TILE, comp B)
-REPS = 25
+BENCH_NBLK, BENCH_NB = 7740, 54  # the microbenchmarks' table (maxh=0.09)
+AMG_MAXH = 0.04  # 5,859 free velocity-P1 vertices: above the dense limit
 SRC = "navier_stokes_tpu_torch/csrc/block_mv.cu"
 SRC_LOCAL = "navier_stokes_tpu_torch/csrc/local_mv.cu"
+SRC_STREAM = "navier_stokes_tpu_torch/csrc/stream_mv.cu"
+DMA = "scripts/microbench_dma.py"
+APPLY2 = "scripts/microbench_apply2.py"
 PALLAS = "navier_stokes_tpu/ops/pallas_mv.py"
 PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
 F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
@@ -109,52 +127,6 @@ def card_line():
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-# -- timing -------------------------------------------------------------------
-
-
-class Timer:
-    """Median time of one call on the card, from CUDA events around each
-    call, with the 50 MB L2 cache flushed before every call (on the main
-    path every table arrives cold: the others stream through in between)."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(64 * 2**20, dtype=torch.float32,
-                                 device="cuda")  # 256 MB
-
-    def __call__(self, fn, reps=REPS):
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        evs = []
-        for _ in range(reps):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            evs.append((s, e))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in evs)
-
-
-def per_apply_ms(torch, fn, x, k=20):
-    """Milliseconds per apply over a run of k back-to-back applies (the
-    solve's own steady state, host launch gaps included)."""
-    for _ in range(3):
-        fn(x)
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(k):
-        fn(x)
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / k
-
-
 # -- kernel checks --------------------------------------------------------------
 
 
@@ -164,10 +136,11 @@ class KernelReport:
     def __init__(self, name, replaces, source=SRC):
         self.name, self.replaces, self.source = name, replaces, source
         self.ms = self.plain_ms = self.library_ms = 0.0
-        self.bytes = self.flops = 0
+        self.bytes = self.flops = self.n = 0
         self.max_abs_err = 0.0
 
     def add(self, ms, plain_ms, library_ms, nbytes, flops, err):
+        self.n += 1
         self.ms += ms
         self.plain_ms += plain_ms
         self.library_ms += library_ms
@@ -548,6 +521,8 @@ def solve_and_check(torch, bm, solver, label, max_inner=None):
 
 
 def apply_probes(torch, label, solver):
+    from navier_stokes_tpu_torch.utils.timers import per_apply_ms
+
     f32, f64 = torch.float32, torch.float64
     m = solver.m
     o32, ods = solver.ops32, solver.ops_ds
@@ -581,7 +556,7 @@ def apply_probes(torch, label, solver):
     else:
         probes.append(("preA32.smooth", parts["smooth_only"], xF))
     for name, fn, x in probes:
-        log(f"[apply {label}] {name:22s} {per_apply_ms(torch, fn, x):.4f} ms")
+        log(f"[apply {label}] {name:22s} {per_apply_ms(fn, x):.4f} ms")
 
 
 def ds_phase(torch, bm, solver, res):
@@ -646,12 +621,28 @@ def host_ms(torch, fn, reps=3):
     return statistics.median(ts)
 
 
+def projection_check(torch, m, u, label):
+    """What the f32 projection does to ||B u|| on the right-hand side of one
+    step from ``u``: it must reduce it by 1e-4.  Returns the step's masked
+    right-hand side, M*^-1 of it and the projection's pressure."""
+    temp = torch.where(m.free, m.convection(u) + m.f - m._A_raw_step(u), 0.0)
+    v = m._inv_mstar(temp, precision=MSTAR_TOL)
+    w, p = m._project_velocity(v, tol=PROJECT_TOL32)
+    bv, bw = (float(torch.linalg.norm(m.B_raw(t).double())) for t in (v, w))
+    log(f"{label} projection: ||B v|| {bv:.3e} -> ||B P v|| {bw:.3e} (ratio "
+        f"{bw / bv:.3e})")
+    check(bw <= 1e-4 * bv, f"{label} the projection reduced ||B u|| only by "
+          f"{bw / bv:.3e}")
+    return temp, v, p
+
+
 def transient_phase(torch, bm, m, step, m64, u64_start):
     """bench.py's second metric on the port: the f32 SIMPLE step ``step`` of
     the stepping model ``m``, then 3 f64 steps of ``m64`` from the flagship
     solution.  Returns the launch counts of one (the cold) f32 step."""
     from navier_stokes_tpu_torch.flagship import transient_steps
     from navier_stokes_tpu_torch.solvers.cg import cg
+    from navier_stokes_tpu_torch.utils.timers import per_apply_ms
 
     def norm(v):
         return float(torch.linalg.norm(v.double()))
@@ -706,17 +697,11 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
     check(max(pr_) < 2000 and max(ms_) < 2000, "a CG ran into maxsteps")
 
     # the pieces of one step, and what the projection does to ||B u||
-    free, conv, A_step = m.free, m.convection, m._A_raw_step
+    conv, A_step = m.convection, m._A_raw_step
     Minv, pre2 = m._mass_chebyshev(), m._pre_proj_twolevel()
-    temp = torch.where(free, conv(u) + m.f - A_step(u), 0.0)
-    v = m._inv_mstar(temp, precision=MSTAR_TOL)
-    w, p = m._project_velocity(v, tol=PROJECT_TOL32)
-    bv, bw = norm(m.B_raw(v)), norm(m.B_raw(w))
-    log(f"[transient] projection: ||B v|| {bv:.3e} -> ||B P v|| {bw:.3e} "
-        f"(ratio {bw / bv:.3e}); ||B u|| after the steps "
-        f"{norm(m.B_raw(u)):.3e}, of u_bc {norm(m.B_raw(u0)):.3e}")
-    check(bw <= 1e-4 * bv, f"the projection reduced ||B u|| only by "
-          f"{bw / bv:.3e}")
+    temp, v, p = projection_check(torch, m, u, "[transient]")
+    log(f"[transient] ||B u|| after the steps {norm(m.B_raw(u)):.3e}, of "
+        f"u_bc {norm(m.B_raw(u0)):.3e}")
     rhs_p = m.B_raw(v)
 
     def S(q):
@@ -736,7 +721,7 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
     ]
     for name, fn in pieces:
         log(f"[piece f32] {name:22s} "
-            f"{per_apply_ms(torch, lambda _x: fn(), None, k=10):.4f} ms")
+            f"{per_apply_ms(lambda _x: fn(), None, k=10):.4f} ms")
     for name, fn in (
             ("inv_mstar (CG 1e-4)", lambda: m._inv_mstar(temp, MSTAR_TOL)),
             ("project (CG 1e-5)", lambda: m._project_velocity(
@@ -786,6 +771,251 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
     return launches
 
 
+def check_stream(torch, bm, sm, timer, reports):
+    """Rows 9-13 on the bench shape: every variant of the ported
+    microbenchmark (``scripts.microbench_dma.variants``) against
+    ``block_mv_plain`` on the same N(0,1) inputs (f32: max abs error <=
+    1e-4, the bound the other f32 kernels are held to) and BITWISE against
+    ``block_mv`` (every variant keeps its per-row fmaf order), then
+    ``block_mv_soa`` against the SoA einsum.  A report sums its variants;
+    ``torch.bmm`` on the same inputs is the library yardstick."""
+    import numpy as np
+
+    from navier_stokes_tpu_torch.scripts import microbench_dma
+
+    rng = np.random.default_rng(0)
+    A = torch.as_tensor(rng.standard_normal(
+        (BENCH_NBLK, BENCH_NB, BENCH_NB)).astype(np.float32), device="cuda")
+    x = torch.as_tensor(rng.standard_normal(
+        (BENCH_NBLK, BENCH_NB)).astype(np.float32), device="cuda")
+    want, ref = bm.block_mv_plain(A, x), bm.block_mv(A, x)
+    xb = x[:, :, None]
+    plain_ms = timer(lambda: bm.block_mv_plain(A, x))
+    lib_ms = timer(lambda: torch.bmm(A, xb))
+    nb_ = nbytes(A, x, want)
+    bound = nb_ / HBM_BYTES_PER_S * 1e3
+    log(f"[kernels] rows 9-12 on {tuple(A.shape)} f32 (the bench table, "
+        f"{A.numel() * 4 / 1e6:.1f} MB): plain {plain_ms:.4f} ms, bmm "
+        f"{lib_ms:.4f}, bound {bound:.4f}")
+    for label, kernel, apply in microbench_dma.variants(A):
+        if kernel in ("library", "block_mv"):
+            continue
+        name = kernel + "_seq" if kernel == "block_mv_splitk" else kernel
+        y = apply(x)
+        torch.cuda.synchronize()
+        err = float((y - want).abs().max())
+        check(bool(torch.isfinite(y).all()), f"{label}: non-finite")
+        check(err <= 1e-4, f"{label}: max abs error {err:.3e} > 1e-4")
+        check(torch.equal(y, ref), f"{label}: not bitwise equal to block_mv")
+        ms = timer(lambda: apply(x))
+        reports[name].add(ms, plain_ms, lib_ms, nb_, 2 * A.numel(), err)
+        log(f"  {name} {label}: max|d plain|={err:.3e}, bitwise = "
+            f"block_mv | kernel {ms:.4f} ms ({bound / ms:.3f} of bound)")
+
+    # row 13: the structure-of-arrays table, padded as the script pads it
+    ne_p = -(-BENCH_NBLK // 256) * 256
+    A2 = torch.zeros((BENCH_NB, BENCH_NB, ne_p), device="cuda")
+    A2[:, :, :BENCH_NBLK] = A.permute(1, 2, 0)
+    uT = torch.zeros((BENCH_NB, ne_p), device="cuda")
+    uT[:, :BENCH_NBLK] = x.T
+    y = sm.block_mv_soa(A2, uT)
+    y_ref = sm.block_mv_soa_plain(A2, uT)
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max())
+    check(bool(torch.isfinite(y).all()), "block_mv_soa: non-finite")
+    check(err <= 1e-4, f"block_mv_soa: max abs error {err:.3e} > 1e-4")
+    check(float(y[:, BENCH_NBLK:].abs().max()) == 0.0,
+          "block_mv_soa: padding columns came out non-zero")
+    same = torch.equal(y[:, :BENCH_NBLK].T, ref)
+    check(same, "block_mv_soa: not bitwise equal to block_mv on the AoS "
+          "table")
+    ms = timer(lambda: sm.block_mv_soa(A2, uT))
+    plain_ms = timer(lambda: sm.block_mv_soa_plain(A2, uT))
+    A2b, uTb = A2.permute(2, 0, 1), uT.T[:, :, None]  # views: same inputs
+    lib_ms = timer(lambda: torch.bmm(A2b, uTb))
+    nb_ = nbytes(A2, uT, y)
+    reports["block_mv_soa"].add(ms, plain_ms, lib_ms, nb_, 2 * A2.numel(),
+                                err)
+    log(f"  block_mv_soa {tuple(A2.shape)} f32: max|d plain|={err:.3e}, "
+        f"bitwise = block_mv on the AoS table, padding columns zero | kernel "
+        f"{ms:.4f} ms, plain (einsum ije,je->ie) {plain_ms:.4f}, bmm on the "
+        f"permuted views {lib_ms:.4f}, bound "
+        f"{nb_ / HBM_BYTES_PER_S * 1e3:.4f}")
+
+
+def microbench_phase(bm):
+    """Both ported microbenchmark scripts at full width, with the launch
+    counters set to 0 just before; each of the five wrappers must have
+    launched.  Returns the launch counts."""
+    from navier_stokes_tpu_torch.scripts import (
+        microbench_apply2,
+        microbench_dma,
+    )
+
+    bm.reset_launches()
+    log(f"[microbench] scripts.microbench_dma.main({BENCH_NBLK}, {BENCH_NB})")
+    rows = microbench_dma.main(BENCH_NBLK, BENCH_NB)
+    log(f"[microbench] scripts.microbench_apply2.main({MAXH})")
+    rows2 = microbench_apply2.main(MAXH)
+    launches = dict(bm.LAUNCHES)
+    log(f"[microbench] launches {launches}")
+    check(all(r["ms"] is not None and r["ms"] > 0 for r in rows + rows2),
+          "[microbench] a variant was not timed")
+    for name in ("block_mv_rows", "block_mv_splitk", "block_mv_mega",
+                 "block_mv_ring", "block_mv_soa"):
+        check(launches[name] > 0, f"{name} never launched in [microbench]")
+    best = min((r for r in rows if r["kernel"] != "library"),
+               key=lambda r: r["ms"])
+    log(f"[microbench] fastest variant: {best['label']} {best['ms']:.4f} ms "
+        f"({best['share']:.3f} of bound)")
+    return launches
+
+
+def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
+    """The SA-AMG coarse solve on a mesh whose P1 coarse spaces exceed the
+    dense limit of 5,000 free vertices: (a) AMG-preconditioned CG on the P1
+    stiffness, (b) the curved GS flagship solve cold and warm, (c) one cold
+    and three warm f32 transient steps."""
+    import numpy as np
+
+    from navier_stokes_tpu_torch.fem.spaces import H1
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh_3d,
+    )
+    from navier_stokes_tpu_torch.ops import assembly as asm
+    from navier_stokes_tpu_torch.precond.amg import build_sa_amg
+    from navier_stokes_tpu_torch.solvers.cg import cg
+
+    t0 = time.perf_counter()
+    mesh = channel_with_cylinder_mesh_3d(AMG_MAXH)
+    space = H1(mesh, 1, dirichlet="inlet|wall|cyl")
+    free_np = space.free_mask
+    nfree = int(free_np.sum())
+    log(f"[amg] maxh={AMG_MAXH}: {mesh.ne} tets, {mesh.nv} vertices, "
+        f"{nfree} free velocity-P1 vertices (mesh "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(nfree > 5000, f"[amg] only {nfree} free coarse vertices: the dense "
+          "inverse would be taken")
+
+    # (a) PCG on the P1 stiffness with one V-cycle as preconditioner
+    t0 = time.perf_counter()
+    K_loc = asm.stiffness_local(space)
+    K = asm.assemble_csr(K_loc, space.element_dofs, space.ndof)
+    pre = build_sa_amg(K, free_np, torch.float64, "cuda")
+    torch.cuda.synchronize()
+    t_amg = time.perf_counter() - t0
+    free = torch.as_tensor(free_np, device="cuda")
+    K_t = torch.as_tensor(K_loc, device="cuda")
+    eld = torch.as_tensor(space.element_dofs.astype(np.int64), device="cuda")
+
+    def A(v):
+        vf = torch.where(free, v, 0.0)
+        return torch.where(
+            free, asm.apply_local_matrices(K_t, eld, space.ndof, vf), v)
+
+    rng = np.random.default_rng(0)
+    b, x, y = (torch.as_tensor(rng.standard_normal(space.ndof) * free_np,
+                               device="cuda") for _ in range(3))
+    res = cg(A, b, pre=pre, tol=1e-8, maxsteps=200)
+    plain = cg(A, b, tol=1e-8, maxsteps=2000)
+    a1, a2 = float(torch.dot(pre(x), y)), float(torch.dot(x, pre(y)))
+    true_rel = float(torch.linalg.norm(b - A(res.x)) / torch.linalg.norm(b))
+    log(f"[amg] (a) build_sa_amg {t_amg:.1f} s, {pre.levels} ELL levels; "
+        f"PCG to 1e-8 in {res.iterations} iterations (plain CG "
+        f"{plain.iterations}), |b - K x|/|b| {true_rel:.3e}; symmetry "
+        f"|<Px,y> - <x,Py>| / |<Px,y>| = {abs(a1 - a2) / abs(a1):.3e}")
+    check(res.converged and res.iterations < 40,
+          f"[amg] PCG took {res.iterations} iterations")
+    check(pre.levels >= 1, "[amg] the hierarchy has no ELL level")
+    check(abs(a1 - a2) <= 1e-10 * abs(a1), "[amg] the V-cycle is not "
+          "symmetric")
+    check(float(torch.dot(x, pre(x))) > 0, "[amg] the V-cycle is not "
+          "positive")
+    check(true_rel <= 1e-6, f"[amg] PCG residual {true_rel:.3e}")
+
+    # (b) the curved GS flagship solve, its coarse correction through AMG
+    t0 = time.perf_counter()
+    geo = cylinder_geometry(mesh)
+    cache = {}
+    m = build_model(AMG_MAXH, order=ORDER, nu=NU, device="cuda", mesh=mesh,
+                    geometry=geo, assembly_cache=cache)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = FlagshipSolve(m, tol=TOL)
+    t_ops = time.perf_counter() - t0
+    parts = solver.ops32["preA"].parts
+    log(f"[amg] (b) {len(geo.curved_elements)} curved tets, ndof={m.n}+"
+        f"{m.Q.ndof}; model build {t_model:.1f} s, GS ops {t_ops:.1f} s, "
+        f"{len(parts['groups'])} colors, coarse AMG levels "
+        f"{parts['coarse_amg_levels']}, coarse lambda "
+        f"{parts['coarse_lambda']:.4f}")
+    check(parts["coarse_amg_levels"] >= 1,
+          "[amg] the skeleton preconditioner took the dense coarse inverse")
+    cold, launches = solve_and_check(torch, bm, solver, "amg curved GS cold")
+    warm, _ = solve_and_check(torch, bm, solver, "amg curved GS warm")
+    for name in ("block_mv", "block_mv2", "block_mv_comp"):
+        check(launches.get(name, 0) > 0, f"{name} never launched in [amg]")
+    log(f"[amg] (b) inner iterations {warm.inner} at maxh={AMG_MAXH} "
+        f"(maxh={MAXH}: 358), warm {warm.seconds:.3f} s")
+    del solver, cold, warm
+
+    # (c) one cold and three warm f32 steps
+    t0 = time.perf_counter()
+    m32 = build_model(AMG_MAXH, order=ORDER, nu=NU, device="cuda", mesh=mesh,
+                      geometry=geo, assembly_cache=cache,
+                      dtype=torch.float32)
+    del cache, m
+    step = m32.make_step_fn(project_tol=PROJECT_TOL32, mstar_tol=MSTAR_TOL)
+    torch.cuda.synchronize()
+    pre2 = m32._pre_proj_twolevel()
+    log(f"[amg] (c) f32 twin and step setup {time.perf_counter() - t0:.1f} "
+        "s: " + ", ".join(f"{k} {v:.1f} s"
+                          for k, v in m32.setup_seconds.items())
+        + f"; projection coarse AMG levels {pre2.coarse_amg_levels}")
+    check(pre2.coarse_amg_levels >= 1,
+          "[amg] the projection preconditioner took the dense coarse inverse")
+    u, counts, secs = m32.u, [], []
+    bm.reset_launches()
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = step(u)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(dict(m32.last_iterations))
+        check(bool(torch.isfinite(u).all()), "[amg] a step is not finite")
+    ms_, pr_ = ([c[k] for c in counts] for k in ("mstar", "project"))
+    log(f"[amg] (c) cold step {secs[0]:.3f} s, warm steps "
+        + ", ".join(f"{t:.3f}" for t in secs[1:])
+        + f" s; M* CG {ms_}, projection CG {pr_}; "
+        f"{bm.LAUNCHES['batched_local_matvec']} batched_local_matvec "
+        f"launches; max |u| {float(u.abs().max()):.4f}")
+    check(max(pr_) < 2000 and max(ms_) < 2000, "[amg] a CG ran into maxsteps")
+
+    projection_check(torch, m32, u, "[amg] (c)")
+
+
+def redesign_order(entries, reports):
+    """The order in which the kernels are worth redesigning: first those
+    slower than the one PyTorch call for the same function, by the factor;
+    then the rest by the time their path loses to them, launches x (ms -
+    bound) per launch (a report's ms and bound are sums over its checks)."""
+    slower = sorted((e for e in entries if e["ms"] > e["library_ms"]),
+                    key=lambda e: e["library_ms"] / e["ms"])
+    rest = sorted((e for e in entries if e["ms"] <= e["library_ms"]),
+                  key=lambda e: -e["launches"] * (e["ms"] - e["bound_ms"])
+                  / reports[e["name"]].n)
+    for e in slower + rest:
+        lost = (e["launches"] * (e["ms"] - e["bound_ms"])
+                / reports[e["name"]].n)
+        log(f"[redesign] {e['name']:22s} {e['ms'] / e['library_ms']:.3f} x "
+            f"the library call ({e['ms']:.4f} against {e['library_ms']:.4f} "
+            f"ms), bound {e['bound_ms']:.4f}; {e['launches']} launches x "
+            f"{(e['ms'] - e['bound_ms']) / reports[e['name']].n:.4f} ms over "
+            f"the bound = {lost:.1f} ms on its path")
+
+
 # -- the run ---------------------------------------------------------------------
 
 
@@ -811,6 +1041,8 @@ def run():
     )
     from navier_stokes_tpu_torch.ops import block_mv as bm
     from navier_stokes_tpu_torch.ops import local_mv as lm
+    from navier_stokes_tpu_torch.ops import stream_mv as sm
+    from navier_stokes_tpu_torch.utils.timers import Timer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -823,9 +1055,10 @@ def run():
     built = bm.build_all(verbose=True)
     bm.load_library()
     lm.load_library()
+    sm.load_library()
     log("[build] " + ", ".join(f"{path.name}: nvcc {secs:.1f} s"
                                for path, secs in built.values())
-        + f" (both at once, with load {time.perf_counter() - t0:.1f} s)")
+        + f" (all at once, with load {time.perf_counter() - t0:.1f} s)")
     card = card_line()
     log(f"[card] {card}")
 
@@ -895,7 +1128,7 @@ def run():
     check(m32.n == m.n and m32.Q.ndof == m.Q.ndof, "the twin differs in size")
 
     # 3. kernel checks on the main path's tables (and slice 1's)
-    timer = Timer(torch)
+    timer = Timer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     reports = {
@@ -910,6 +1143,16 @@ def run():
         "block_mv_ds": KernelReport("block_mv_ds", f"{PALLAS}:129"),
         "batched_local_matvec": KernelReport(
             "batched_local_matvec", f"{PALLAS_LOCAL}:26", SRC_LOCAL),
+        "block_mv_rows": KernelReport("block_mv_rows", f"{DMA}:92",
+                                      SRC_STREAM),
+        "block_mv_splitk_seq": KernelReport("block_mv_splitk_seq",
+                                            f"{DMA}:119"),
+        "block_mv_mega": KernelReport("block_mv_mega", f"{DMA}:179",
+                                      SRC_STREAM),
+        "block_mv_ring": KernelReport("block_mv_ring", f"{DMA}:220",
+                                      SRC_STREAM),
+        "block_mv_soa": KernelReport("block_mv_soa", f"{APPLY2}:123",
+                                     SRC_STREAM),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -984,6 +1227,8 @@ def run():
         check_ds(torch, bm, timer, reports["block_mv_ds"], tname, *op.tables,
                  gen)
 
+    check_stream(torch, bm, sm, timer, reports)
+
     # 4. main path: the curved GS solve, cold then warm
     cold, launches = solve_and_check(torch, bm, solver, "curved GS cold",
                                      MAX_INNER)
@@ -1050,15 +1295,26 @@ def run():
     launches_t = transient_phase(torch, bm, m32, step32, m,
                                  m.u_bc + warm.x[0])
 
+    # 11. this slice's path: the two ported microbenchmark scripts
+    launches_mb = microbench_phase(bm)
+
+    # 12. the SA-AMG coarse solve on a mesh above the dense limit
+    amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry)
+
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
               **{k: launches_k[k] for k in ("block_mv_splitk",
                                             "block_mv2_splitk",
                                             "block_mv_comp_splitk")},
               "block_mv_ds": launches_ds,
-              "batched_local_matvec": launches_t["batched_local_matvec"]}
+              "batched_local_matvec": launches_t["batched_local_matvec"],
+              **{k: launches_mb[k] for k in ("block_mv_rows", "block_mv_mega",
+                                             "block_mv_ring",
+                                             "block_mv_soa")},
+              "block_mv_splitk_seq": launches_mb["block_mv_splitk"]}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
+    redesign_order(kernels["kernels"], reports)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -209,6 +209,8 @@ def build_skeleton_preconditioner_3d(
         split_k=split_k, symmetrize=symmetrize,
     )
     preA.parts["tables"].update(tables)
+    # ELL levels of the coarse solve's AMG hierarchy (0: the dense inverse)
+    preA.parts["coarse_amg_levels"] = getattr(solve1, "levels", 0)
     return preA
 
 

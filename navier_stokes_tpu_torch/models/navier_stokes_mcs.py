@@ -794,6 +794,8 @@ class NavierStokesMCS:
 
         pre.block = block
         pre.S_inv = S_inv
+        # ELL levels of the coarse solve's AMG hierarchy (0: dense inverse)
+        pre.coarse_amg_levels = getattr(solve1, "levels", 0)
         return pre
 
     def _project_velocity(self, u, tol: float = 1e-9, maxsteps: int = 2000):

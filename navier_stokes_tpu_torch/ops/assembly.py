@@ -5,7 +5,8 @@ The parts of ``navier_stokes_tpu/ops/assembly.py`` that the port uses:
 global CSR assembly of element matrices (the P1 coarse stiffness,
 precond/twolevel.py), the P1 stiffness element tables, the pressure mass
 diagonal behind ``preM`` (models/navier_stokes_mcs.py), and
-``gather`` / ``scatter_add`` / ``apply_local_matrices``.
+``gather`` / ``scatter_add`` / ``diagonal_of_local`` /
+``apply_local_matrices``.
 """
 
 from __future__ import annotations
@@ -72,6 +73,13 @@ def scatter_add(local: torch.Tensor, eldofs: torch.Tensor,
     changes from run to run)."""
     out = local.new_zeros(ndof)
     return out.index_add_(0, eldofs.reshape(-1), local.reshape(-1))
+
+
+def diagonal_of_local(a_local: torch.Tensor, eldofs: torch.Tensor,
+                      ndof: int) -> torch.Tensor:
+    """(ndof,) diagonal of the operator assembled from the element matrices
+    (ne, nb, nb)."""
+    return scatter_add(torch.diagonal(a_local, dim1=1, dim2=2), eldofs, ndof)
 
 
 def apply_local_matrices(a_local: torch.Tensor, eldofs: torch.Tensor,

@@ -43,7 +43,7 @@ table is 2 x 7740 x 54 x 54 x 4 B = 181 MB, i.e. 54 us at 3.35 TB/s.
 Wrappers check device, dtype, shape and contiguity.  A wrapper takes its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.  ``LAUNCHES`` counts kernel launches per wrapper (those of
-``ops/local_mv.py`` too).
+``ops/local_mv.py`` and ``ops/stream_mv.py`` too).
 
 Each source under ``csrc/`` is compiled from the repository at first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` into its own library
@@ -80,11 +80,13 @@ __all__ = [
 LAUNCHES = {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0,
             "block_mv_splitk": 0, "block_mv2_splitk": 0,
             "block_mv_comp_splitk": 0, "block_mv_ds": 0,
-            "batched_local_matvec": 0}
+            "batched_local_matvec": 0, "block_mv_rows": 0,
+            "block_mv_mega": 0, "block_mv_ring": 0, "block_mv_soa": 0}
 MAX_SPLIT = 8  # sub-tables one split-k launch takes (csrc kMaxSplit)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = ("block_mv", "local_mv")  # csrc/<name>.cu -> build/lib<name>_*.so
+# csrc/<name>.cu -> build/lib<name>_*.so
+SOURCES = ("block_mv", "local_mv", "stream_mv")
 _BUILD_DIR = _PKG.parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]

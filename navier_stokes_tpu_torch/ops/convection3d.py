@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..fem.hdiv3d import HDivSpace3D
 from ..fem.quadrature import tetrahedron_rule
 from .facets3d import facet_geometry_3d
@@ -28,10 +29,11 @@ __all__ = ["build_upwind_convection_3d"]
 
 
 def build_upwind_convection_3d(V: HDivSpace3D, uin=None,
-                               dtype=torch.float64, device="cpu"):
+                               dtype=torch.float64, device=None):
     """conv(u)[i] = int (u ox u):grad(v_i) - sum_T int_dT u.n (u_up . v_i) dS
     -- the weak form of -(u.grad)u for solenoidal u.  ``uin``: boundary
     data at the physical points of the boundary faces (None: zero)."""
+    device = resolve_device(device)
     mesh = V.mesh
     k = V.order
     J, detJ, Jinv = mesh.element_jacobians

@@ -36,6 +36,7 @@ from navier_stokes_tpu.ops.pallas_mv import (
     tiled_bmv_multi,
 )
 from navier_stokes_tpu_torch.ops import block_mv as bm
+from navier_stokes_tpu_torch.ops import stream_mv
 from navier_stokes_tpu_torch.ops.local_mv import batched_local_matvec
 
 NE, NB, TILE = 37, 14, 16  # deliberately non-multiple ne, as test_pallas_mv
@@ -338,10 +339,16 @@ def test_cpu_tensors_launch_no_kernel():
     bm.block_mv_comp_splitk(subs, subs, x, x, 2)
     bm.block_mv_ds(A, A, x, x)
     batched_local_matvec(A, x)
+    stream_mv.block_mv_rows(A, x, 4)
+    stream_mv.block_mv_mega(A, x, 2, 2)
+    stream_mv.block_mv_ring(A, x, 2, 2)
+    stream_mv.block_mv_soa(A.permute(1, 2, 0).contiguous(),
+                           x.T.contiguous())
     assert set(bm.LAUNCHES) == {
         "block_mv", "block_mv2", "block_mv_comp", "block_mv_splitk",
         "block_mv2_splitk", "block_mv_comp_splitk", "block_mv_ds",
-        "batched_local_matvec"}
+        "batched_local_matvec", "block_mv_rows", "block_mv_mega",
+        "block_mv_ring", "block_mv_soa"}
     assert all(v == 0 for v in bm.LAUNCHES.values())
 
 
