@@ -49,7 +49,8 @@ phases; any failed phase ends the run with a non-zero exit:
     steps/s, the M* and projection CG counts of every step, the
     projection's reduction of ||B u||, whether a step is bitwise
     repeatable, per-piece milliseconds and the device busy share; then 3
-    float64 steps (project_tol=1e-9) from the flagship solution;
+    float64 steps (project_tol=1e-9) from the flagship solution, the
+    counters read after the first;
 11. microbench: the two ported microbenchmark scripts
     (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
     7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
@@ -63,11 +64,13 @@ phases; any failed phase ends the run with a non-zero exit:
     three warm float32 transient steps.
 
 The kernel checks of phase 3 also cover ``batched_local_matvec`` (float32
-and float64, on the mass, condensed-operator and pressure-block tables of
-the transient step), ``block_mv_ds`` (on the split A, B, BT tables), and
-every variant of the table-stream kernels (``block_mv_rows``, split-k at
-k = 2, 4, 8, ``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the
-bench table, each also bitwise against ``block_mv``.
+and float64, each its own entry of the kernels line, on the mass,
+condensed-operator and pressure-block tables of the transient step),
+``block_mv_ds`` (on the split A, B, BT tables), every variant of the
+table-stream kernels (``block_mv_rows``, split-k at k = 2, 4, 8,
+``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the bench table,
+each also bitwise against ``block_mv``, and the edges of the CTA stretches
+of kernels 7 and 8 (``check_edges``: the shapes of the card tests).
 
 It prints the kernels' JSON line and the card's name and power limit on
 lines before the last, and as its last line
@@ -88,6 +91,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 MAXH, ORDER, NU, TOL = 0.09, 2, 1e-3, 1e-8
 MAX_INNER = 460  # the bench's iteration budget at this size
 SPLIT_K = 2  # the split-k path's k; kernels are also checked at 4
@@ -101,8 +105,20 @@ DMA = "scripts/microbench_dma.py"
 APPLY2 = "scripts/microbench_apply2.py"
 PALLAS = "navier_stokes_tpu/ops/pallas_mv.py"
 PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
-F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
+# kernels already redesigned for this card, and how
+REDESIGNED = {"block_mv_comp_splitk": "bulk copies, x in shared memory",
+              "batched_local_matvec": "bulk copy per CTA",
+              "batched_local_matvec_f64": "bulk copy per CTA"}
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
+# the edges of kernel 7's and kernel 8's CTA stretches, as the card tests
+# (nblk, m, k, tile): stretches across tile boundaries, rows * k not a
+# multiple of 4 floats, real rows ending mid-stretch, empty sub-tables
+EDGE_SPLITK = ((37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
+               (45, 54, 4, 3), (5, 3, 7, 2))
+# (ne, nb, offset in elements of the view into its allocation)
+EDGE_LOCAL = ((700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
+              (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
+              (3001, 4, 2), (5, 130, 3), (1, 1, 1))
 
 
 def log(*a):
@@ -131,10 +147,12 @@ def card_line():
 
 
 class KernelReport:
-    """Sums one kernel's checks over the shapes of the main path."""
+    """Sums one kernel's checks over the shapes of the main path; ``rate``
+    is the card's peak for the kernel's operations (f32 or f64)."""
 
-    def __init__(self, name, replaces, source=SRC):
+    def __init__(self, name, replaces, source=SRC, rate=F32_FLOPS_PER_S):
         self.name, self.replaces, self.source = name, replaces, source
+        self.rate = rate
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.bytes = self.flops = self.n = 0
         self.max_abs_err = 0.0
@@ -150,7 +168,7 @@ class KernelReport:
 
     def bound(self):
         tb = self.bytes / HBM_BYTES_PER_S
-        tf = self.flops / F32_FLOPS_PER_S
+        tf = self.flops / self.rate
         return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
     def entry(self, launches):
@@ -373,6 +391,59 @@ def check_local_mv(torch, lm, timer, rep, label, A, gen):
         f"{ms:.4f} ms, plain {plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
         f"{nb_ / HBM_BYTES_PER_S * 1e3:.4f} (bytes; operations "
         f"{2 * A.numel() / rate * 1e3:.4f})")
+
+
+def check_edges(torch, bm, lm):
+    """Kernels 7 and 8 at the edges of their CTA stretches
+    (``EDGE_SPLITK``, ``EDGE_LOCAL``): kernel 7 at k = 2, 4, 8, BITWISE
+    against ``block_mv_comp`` on the unsplit table and within 1e-12 of the
+    row scale of the f64 product; kernel 8 in both types, on views that
+    start 0, 4, 8 or 12 bytes past a 16-byte boundary, within 2e-6 (f32)
+    or 1e-13 (f64) of sum_j |a_ij u_j| of its plain version."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    n7 = 0
+    for nblk, m, kk, tile in EDGE_SPLITK:
+        A64 = torch.as_tensor(rng.standard_normal((nblk, m, kk)),
+                              device="cuda")
+        x64 = torch.as_tensor(rng.standard_normal((nblk, kk)), device="cuda")
+        hi, lo = bm.split_f64(A64)
+        xs = bm.split_f64(x64)
+        unsplit = bm.block_mv_comp(hi, lo, *xs)
+        for k in (2, 4, 8):
+            hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            got = bm.block_mv_comp_splitk(hs, ls, *xs, tile)
+            ref = bm.block_mv_comp_splitk_plain(hs, ls, *xs, tile)
+            torch.cuda.synchronize()
+            label = f"block_mv_comp_splitk {(nblk, m, kk)} tile {tile} k={k}"
+            check(all(torch.equal(a, b) for a, b in zip(got, unsplit)),
+                  f"{label}: not bitwise equal to block_mv_comp")
+            comp_accuracy(torch, label, hi, lo, *xs, got, ref)
+            n7 += 1
+    n8 = 0
+    for dt in (torch.float32, torch.float64):
+        for ne, nb, off in EDGE_LOCAL:
+            def view(*shape):
+                n = int(np.prod(shape))
+                flat = torch.as_tensor(rng.standard_normal(off + n),
+                                       device="cuda").to(dt)
+                return flat[off:].view(shape)
+
+            A, u = view(ne, nb, nb), view(ne, nb)
+            y = lm.batched_local_matvec(A, u)
+            d = (y - lm.batched_local_matvec_plain(A, u)).abs().double()
+            scale = torch.einsum("eij,ej->ei", A.double().abs(),
+                                 u.double().abs()).clamp_min(1e-300)
+            worst = float((d / scale).max())
+            tol = 1e-13 if dt == torch.float64 else 2e-6
+            check(bool(torch.isfinite(y).all()) and worst <= tol,
+                  f"batched_local_matvec {(ne, nb)} {str(dt)[6:]} at "
+                  f"{off * A.element_size()} bytes: {worst:.2e} > {tol:.0e}")
+            n8 += 1
+    log(f"[kernels] edges: block_mv_comp_splitk on {n7} split tables "
+        "bitwise = block_mv_comp; batched_local_matvec on "
+        f"{n8} tables within tolerance")
 
 
 def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
@@ -639,7 +710,8 @@ def projection_check(torch, m, u, label):
 def transient_phase(torch, bm, m, step, m64, u64_start):
     """bench.py's second metric on the port: the f32 SIMPLE step ``step`` of
     the stepping model ``m``, then 3 f64 steps of ``m64`` from the flagship
-    solution.  Returns the launch counts of one (the cold) f32 step."""
+    solution.  Returns the launch counts of one (the cold) f32 step and of
+    the first f64 step."""
     from navier_stokes_tpu_torch.flagship import transient_steps
     from navier_stokes_tpu_torch.solvers.cg import cg
     from navier_stokes_tpu_torch.utils.timers import per_apply_ms
@@ -752,8 +824,12 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
     bm.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    u64, counts64 = transient_steps(m64, 3, project_tol=PROJECT_TOL64,
+    u64, counts64 = transient_steps(m64, 1, project_tol=PROJECT_TOL64,
                                     mstar_tol=MSTAR_TOL, u=u64_start)
+    launches64 = dict(bm.LAUNCHES)  # the first f64 step's
+    u64, more = transient_steps(m64, 2, project_tol=PROJECT_TOL64,
+                                mstar_tol=MSTAR_TOL, u=u64)
+    counts64 += more
     torch.cuda.synchronize()
     t64 = time.perf_counter() - t0
     check(bool(torch.isfinite(u64).all()), "[transient] f64 steps blew up")
@@ -762,13 +838,13 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
         f"({t64 / 3 * 1e3:.1f} ms/step, the first one cold), CG counts "
         f"{counts64}, ||B u|| {norm(m64.B_raw(u64_start)):.3e} -> "
         f"{norm(m64.B_raw(u64)):.3e}, max |u3 - u0| "
-        f"{float((u64 - u64_start).abs().max()):.3e}, launches "
-        f"{dict(bm.LAUNCHES)}")
-    check(bm.LAUNCHES["batched_local_matvec"] > 0,
-          "batched_local_matvec never launched in the f64 steps")
+        f"{float((u64 - u64_start).abs().max()):.3e}, launches of the "
+        f"first step {launches64}, of all three {dict(bm.LAUNCHES)}")
+    check(launches64["batched_local_matvec_f64"] > 0,
+          "batched_local_matvec_f64 never launched in the first f64 step")
     check(max(c["project"] for c in counts64) < 2000,
           "the f64 projection CG ran into maxsteps")
-    return launches
+    return launches, launches64
 
 
 def check_stream(torch, bm, sm, timer, reports):
@@ -1009,11 +1085,13 @@ def redesign_order(entries, reports):
     for e in slower + rest:
         lost = (e["launches"] * (e["ms"] - e["bound_ms"])
                 / reports[e["name"]].n)
-        log(f"[redesign] {e['name']:22s} {e['ms'] / e['library_ms']:.3f} x "
+        done = REDESIGNED.get(e["name"])
+        log(f"[redesign] {e['name']:24s} {e['ms'] / e['library_ms']:.3f} x "
             f"the library call ({e['ms']:.4f} against {e['library_ms']:.4f} "
             f"ms), bound {e['bound_ms']:.4f}; {e['launches']} launches x "
             f"{(e['ms'] - e['bound_ms']) / reports[e['name']].n:.4f} ms over "
-            f"the bound = {lost:.1f} ms on its path")
+            f"the bound = {lost:.1f} ms on its path"
+            + (f" (redesigned: {done})" if done else ""))
 
 
 # -- the run ---------------------------------------------------------------------
@@ -1143,6 +1221,9 @@ def run():
         "block_mv_ds": KernelReport("block_mv_ds", f"{PALLAS}:129"),
         "batched_local_matvec": KernelReport(
             "batched_local_matvec", f"{PALLAS_LOCAL}:26", SRC_LOCAL),
+        "batched_local_matvec_f64": KernelReport(
+            "batched_local_matvec_f64", f"{PALLAS_LOCAL}:26", SRC_LOCAL,
+            F64_FLOPS_PER_S),
         "block_mv_rows": KernelReport("block_mv_rows", f"{DMA}:92",
                                       SRC_STREAM),
         "block_mv_splitk_seq": KernelReport("block_mv_splitk_seq",
@@ -1212,15 +1293,15 @@ def run():
                          [hi, lo], k, 8 if nblk < 100 else TILE, gen,
                          x64=x64, timed=False)
 
+    check_edges(torch, bm, lm)
     log("[kernels] batched_local_matvec on the transient step's tables "
-        "(f32: the stepping model's, reported; f64: the model's own)")
-    for mm, keep in ((m32, True), (m, False)):
+        "(f32: the stepping model's; f64: the model's own)")
+    for mm, name in ((m32, "batched_local_matvec"),
+                     (m, "batched_local_matvec_f64")):
         pre2 = mm._pre_proj_twolevel()
         for tname, A in (("M_loc", mm._M_loc), ("A_cond", mm._A_cond),
                          ("S_inv", pre2.S_inv)):
-            check_local_mv(torch, lm, timer,
-                           reports["batched_local_matvec"] if keep else None,
-                           tname, A, gen)
+            check_local_mv(torch, lm, timer, reports[name], tname, A, gen)
     log("[kernels] block_mv_ds on the split A, B, BT tables")
     for tname, op in (("A_ds", ods["A"]), ("B_ds", ods["B"]),
                       ("BT_ds", ods["BT"])):
@@ -1292,8 +1373,8 @@ def run():
     launches_ds = ds_phase(torch, bm, solver, warm)
 
     # 10. the transient step: f32 as bench.py, then f64 from the solution
-    launches_t = transient_phase(torch, bm, m32, step32, m,
-                                 m.u_bc + warm.x[0])
+    launches_t, launches_t64 = transient_phase(torch, bm, m32, step32, m,
+                                               m.u_bc + warm.x[0])
 
     # 11. this slice's path: the two ported microbenchmark scripts
     launches_mb = microbench_phase(bm)
@@ -1308,6 +1389,8 @@ def run():
                                             "block_mv_comp_splitk")},
               "block_mv_ds": launches_ds,
               "batched_local_matvec": launches_t["batched_local_matvec"],
+              "batched_local_matvec_f64":
+                  launches_t64["batched_local_matvec_f64"],
               **{k: launches_mb[k] for k in ("block_mv_rows", "block_mv_mega",
                                              "block_mv_ring",
                                              "block_mv_soa")},

@@ -28,8 +28,10 @@
 //   2. it copies the x rows of the blocks those rows belong to;
 //   3. each thread computes one output row from shared memory, in column
 //      order, and writes it (coalesced).
-// Accumulation is f32.  The simple kernel comes first; overlapping the copy
-// of one tile with the arithmetic of the previous one is later work.
+// Accumulation is f32.  Kernels 1-6 keep this first design; kernel 7 now
+// brings its stretches on chip by bulk asynchronous copies (split-k
+// section below), and the table-stream study (stream_mv.cu) measured the
+// same for a plain f32 stream.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
@@ -41,10 +43,19 @@
 
 #include <type_traits>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kSmemBudget = 48 * 1024;  // dynamic shared memory, no opt-in
+constexpr int kSmemOptIn = 232448;      // 227 KB per CTA after opt-in
+constexpr int kHeader = 128;            // the mbarrier ahead of the stretches
+// rows per sub-table of one kernel-7 CTA (tools/sweep_redesign.py)
+constexpr int kCompSplitRows = 32;
+static_assert(kCompSplitRows >= 4 && kCompSplitRows % 4 == 0,
+              "kernel 7's stretches start on 16-byte boundaries");
+constexpr int kXLoads = 4;  // x loads in flight per thread (kernel 7)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -285,15 +296,38 @@ __global__ void __launch_bounds__(kMaxThreads)
 // the unsplit kernels.
 //
 // Design.  A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in
-// EVERY sub-table.  Its copy loop reads one 16-byte vector from each of the
-// ns sub-tables into registers before it stores any of them to shared
-// memory, so ns independent table streams are in flight per CTA (what a
-// split buys on Hopper; the TPU kernel instead keeps ns block DMAs in
-// flight per sequential grid step).  Each thread then computes output rows
-// in the unsplit kernel's column order -- the same fmaf chain, or the same
-// two_prod/two_sum chain -- so a split-k result is bitwise equal to the
-// unsplit kernel's on the same table.  x is read straight from global
-// memory (L2-resident, a few MB).
+// EVERY sub-table.  Each thread computes output rows in the unsplit
+// kernel's column order -- the same fmaf chain, or the same two_prod /
+// two_sum chain -- so a split-k result is bitwise equal to the unsplit
+// kernel's on the same table.  How the stretches reach shared memory:
+//   kernels 5 and 6: the copy loop reads one 16-byte vector from each of
+//     the ns sub-tables into registers before it stores any of them to an
+//     odd-stride tile, so ns independent table streams are in flight per
+//     CTA (the TPU kernel instead keeps ns block DMAs in flight per
+//     sequential grid step); x is read straight from global memory
+//     (L2-resident, a few MB);
+//   kernel 7 (redesigned): one thread starts 2*ns 1-D bulk
+//     asynchronous copies (bulk_copy.cuh), one per (table, sub-table)
+//     stretch, all onto one mbarrier, and every thread stages the x_hi and
+//     x_lo of the blocks the stretches touch beside them, kXLoads loads in
+//     flight per thread; the rows land at stride k (a 2-way bank conflict
+//     at k = 54, accepted).  No thread spends registers or instructions on
+//     the table bytes, and the CTA is small (R = 32 rows per sub-table:
+//     27.6 KB at k = 2 on 54-wide rows), so that many CTAs per SM overlap
+//     one's copies with another's arithmetic.  What bounds it: 2 x 4 x k
+//     bytes of shared memory per (row, sub-table) cap the rows resident per
+//     SM at about 530 -- one thread per row, as bitwise equality with
+//     kernel 4 demands, so about 16 warps per SM to hide the 54 dependent
+//     steps of each chain -- and on the 4-row blocks of B the x of a
+//     stretch, a sixth of its table bytes, whose latency the extra threads
+//     of plan_comp_splitk hide.
+//     Sweep of kCompSplitRows (tools/sweep_redesign.py, random tables of
+//     the shapes of A_ds, B_ds and BT_ds at maxh=0.09, summed; NVIDIA H100
+//     80GB HBM3, 700 W): R = 16 / 32 / 64 took 0.1161 / 0.1109 / 0.1125 ms
+//     at k = 2 and 0.1133 / 0.1150 / 0.1196 at k = 4; in the same call the
+//     earlier design (kernel 5's copy loop into odd-stride tiles, x read
+//     from global memory) 0.1887 and 0.1800, the f64 torch.bmm of hi + lo
+//     0.1430, the byte bound 0.0660.  Fixed: R = 32, the best at k = 2.
 
 constexpr int kMaxSplit = 8;
 
@@ -453,7 +487,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Same rounded-intrinsic recurrence as block_mv_comp_kernel.
+// Kernel 7's CTA: the same stretch of R sub-table rows [r0, r0 + R) of
+// every sub-table of both tables, R = kCompSplitRows (fewer only where k-wide
+// rows would not fit).  Shared memory: the mbarrier; the 2*NS stretches as
+// the bulk copies land them (rows at stride k, table hi then lo, sub-table j
+// at j*R*k floats); x_hi and x_lo of the xb = (R-1)/m + 2 sub-table blocks a
+// stretch can touch (sub-table j at j*xb*k floats).
 template <int NS>
 __global__ void __launch_bounds__(kMaxThreads)
     block_mv_comp_splitk_kernel(SubTables his, SubTables los, SplitReal real,
@@ -461,28 +500,104 @@ __global__ void __launch_bounds__(kMaxThreads)
                                 const float* __restrict__ x_lo,
                                 float* __restrict__ y_hi,
                                 float* __restrict__ y_lo, long long nsub_rows,
-                                long long nblk, int m, int k, int ks, int R,
+                                long long nblk, int m, int k, int R, int xb,
                                 int tile) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  float* th = reinterpret_cast<float*>(smem_raw + kHeader);
+  float* tl = th + NS * R * k;
+  float* xh = tl + NS * R * k;
+  float* xl = xh + NS * xb * k;
   const SplitTile t = split_tile_of(nsub_rows, R);
-  float* th = smem;
-  float* tl = smem + NS * R * ks;
-  stage_rows_split<float, NS>(his, real, t.r0 * k, t.nrows * k, k, ks,
-                              R * ks, th);
-  stage_rows_split<float, NS>(los, real, t.r0 * k, t.nrows * k, k, ks,
-                              R * ks, tl);
+  const long long off = t.r0 * k;
+  const int count = t.nrows * k;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, blockDim.x);
+    mbar_init_fence();
+  }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    // Only the real rows of each sub-table (the zero pad is not loaded):
+    // their whole 16-byte units by one bulk copy per (table, sub-table),
+    // all 2*NS started before anyone waits on their one barrier; the at
+    // most three floats after them by plain loads.  Every start is 16-byte
+    // aligned: the bases are, and r0 * k is a multiple of 4 (R is).
+    int lim[NS];
+    uint32_t bytes = 0;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const long long l = real.n[j] - off;  // real entries in this stretch
+      lim[j] = static_cast<int>(l < 0 ? 0 : (l > count ? count : l));
+      bytes += 2u * 4u * static_cast<uint32_t>(lim[j] & ~3);
+    }
+    if (bytes) mbar_expect_tx(bar, bytes);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float* h = static_cast<const float*>(his.p[j]) + off;
+      const float* l = static_cast<const float*>(los.p[j]) + off;
+      float* dh = th + j * R * k;
+      float* dl = tl + j * R * k;
+      const int whole = lim[j] & ~3;
+      if (whole) {
+        bulk_copy(dh, h, 4u * whole, bar);
+        bulk_copy(dl, l, 4u * whole, bar);
+      }
+      for (int c = whole; c < lim[j]; ++c) {
+        dh[c] = __ldg(h + c);
+        dl[c] = __ldg(l + c);
+      }
+    }
+  }
+  // x of the touched blocks, by every thread beside the copies: stretch
+  // block b of sub-table j is global block gb (a stretch that crosses a
+  // tile boundary jumps in gb; blocks of the pad are skipped).  Each
+  // thread issues kXLoads pairs of loads before it stores any: with few
+  // rows per block (m = 4) the x of a stretch is a sixth of its table
+  // bytes, and one load in flight per thread would serialize on latency.
+  const long long sb0 = t.r0 / m;
+  const int nbx = static_cast<int>((t.r0 + t.nrows - 1) / m - sb0 + 1);
+  const int nx = NS * nbx * k;
+  for (int e0 = threadIdx.x; e0 < nx; e0 += kXLoads * blockDim.x) {
+    float vh[kXLoads], vl[kXLoads];
+    int at[kXLoads];
+#pragma unroll
+    for (int q = 0; q < kXLoads; ++q) {
+      const int e = e0 + q * blockDim.x;
+      at[q] = -1;
+      if (e < nx) {
+        const int j = e / (nbx * k), rem = e - j * nbx * k;
+        const int b = rem / k, c = rem - b * k;
+        const long long sb = sb0 + b, i = sb / tile;
+        const long long gb = (i * NS + j) * tile + (sb - i * tile);
+        if (gb < nblk) {
+          vh[q] = __ldg(x_hi + gb * k + c);
+          vl[q] = __ldg(x_lo + gb * k + c);
+          at[q] = (j * xb + b) * k + c;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kXLoads; ++q) {
+      if (at[q] >= 0) {
+        xh[at[q]] = vh[q];
+        xl[at[q]] = vl[q];
+      }
+    }
+  }
+  mbar_arrive(bar);  // releases this thread's stores
+  mbar_wait(bar, 0);  // every store made, every copied byte landed
   for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
     const int j = e / t.nrows, rr = e - j * t.nrows;
     const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
     if (g < 0) continue;
-    const float* hr = th + (j * R + rr) * ks;
-    const float* lr = tl + (j * R + rr) * ks;
-    const long long xo = (g / m) * k;
+    const float* hr = th + (j * R + rr) * k;
+    const float* lr = tl + (j * R + rr) * k;
+    const int xo = (j * xb + static_cast<int>((t.r0 + rr) / m - sb0)) * k;
+    // block_mv_comp_kernel's recurrence, operation for operation
     float s = 0.0f, sl = 0.0f;
     for (int c = 0; c < k; ++c) {
       const float ah = hr[c], al = lr[c];
-      const float xhj = __ldg(x_hi + xo + c), xlj = __ldg(x_lo + xo + c);
+      const float xhj = xh[xo + c], xlj = xl[xo + c];
       const float p = __fmul_rn(ah, xhj);
       const float err = __fmaf_rn(ah, xhj, -p);
       const float small =
@@ -520,6 +635,40 @@ Launch plan_splitk(long long nsub_rows, int ks, int ntab, int ns) {
   L.smem = static_cast<size_t>(per_row * R);
   L.grid = static_cast<unsigned int>((nsub_rows + R - 1) / R);
   return L;
+}
+
+// Kernel 7: kCompSplitRows rows per sub-table, or the largest multiple of
+// 4 below it whose 2*ns stretches and x stages fit opt-in shared memory.
+// Threads: one per (sub-table, row), or as many as issue every x load of a
+// stretch in one round of kXLoads, whichever is more (at most kMaxThreads):
+// 64 on 54 x 54 blocks at k = 2, 256 on the 4 x 54 blocks of B.
+Launch plan_comp_splitk(long long nsub_rows, int m, int k, int ns) {
+  Launch L;
+  for (int R = kCompSplitRows; R >= 4; R -= 4) {
+    const long long xb = (R - 1) / m + 2;
+    const long long bytes = kHeader + 4LL * 2 * ns * (R + xb) * k;
+    if (bytes <= kSmemOptIn) {
+      L.R = R;
+      long long want = static_cast<long long>(ns) * R;
+      const long long xwant = (ns * xb * k + kXLoads - 1) / kXLoads;
+      if (xwant > want) want = xwant;
+      L.threads = want >= kMaxThreads
+                      ? kMaxThreads
+                      : static_cast<int>((want + 31) / 32 * 32);
+      L.smem = static_cast<size_t>(bytes);
+      L.grid = static_cast<unsigned int>((nsub_rows + R - 1) / R);
+      return L;
+    }
+  }
+  return L;
+}
+
+template <int NS>
+cudaError_t comp_splitk_opt_in() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      block_mv_comp_splitk_kernel<NS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+  return err;
 }
 
 inline bool bad_split(int ns, long long nblk, long long nsub, int m, int k,
@@ -739,16 +888,20 @@ int nstt_block_mv_comp_splitk_f32(const void* const* his,
   if (bad_split(ns, nblk, nsub, m, k, tile))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblk == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan_splitk(nsub * m, ks, 2, ns);
+  const Launch L = plan_comp_splitk(nsub * m, m, k, ns);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
   with_split(ns, [&](auto c) {
-    block_mv_comp_splitk_kernel<decltype(c)::value>
+    constexpr int NS = decltype(c)::value;
+    err = comp_splitk_opt_in<NS>();
+    if (err != cudaSuccess) return;
+    block_mv_comp_splitk_kernel<NS>
         <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
             sub_tables(his, ns), sub_tables(los, ns),
             split_real(ns, nblk, m, k, tile), x_hi, x_lo, y_hi, y_lo,
-            nsub * m, nblk, m, k, ks, L.R, tile);
+            nsub * m, nblk, m, k, L.R, (L.R - 1) / m + 2, tile);
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

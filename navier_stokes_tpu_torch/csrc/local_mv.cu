@@ -18,19 +18,30 @@
 //
 // Design.  Viewed as ne * nb output rows, the table rows of any run of
 // consecutive output rows are one contiguous stretch of memory, whatever the
-// element boundaries.  A CTA owns R consecutive rows (R chosen on the host so
-// that the stretch fits 48 KB of shared memory: 192 rows of 54 floats, 96
-// rows of 54 doubles, 256 rows of the 4 x 4 pressure blocks, so that a small
-// block never costs a CTA per element):
-//   1. the CTA copies its rows' table stretch into shared memory with
-//      coalesced 16-byte loads, one row per ks = nb | 1 scalars -- an odd
-//      row stride, so that the threads of a warp, each reading its own row,
-//      hit distinct banks;
-//   2. it copies the u rows of the elements those rows belong to;
-//   3. each thread computes one output row from shared memory, in column
-//      order with fused multiply-adds, and writes it (coalesced).
-// Overlapping the copy of one tile with the arithmetic of the previous one
-// (cp.async or TMA double buffering) is later work.
+// element boundaries.  A CTA owns kRows consecutive rows (fewer only where
+// nb-wide rows would not fit 227 KB), one thread per row:
+//   1. one thread starts ONE 1-D bulk asynchronous copy (cp.async.bulk,
+//      bulk_copy.cuh) of the stretch's whole 16-byte units onto an mbarrier;
+//      the rows land at stride nb, as they lie in memory.  The head before
+//      the first 16-byte boundary (a view may start 4 or 8 bytes into one)
+//      and the tail after the last whole unit are plain loads;
+//   2. beside the copy, every thread stages its share of the u rows of the
+//      elements the stretch touches, and arrives on the barrier (which
+//      releases its stores); one wait covers table and u;
+//   3. each thread sums its row in column order with fused multiply-adds
+//      and writes it (coalesced).
+// What bounds it: the table bytes; with one bulk copy per CTA the stream
+// reaches 0.6-0.7 of the byte bound, and per-CTA latency (one stretch in
+// flight per CTA, copy then arithmetic) holds it there.  Sweep of kRows
+// (tools/sweep_redesign.py, random tables of the shapes of M_loc, A_cond
+// and S_inv at maxh=0.09, summed; NVIDIA H100 80GB HBM3, 700 W): R = 32 /
+// 64 / 128 took f32 0.0967 / 0.0969 / 0.0976 ms and f64 0.1585 / 0.1589 /
+// 0.1599; in the same call the earlier design (per-thread 16-byte loads
+// into an odd-stride tile, 48 KB per CTA) f32 0.1240 and f64 0.2647,
+// torch.bmm 0.1327 and 0.1915.  Fixed: R = 32, the best in both types.
+// Splitting a row over 2 lanes of a warp, combined by shuffles, measured
+// 1-3% faster in f32 and about 1% in f64 on the transient tables
+// (chip_smoke.py, same card), too little for its code: one thread per row.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
@@ -39,67 +50,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kSmemBudget = 48 * 1024;  // dynamic shared memory, no opt-in
-
-// 16 bytes of table entries: 4 floats or 2 doubles
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  using type = float4;
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void unpack(float4 w, float* out) {
-    out[0] = w.x;
-    out[1] = w.y;
-    out[2] = w.z;
-    out[3] = w.w;
-  }
-};
-template <>
-struct Vec16<double> {
-  using type = double2;
-  static constexpr int n = 2;
-  static __device__ __forceinline__ void unpack(double2 w, double* out) {
-    out[0] = w.x;
-    out[1] = w.y;
-  }
-};
-
-// Copy count contiguous table entries src[0..count) into dst as rows of k
-// entries at row stride ks.  Coalesced 16-byte loads for the aligned middle,
-// single loads for the unaligned head and the tail.
-template <typename T>
-__device__ void stage_rows(const T* __restrict__ src, int count, int k, int ks,
-                           T* __restrict__ dst) {
-  using V = Vec16<T>;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
-  int head = static_cast<int>(((16 - (addr & 15)) & 15) / sizeof(T));
-  if (head > count) head = count;
-  const int nvec = (count - head) / V::n;
-  for (int e = threadIdx.x; e < head; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = src[e];
-  const typename V::type* pv =
-      reinterpret_cast<const typename V::type*>(src + head);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    T v[V::n];
-    V::unpack(__ldg(pv + i), v);
-    const int e0 = head + i * V::n;
-    int row = e0 / k, col = e0 - row * k;
-#pragma unroll
-    for (int q = 0; q < V::n; ++q) {
-      dst[row * ks + col] = v[q];
-      if (++col == k) {
-        col = 0;
-        ++row;
-      }
-    }
-  }
-  for (int e = head + nvec * V::n + threadIdx.x; e < count; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = src[e];
-}
+constexpr int kRows = 32;           // rows per CTA (tools/sweep_redesign.py)
+static_assert(kRows % 32 == 0, "a CTA is whole warps, one thread per row");
+constexpr int kSmemOptIn = 232448;  // 227 KB per CTA after opt-in
+constexpr int kHeader = 128;        // the mbarrier ahead of the stretch
+constexpr int kSlack = 16;          // room to shift the stretch (see below)
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -108,32 +67,62 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// y[r] = sum_j a[r, j] * u[r / nb, j]
+// y[r] = sum_j a[r, j] * u[r / nb, j] for the R rows from blockIdx.x * R,
+// thread t taking row t.
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kRows)
     local_mv_kernel(const T* __restrict__ a, const T* __restrict__ u,
-                    T* __restrict__ y, long long nrows_all, int nb, int ks,
-                    int R) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tab = reinterpret_cast<T*>(smem_raw);
-  T* us = tab + static_cast<long long>(R) * ks;
+                    T* __restrict__ y, long long nrows_all, int nb, int R) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   const long long r0 = static_cast<long long>(blockIdx.x) * R;
   long long r1 = r0 + R;
   if (r1 > nrows_all) r1 = nrows_all;
   const int nrows = static_cast<int>(r1 - r0);
   const long long e0 = r0 / nb;  // first element touched
   const int nu = static_cast<int>((r1 - 1) / nb - e0 + 1) * nb;
-  stage_rows(a + r0 * nb, nrows * nb, nb, ks, tab);
+  const T* src = a + r0 * nb;
+  const int count = nrows * nb;
+  // The stretch src[0..count) is contiguous but starts wherever the table
+  // (a view may start mid-allocation) and r0 * nb put it: the head up to
+  // the first 16-byte boundary and the tail after the last whole 16-byte
+  // unit are plain loads, the middle one bulk copy.  tab is shifted so that
+  // tab + head is 16-byte aligned, as the copy's destination must be.
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  const int misalign =
+      static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  int head = ((16 - misalign) & 15) / kSize;
+  if (head > count) head = count;
+  const int whole = ((count - head) * kSize & ~15) / kSize;
+  T* tab = reinterpret_cast<T*>(smem_raw + kHeader +
+                                ((16 - head * kSize) & 15));
+  T* us = reinterpret_cast<T*>(smem_raw + kHeader + kSlack) +
+          static_cast<long long>(R) * nb;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, blockDim.x);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && whole > 0) {
+    const uint32_t bytes = static_cast<uint32_t>(whole * kSize);
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(tab + head, src + head, bytes, bar);
+  }
+  for (int c = threadIdx.x; c < head; c += blockDim.x)
+    tab[c] = __ldg(src + c);
+  for (int c = head + whole + threadIdx.x; c < count; c += blockDim.x)
+    tab[c] = __ldg(src + c);
   for (int e = threadIdx.x; e < nu; e += blockDim.x)
     us[e] = __ldg(u + e0 * nb + e);
-  __syncthreads();
-  for (int rr = threadIdx.x; rr < nrows; rr += blockDim.x) {
-    const long long r = r0 + rr;
-    const T* ar = tab + rr * ks;
-    const T* ub = us + (r / nb - e0) * nb;
+  mbar_arrive(bar);   // releases this thread's stores
+  mbar_wait(bar, 0);  // every store made, every copied byte landed
+  const int rr = threadIdx.x;
+  if (rr < nrows) {
+    const T* ar = tab + rr * nb;
+    const T* ub = us + ((r0 + rr) / nb - e0) * nb;
     T acc = 0;
     for (int j = 0; j < nb; ++j) acc = fma_t(ar[j], ub[j], acc);
-    y[r] = acc;
+    y[r0 + rr] = acc;
   }
 }
 
@@ -144,18 +133,19 @@ struct Launch {
   size_t smem = 0;  // dynamic shared memory bytes
 };
 
-// Largest row tile whose table stretch (row stride ks) and u rows fit the
-// shared-memory budget.
-Launch plan(long long nrows_all, int nb, int ks, int itemsize) {
+// kRows rows per CTA, or the most below it whose stretch and u rows fit
+// opt-in shared memory.
+template <typename T>
+Launch plan(long long nrows_all, int nb) {
   Launch L;
-  for (int R = kMaxThreads; R >= 1; R -= (R > 32 ? 32 : 1)) {
+  for (int R = kRows; R >= 1; --R) {
     const long long ublocks = (R - 1) / nb + 2;
     const long long bytes =
-        static_cast<long long>(itemsize) *
-        (static_cast<long long>(R) * ks + ublocks * nb);
-    if (bytes <= kSmemBudget) {
+        kHeader + kSlack + static_cast<long long>(sizeof(T)) *
+                               (static_cast<long long>(R) + ublocks) * nb;
+    if (bytes <= kSmemOptIn) {
       L.R = R;
-      L.threads = R < 32 ? 32 : ((R + 31) / 32) * 32;
+      L.threads = (R + 31) / 32 * 32;
       L.smem = static_cast<size_t>(bytes);
       L.grid = static_cast<unsigned int>((nrows_all + R - 1) / R);
       return L;
@@ -170,12 +160,15 @@ int launch_local_mv(const T* a, const T* u, T* y, long long ne, int nb,
   if (ne < 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long nrows = ne * nb;
   if (nrows == 0) return 0;
-  const int ks = nb | 1;
-  const Launch L = plan(nrows, nb, ks, static_cast<int>(sizeof(T)));
+  const Launch L = plan<T>(nrows, nb);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      local_mv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemOptIn);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   local_mv_kernel<T><<<L.grid, L.threads, L.smem,
                        static_cast<cudaStream_t>(stream)>>>(a, u, y, nrows,
-                                                            nb, ks, L.R);
+                                                            nb, L.R);
   return static_cast<int>(cudaGetLastError());
 }
 

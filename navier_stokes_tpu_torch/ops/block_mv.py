@@ -80,8 +80,9 @@ __all__ = [
 LAUNCHES = {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0,
             "block_mv_splitk": 0, "block_mv2_splitk": 0,
             "block_mv_comp_splitk": 0, "block_mv_ds": 0,
-            "batched_local_matvec": 0, "block_mv_rows": 0,
-            "block_mv_mega": 0, "block_mv_ring": 0, "block_mv_soa": 0}
+            "batched_local_matvec": 0, "batched_local_matvec_f64": 0,
+            "block_mv_rows": 0, "block_mv_mega": 0, "block_mv_ring": 0,
+            "block_mv_soa": 0}
 MAX_SPLIT = 8  # sub-tables one split-k launch takes (csrc kMaxSplit)
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -110,10 +111,13 @@ def _nvcc() -> str:
 
 def build_library(verbose: bool = False,
                   name: str = "block_mv") -> tuple[Path, float]:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already built.  Returns (path, seconds spent compiling)."""
-    src_path = _PKG / "csrc" / f"{name}.cu"
-    src = src_path.read_bytes()
+    """Compile ``csrc/<name>.cu`` unless a library of the same source, the
+    headers beside it and the same flags is already built.  Returns (path,
+    seconds spent compiling)."""
+    csrc = _PKG / "csrc"
+    src_path = csrc / f"{name}.cu"
+    src = src_path.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _BUILD_DIR / f"lib{name}_{tag}.so"
     if out.exists():
@@ -144,38 +148,40 @@ def build_all(verbose: bool = False) -> dict:
         return {name: fut.result() for name, fut in futs.items()}
 
 
+def _bind(path):
+    """The library at ``path`` with its entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.nstt_block_mv_f32.argtypes = [p, p, p, i64, i32, i32, p]
+    lib.nstt_block_mv_bf16.argtypes = [p, p, p, i64, i32, i32, p]
+    lib.nstt_block_mv2_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
+    lib.nstt_block_mv_comp_f32.argtypes = [p, p, p, p, p, p, i64, i32, i32, p]
+    lib.nstt_block_mv_ds_f32.argtypes = [p, p, p, p, p, p, p, i64, i32, i32,
+                                         p]
+    # split-k: (pointer array, k, ..., rows per sub-table, tile, stream)
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.nstt_block_mv_splitk_f32.argtypes = [pp, i32, p, p, i64, i32, i32,
+                                             i64, i32, p]
+    lib.nstt_block_mv_splitk_bf16.argtypes = [pp, i32, p, p, i64, i32, i32,
+                                              i64, i32, p]
+    lib.nstt_block_mv2_splitk_f32.argtypes = [pp, pp, i32, p, p, i64, i32,
+                                              i32, i64, i32, p]
+    lib.nstt_block_mv_comp_splitk_f32.argtypes = [pp, pp, i32, p, p, p, p,
+                                                  i64, i32, i32, i64, i32, p]
+    for fn in (lib.nstt_block_mv_f32, lib.nstt_block_mv_bf16,
+               lib.nstt_block_mv2_f32, lib.nstt_block_mv_comp_f32,
+               lib.nstt_block_mv_ds_f32, lib.nstt_block_mv_splitk_f32,
+               lib.nstt_block_mv_splitk_bf16, lib.nstt_block_mv2_splitk_f32,
+               lib.nstt_block_mv_comp_splitk_f32):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library():
     """The compiled kernels as a ctypes library (built at first use)."""
     global _lib
     if _lib is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.nstt_block_mv_f32.argtypes = [p, p, p, i64, i32, i32, p]
-        lib.nstt_block_mv_bf16.argtypes = [p, p, p, i64, i32, i32, p]
-        lib.nstt_block_mv2_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
-        lib.nstt_block_mv_comp_f32.argtypes = [p, p, p, p, p, p, i64, i32,
-                                               i32, p]
-        lib.nstt_block_mv_ds_f32.argtypes = [p, p, p, p, p, p, p, i64, i32,
-                                             i32, p]
-        # split-k: (pointer array, k, ..., rows per sub-table, tile, stream)
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        lib.nstt_block_mv_splitk_f32.argtypes = [pp, i32, p, p, i64, i32,
-                                                 i32, i64, i32, p]
-        lib.nstt_block_mv_splitk_bf16.argtypes = [pp, i32, p, p, i64, i32,
-                                                  i32, i64, i32, p]
-        lib.nstt_block_mv2_splitk_f32.argtypes = [pp, pp, i32, p, p, i64, i32,
-                                                  i32, i64, i32, p]
-        lib.nstt_block_mv_comp_splitk_f32.argtypes = [pp, pp, i32, p, p, p, p,
-                                                      i64, i32, i32, i64, i32,
-                                                      p]
-        for fn in (lib.nstt_block_mv_f32, lib.nstt_block_mv_bf16,
-                   lib.nstt_block_mv2_f32, lib.nstt_block_mv_comp_f32,
-                   lib.nstt_block_mv_ds_f32, lib.nstt_block_mv_splitk_f32, lib.nstt_block_mv_splitk_bf16,
-                   lib.nstt_block_mv2_splitk_f32,
-                   lib.nstt_block_mv_comp_splitk_f32):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(build_library()[0])
     return _lib
 
 
@@ -562,7 +568,9 @@ def block_mv_comp_splitk(his, los, x_hi, x_lo, tile: int):
 
     Replaces ``_mv_comp_kernel_splitk``
     (navier_stokes_tpu/ops/pallas_mv.py:397).  Bound: 2*nblk*m*kk*4
-    bytes / 3.35 TB/s (the zero pad is not loaded).  Bitwise equal to
+    bytes / 3.35 TB/s (the zero pad is not loaded).  The kernel brings each
+    (table, sub-table) stretch of a CTA on chip with one bulk asynchronous
+    copy and stages x in shared memory.  Bitwise equal to
     :func:`block_mv_comp` on the unsplit pair."""
     his, los = _check_pair(his, los, "block_mv_comp_splitk")
     _check_split_x(x_hi, his, tile, "block_mv_comp_splitk x_hi")

@@ -9,13 +9,16 @@ the transient SIMPLE step is made of: the mass and condensed-operator
 applies inside ``mstar``, ``_Mv`` and the step's right-hand side, and the
 element-block Jacobi of the projection preconditioner.  The kernel lives in
 ``csrc/local_mv.cu`` (its own ``__global__`` template, instantiated for
-float and double); it is bound by the table stream, ne*nb*nb*itemsize
+float and double: one bulk asynchronous copy of a 32-row stretch per CTA,
+one thread per row); it is bound by the table stream, ne*nb*nb*itemsize
 bytes / 3.35 TB/s.
 
 The wrapper checks device, dtype, shape and contiguity.  It takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises.  Launches are counted in ``ops.block_mv.LAUNCHES``.  The library
-is compiled from the repository's source at first use
+or raises.  Launches are counted in ``ops.block_mv.LAUNCHES``, per
+instantiation: ``batched_local_matvec`` (float) and
+``batched_local_matvec_f64`` (double).  The library is compiled from the
+repository's source at first use
 (:func:`~navier_stokes_tpu_torch.ops.block_mv.build_library`) and bound with
 ctypes.
 """
@@ -34,17 +37,21 @@ __all__ = ["batched_local_matvec", "batched_local_matvec_plain",
 _lib = None
 
 
+def _bind(path):
+    """The library at ``path`` with its entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for fn in (lib.nstt_local_mv_f32, lib.nstt_local_mv_f64):
+        fn.argtypes = [p, p, p, i64, i32, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library():
     """The compiled kernel as a ctypes library (built at first use)."""
     global _lib
     if _lib is None:
-        path, _ = build_library(name="local_mv")
-        lib = ctypes.CDLL(str(path))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for fn in (lib.nstt_local_mv_f32, lib.nstt_local_mv_f64):
-            fn.argtypes = [p, p, p, i64, i32, p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(build_library(name="local_mv")[0])
     return _lib
 
 
@@ -85,9 +92,10 @@ def batched_local_matvec(a_local: torch.Tensor,
     if y.numel() == 0:
         return y
     lib = load_library()
-    fn = (lib.nstt_local_mv_f32 if a_local.dtype == torch.float32
-          else lib.nstt_local_mv_f64)
+    f32 = a_local.dtype == torch.float32
+    fn = lib.nstt_local_mv_f32 if f32 else lib.nstt_local_mv_f64
     _launch(fn, a_local.data_ptr(), ue.data_ptr(), y.data_ptr(), ne, nb,
             _stream(a_local))
-    LAUNCHES["batched_local_matvec"] += 1
+    LAUNCHES["batched_local_matvec" if f32
+             else "batched_local_matvec_f64"] += 1
     return y

@@ -41,6 +41,13 @@ from navier_stokes_tpu_torch.ops.local_mv import batched_local_matvec
 
 NE, NB, TILE = 37, 14, 16  # deliberately non-multiple ne, as test_pallas_mv
 STILE = 8  # split-k tile: 5 tiles, which neither k = 2 nor k = 3 divides
+# The edges of kernel 7's CTA stretches (32 rows of every sub-table; the
+# same shapes as chip_smoke.EDGE_SPLITK), (nblk, m, k, tile): stretches
+# that cross a tile boundary (tile * m not a multiple of 32), rows * k not a
+# multiple of 4 floats, real rows that end mid-stretch, and at k = 8
+# sub-tables of zero pad only.
+EDGE_SPLITK = [(37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
+               (45, 54, 4, 3), (5, 3, 7, 2)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -152,15 +159,15 @@ def test_block_mv_comp_cancellation_matches_pallas():
     assert err_plain > 1e3 * float((np.abs(got - want) / scale).max())
 
 
-def _jax_splitk(A, k):
+def _jax_splitk(A, k, tile=STILE):
     """The JAX split-k operands of a table: _pack_splitk of pack_tiles."""
-    subs, ng = _pack_splitk(pack_tiles(A, STILE), k)
-    return subs, ng * k * STILE
+    subs, ng = _pack_splitk(pack_tiles(A, tile), k)
+    return subs, ng * k * tile
 
 
 def _soa(x, npad):
     out = np.zeros((x.shape[1], npad), x.dtype)
-    out[:, :NE] = x.T
+    out[:, :x.shape[0]] = x.T
     return jnp.asarray(out)
 
 
@@ -228,6 +235,40 @@ def test_block_mv_comp_splitk_matches_pallas_and_unsplit(k):
         *[jnp.asarray(a) for a in hs + ls], interpret=True)
     jax_got = (np.asarray(jh, np.float64)
                + np.asarray(jl, np.float64))[:, :NE].T
+    _assert_within(got, jax_got, scale, 1e-12)
+    rh, rl = bm.block_mv_comp(ah, al, x_hi, x_lo)
+    assert torch.equal(yh, rh) and torch.equal(yl, rl)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("nblk,m,kk,tile", EDGE_SPLITK)
+def test_block_mv_comp_splitk_edges_match_pallas(nblk, m, kk, tile, k):
+    """Kernel 7 at the edges of its CTA stretches: the JAX split-k launcher
+    in interpret mode against the port (its plain version on the CPU), both
+    within 1e-12 of the row scale of the f64 product, and the port BITWISE
+    equal to the unsplit block_mv_comp."""
+    rng = np.random.default_rng(70 + k)
+    A64 = rng.standard_normal((nblk, m, kk))
+    x64 = rng.standard_normal((nblk, kk))
+    want = np.einsum("eij,ej->ei", A64, x64)
+    scale = _row_scale(A64, x64)
+    A_hi = A64.astype(np.float32)
+    A_lo = (A64 - A_hi.astype(np.float64)).astype(np.float32)
+    x_hi, x_lo = bm.split_f64(torch.from_numpy(x64))
+    ah, al = torch.from_numpy(A_hi), torch.from_numpy(A_lo)
+    yh, yl = bm.block_mv_comp_splitk(bm.pack_splitk(ah, k, tile),
+                                     bm.pack_splitk(al, k, tile),
+                                     x_hi, x_lo, tile)
+    assert yh.shape == yl.shape == (nblk, m)
+    got = yh.double().numpy() + yl.double().numpy()
+    _assert_within(got, want, scale, 1e-12)
+    hs, npad = _jax_splitk(A_hi, k, tile)
+    ls, _ = _jax_splitk(A_lo, k, tile)
+    jh, jl = _call_mv_comp_splitk(
+        k, _soa(x_hi.numpy(), npad), _soa(x_lo.numpy(), npad),
+        *[jnp.asarray(a) for a in hs + ls], interpret=True)
+    jax_got = (np.asarray(jh, np.float64)
+               + np.asarray(jl, np.float64))[:, :nblk].T
     _assert_within(got, jax_got, scale, 1e-12)
     rh, rl = bm.block_mv_comp(ah, al, x_hi, x_lo)
     assert torch.equal(yh, rh) and torch.equal(yl, rl)
@@ -339,6 +380,7 @@ def test_cpu_tensors_launch_no_kernel():
     bm.block_mv_comp_splitk(subs, subs, x, x, 2)
     bm.block_mv_ds(A, A, x, x)
     batched_local_matvec(A, x)
+    batched_local_matvec(A.double(), x.double())
     stream_mv.block_mv_rows(A, x, 4)
     stream_mv.block_mv_mega(A, x, 2, 2)
     stream_mv.block_mv_ring(A, x, 2, 2)
@@ -347,7 +389,8 @@ def test_cpu_tensors_launch_no_kernel():
     assert set(bm.LAUNCHES) == {
         "block_mv", "block_mv2", "block_mv_comp", "block_mv_splitk",
         "block_mv2_splitk", "block_mv_comp_splitk", "block_mv_ds",
-        "batched_local_matvec", "block_mv_rows", "block_mv_mega",
+        "batched_local_matvec", "batched_local_matvec_f64", "block_mv_rows",
+        "block_mv_mega",
         "block_mv_ring", "block_mv_soa"}
     assert all(v == 0 for v in bm.LAUNCHES.values())
 
@@ -400,10 +443,11 @@ def test_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
 def test_splitk_kernels_match_plain_on_card(k):
     """On the card: each split-k kernel against its plain version, and
-    bitwise against its unsplit kernel on the same table."""
+    bitwise against its unsplit kernel on the same table; kernel 7 also at
+    the edges of its CTA stretches (``EDGE_SPLITK``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     dev = "cuda"
@@ -435,4 +479,17 @@ def test_splitk_kernels_match_plain_on_card(k):
     assert torch.equal(yh, rh) and torch.equal(yl, rl)
     uh, ul = bm.block_mv_comp(hi, lo, xh, xl)
     assert torch.equal(yh, uh) and torch.equal(yl, ul)
+    for nblk, m, kk, tile in EDGE_SPLITK:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        x64 = torch.randn((nblk, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+        yh, yl = bm.block_mv_comp_splitk(hs, ls, xh, xl, tile)
+        rh, rl = bm.block_mv_comp_splitk_plain(hs, ls, xh, xl, tile)
+        assert torch.equal(yh, rh) and torch.equal(yl, rl)
+        uh, ul = bm.block_mv_comp(hi, lo, xh, xl)
+        assert torch.equal(yh, uh) and torch.equal(yl, ul)
     torch.cuda.synchronize()

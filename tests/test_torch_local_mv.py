@@ -34,6 +34,14 @@ from navier_stokes_tpu_torch.ops.local_mv import (
 
 NE, NB, TILE = 37, 14, 16  # tests/test_pallas_mv.py's shapes
 TOL = {"float32": 2e-6, "float64": 1e-13}
+# The edges of kernel 8's CTA stretches (64 rows each; the same shapes as
+# chip_smoke.EDGE_LOCAL), (ne, nb, offset in elements of a contiguous view
+# into its allocation: 0, 4, 8 or 12 bytes past a 16-byte boundary):
+# ragged last stretches, rows * nb not a multiple of 4 floats or 2
+# doubles, 4 x 4 and 1 x 1 blocks (many elements per CTA), one element.
+EDGE_LOCAL = [(700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
+              (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
+              (3001, 4, 2), (5, 130, 3), (1, 1, 1)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,6 +76,31 @@ def test_batched_local_matvec_matches_jax_kernel(ne, nb, dtype):
         assert got.dtype == getattr(torch, dtype) and got.shape == (ne, nb)
         err = np.abs(got.numpy().astype(np.float64) - want)
         assert (err / _row_scale(A, u)).max() <= TOL[dtype]
+
+
+def _offset_view(flat, off, *shape):
+    """A contiguous tensor view of ``flat`` starting ``off`` elements in."""
+    return torch.from_numpy(flat)[off:].view(*shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ne,nb,off", EDGE_LOCAL)
+def test_batched_local_matvec_edges_match_jax_kernel(ne, nb, off, dtype):
+    """Kernel 8 at the edges of its CTA stretches: the JAX kernel in
+    interpret mode against the port (its plain version on the CPU) on
+    views that start ``off`` elements into their allocation."""
+    rng = np.random.default_rng(ne + nb + off)
+    fa = rng.standard_normal(off + ne * nb * nb).astype(dtype)
+    fu = rng.standard_normal(off + ne * nb).astype(dtype)
+    A, u = _offset_view(fa, off, ne, nb, nb), _offset_view(fu, off, ne, nb)
+    assert A.is_contiguous() and A.storage_offset() == off
+    want = np.asarray(jax_batched_local_matvec(
+        jnp.asarray(A.numpy()), jnp.asarray(u.numpy()), interpret=True))
+    got = batched_local_matvec(A, u)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (ne, nb)
+    err = np.abs(got.numpy().astype(np.float64) - want)
+    assert (err / _row_scale(A.numpy(), u.numpy()).clip(1e-300)).max() \
+        <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -165,22 +198,30 @@ def test_block_mv_ds_rejects_bad_inputs():
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_batched_local_matvec_kernel_matches_plain_on_card(dtype):
     """On the card: the kernel against its plain version at the transient
-    step's block sizes (54 x 54 element blocks, 4 x 4 pressure blocks) and
-    at sizes that leave a ragged last tile."""
+    step's block sizes (54 x 54 element blocks, 4 x 4 pressure blocks), at
+    sizes that leave a ragged last tile, and at the edges of its CTA
+    stretches (``EDGE_LOCAL``, views at 4-, 8- and 12-byte offsets)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bm.reset_launches()
-    for ne, nb in ((700, 54), (3001, 4), (77, 12), (1, 1), (5, 130)):
-        A = torch.randn((ne, nb, nb), generator=gen, device="cuda", dtype=dt)
-        u = torch.randn((ne, nb), generator=gen, device="cuda", dtype=dt)
+    shapes = [(ne, nb, 0) for ne, nb in ((700, 54), (3001, 4), (77, 12),
+                                         (1, 1), (5, 130))] + EDGE_LOCAL
+    for ne, nb, off in shapes:
+        fa = torch.randn(off + ne * nb * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        fu = torch.randn(off + ne * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        A, u = fa[off:].view(ne, nb, nb), fu[off:].view(ne, nb)
         y = batched_local_matvec(A, u)
         scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
         d = (y - batched_local_matvec_plain(A, u)).abs().double()
         assert float((d / scale).max()) <= TOL[dtype]
     torch.cuda.synchronize()
-    assert bm.LAUNCHES["batched_local_matvec"] == 5
+    key = ("batched_local_matvec" if dtype == "float32"
+           else "batched_local_matvec_f64")
+    assert bm.LAUNCHES[key] == len(shapes)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,254 @@
+#!/usr/bin/env python3
+"""Sweep of the launch constants of the redesigned kernels 7
+(``block_mv_comp_splitk``) and 8 (``batched_local_matvec``) on the card,
+with an earlier design beside them in the same call.
+
+* Kernel 7, rows per sub-table ``kCompSplitRows`` of ``csrc/block_mv.cu``
+  in {16, 32, 64}, at k = 2 and 4, on random hi/lo pairs of the shapes of
+  the flagship's A_ds (7740 x 54 x 54, tile 256), B_ds (7740 x 4 x 54, tile
+  128) and BT_ds (7740 x 54 x 4, tile 128) at maxh=0.09.  Each variant must
+  be BITWISE equal to the unchanged ``block_mv_comp`` (kernel 4), which is
+  timed beside it, as is the f64 ``torch.bmm`` of hi + lo (the yardstick of
+  ``chip_smoke.py``).
+* Kernel 8, rows per CTA ``kRows`` of ``csrc/local_mv.cu`` in {32, 64,
+  128}, in float and double, on random tables of the shapes of the
+  transient step's M_loc and A_cond (7740 x 54 x 54) and S_inv (7740 x 4 x
+  4).  Each variant must stay within 2e-6 (f32) or 1e-13 (f64) of
+  sum_j |a_ij u_j| of the plain version; ``torch.bmm`` is timed beside it.
+
+Each variant is the package's ``csrc/`` copied under ``build/sweep/`` with
+that one constant rewritten, compiled with the package's nvcc flags (all
+nvcc processes at once), and called through the package's own wrappers,
+whose library is swapped for the variant's.  With ``--parent DIR`` the
+``csrc/`` of another tree (an earlier commit unpacked with ``git archive``)
+is built and timed too.  Times are medians of 25 calls with the L2 flushed
+(``utils.timers.Timer``), taken in the order parent, variants, variants,
+parent; both passes are printed.  The last lines are the card's name and
+power limit and a JSON object of every time; ``--out`` also writes it to a
+file.
+
+Run from the repository root, on the card::
+
+    python3 tools/sweep_redesign.py [--parent build/parent] [--out FILE]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from navier_stokes_tpu_torch.ops import block_mv as bm  # noqa: E402
+from navier_stokes_tpu_torch.ops import local_mv as lm  # noqa: E402
+from navier_stokes_tpu_torch.utils.timers import Timer  # noqa: E402
+
+CSRC = ROOT / "navier_stokes_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "sweep"
+NBLK, NB, NQ = 7740, 54, 4  # maxh=0.09: elements, velocity / pressure dofs
+COMP_TABLES = (("A_ds", NB, NB, 256), ("B_ds", NQ, NB, 128),
+               ("BT_ds", NB, NQ, 128))
+LOCAL_TABLES = (("M_loc", NB), ("A_cond", NB), ("S_inv", NQ))
+COMP_ROWS = (16, 32, 64)  # kCompSplitRows
+SPLITS = (2, 4)
+LOCAL_ROWS = (32, 64, 128)  # kRows
+TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def variant(name: str, const: str, value: int) -> Path:
+    """``csrc/<name>.cu`` with ``constexpr int <const> = <value>;``, in a
+    copy of ``csrc/`` of its own; returns the source's path."""
+    dst = OUT / f"{name}_{const}_{value}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(CSRC, dst)
+    src = dst / f"{name}.cu"
+    text, n = re.subn(rf"(constexpr int {const} = )\d+;", rf"\g<1>{value};",
+                      src.read_text())
+    if n != 1:
+        raise RuntimeError(f"{const} is defined {n} times in {name}.cu")
+    src.write_text(text)
+    return src
+
+
+def compile_all(jobs: dict) -> dict:
+    """{key: library path} for {key: source path}, all nvcc at once."""
+    def one(src):
+        out = src.parent / f"lib{src.stem}.so"
+        proc = subprocess.run([bm._nvcc(), *bm._NVCC_FLAGS, "-o", str(out),
+                               str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        return out
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {key: pool.submit(one, src) for key, src in jobs.items()}
+        return {key: fut.result() for key, fut in futs.items()}
+
+
+def warm_up(seconds=1.0):
+    """Products on the card for about ``seconds``, so that the first
+    timings do not run at idle clocks."""
+    a = torch.randn((4096, 4096), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+
+
+def sweep_comp(timer, libs, rng, times):
+    """Kernel 7: every variant on every table at every k, bitwise against
+    kernel 4 of the package's own build; the parent (if any) first and
+    last."""
+    names = list(libs)
+    order = names + names[::-1]
+    main = bm.load_library()
+    for tname, m, kk, tile in COMP_TABLES:
+        A64 = torch.as_tensor(rng.standard_normal((NBLK, m, kk)),
+                              device="cuda")
+        x64 = torch.as_tensor(rng.standard_normal((NBLK, kk)), device="cuda")
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        bm._lib = main
+        ref = bm.block_mv_comp(hi, lo, xh, xl)
+        xb = x64[:, :, None]
+        t4 = timer(lambda: bm.block_mv_comp(hi, lo, xh, xl))
+        tb = timer(lambda: torch.bmm(A64, xb))
+        times["comp"].append({"table": tname, "kernel": "block_mv_comp",
+                              "ms": [t4]})
+        times["comp"].append({"table": tname, "kernel": "f64 bmm",
+                              "ms": [tb]})
+        nbytes = 4 * (2 * hi.numel() + 4 * xh.numel())
+        bound = nbytes / 3.35e12 * 1e3
+        print(f"[comp] {tname} {tuple(hi.shape)}: block_mv_comp {t4:.4f} ms, "
+              f"f64 bmm {tb:.4f}, bound {bound:.4f}", flush=True)
+        for k in SPLITS:
+            his, los = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            ms = {}
+            for key in order:
+                bm._lib = libs[key]
+                got = bm.block_mv_comp_splitk(his, los, xh, xl, tile)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise RuntimeError(f"kernel 7 {key} {tname} k={k}: not "
+                                       "bitwise equal to block_mv_comp")
+                ms.setdefault(key, []).append(timer(
+                    lambda: bm.block_mv_comp_splitk(his, los, xh, xl, tile)))
+            for key in names:
+                times["comp"].append({"table": tname, "k": k, "kernel": key,
+                                      "ms": ms[key]})
+                print(f"  k={k} {key:10s} "
+                      + " / ".join(f"{t:.4f}" for t in ms[key])
+                      + f" ms ({min(ms[key]) / tb:.3f} x f64 bmm, "
+                      f"{bound / min(ms[key]):.3f} of bound), bitwise = "
+                      "block_mv_comp", flush=True)
+            del his, los
+    bm._lib = main
+
+
+def sweep_local(timer, libs, rng, times):
+    """Kernel 8: every variant on every table in both types."""
+    names = list(libs)
+    order = names + names[::-1]
+    for dt in (torch.float32, torch.float64):
+        for tname, nb in LOCAL_TABLES:
+            A = torch.as_tensor(rng.standard_normal((NBLK, nb, nb)),
+                                device="cuda").to(dt)
+            u = torch.as_tensor(rng.standard_normal((NBLK, nb)),
+                                device="cuda").to(dt)
+            want = lm.batched_local_matvec_plain(A, u)
+            scale = torch.einsum("eij,ej->ei", A.double().abs(),
+                                 u.double().abs()).clamp_min(1e-300)
+            ub = u[:, :, None]
+            tb = timer(lambda: torch.bmm(A, ub))
+            nbytes = A.element_size() * (A.numel() + 2 * u.numel())
+            bound = nbytes / 3.35e12 * 1e3
+            times["local"].append({"dtype": str(dt)[6:], "table": tname,
+                                   "kernel": "bmm", "ms": [tb]})
+            print(f"[local] {str(dt)[6:]} {tname} {tuple(A.shape)}: bmm "
+                  f"{tb:.4f} ms, bound {bound:.4f}", flush=True)
+            ms = {}
+            for key in order:
+                lm._lib = libs[key]
+                y = lm.batched_local_matvec(A, u)
+                torch.cuda.synchronize()
+                worst = float(((y - want).abs().double() / scale).max())
+                if not worst <= TOL[dt]:
+                    raise RuntimeError(f"kernel 8 {key} {tname} {dt}: "
+                                       f"{worst:.2e} > {TOL[dt]:.0e}")
+                ms.setdefault(key, []).append(timer(
+                    lambda: lm.batched_local_matvec(A, u)))
+            for key in names:
+                times["local"].append({"dtype": str(dt)[6:], "table": tname,
+                                       "kernel": key, "ms": ms[key]})
+                print(f"  {key:10s} "
+                      + " / ".join(f"{t:.4f}" for t in ms[key])
+                      + f" ms ({min(ms[key]) / tb:.3f} x bmm, "
+                      f"{bound / min(ms[key]):.3f} of bound)", flush=True)
+    lm._lib = None
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="another tree whose csrc/ is timed "
+                    "beside the variants")
+    ap.add_argument("--out", help="also write the JSON object here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("sweep_redesign: no CUDA device available", file=sys.stderr)
+        return 2
+    jobs = {("comp", f"R={r}"): variant("block_mv", "kCompSplitRows", r)
+            for r in COMP_ROWS}
+    jobs.update({("local", f"R={r}"): variant("local_mv", "kRows", r)
+                 for r in LOCAL_ROWS})
+    if args.parent:
+        csrc = Path(args.parent).resolve() / "navier_stokes_tpu_torch" / "csrc"
+        for kind, name in (("comp", "block_mv"), ("local", "local_mv")):
+            dst = OUT / f"parent_{name}"
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(csrc, dst)
+            jobs[(kind, "parent")] = dst / f"{name}.cu"
+    paths = compile_all(jobs)
+    print(f"[build] {len(jobs)} libraries", flush=True)
+    libs = {"comp": {}, "local": {}}
+    binders = {"comp": bm._bind, "local": lm._bind}
+    for (kind, key) in sorted(jobs, key=lambda j: j[1] != "parent"):
+        libs[kind][key] = binders[kind](paths[(kind, key)])
+    timer = Timer()
+    warm_up()
+    rng = np.random.default_rng(0)
+    times = {"comp": [], "local": []}
+    sweep_comp(timer, libs["comp"], rng, times)
+    sweep_local(timer, libs["local"], rng, times)
+    card = card_line()
+    times["card"] = card
+    print(card, flush=True)
+    line = json.dumps(times)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
