@@ -107,8 +107,11 @@ PALLAS = "navier_stokes_tpu/ops/pallas_mv.py"
 PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
 # kernels already redesigned for this card, and how
 REDESIGNED = {"block_mv_comp_splitk": "bulk copies, x in shared memory",
+              "block_mv_comp": "kernel 7 at one sub-table",
               "batched_local_matvec": "bulk copy per CTA",
-              "batched_local_matvec_f64": "bulk copy per CTA"}
+              "batched_local_matvec_f64": "bulk copy per CTA",
+              "block_mv_ring": "producer warp, consumer groups, full and "
+                               "empty mbarriers"}
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # the edges of kernel 7's and kernel 8's CTA stretches, as the card tests
 # (nblk, m, k, tile): stretches across tile boundaries, rows * k not a
@@ -1120,7 +1123,7 @@ def run():
     from navier_stokes_tpu_torch.ops import block_mv as bm
     from navier_stokes_tpu_torch.ops import local_mv as lm
     from navier_stokes_tpu_torch.ops import stream_mv as sm
-    from navier_stokes_tpu_torch.utils.timers import Timer
+    from navier_stokes_tpu_torch.utils.timers import KernelTimer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1206,7 +1209,7 @@ def run():
     check(m32.n == m.n and m32.Q.ndof == m.Q.ndof, "the twin differs in size")
 
     # 3. kernel checks on the main path's tables (and slice 1's)
-    timer = Timer()
+    timer = KernelTimer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     reports = {

@@ -28,10 +28,13 @@
 //   2. it copies the x rows of the blocks those rows belong to;
 //   3. each thread computes one output row from shared memory, in column
 //      order, and writes it (coalesced).
-// Accumulation is f32.  Kernels 1-6 keep this first design; kernel 7 now
-// brings its stretches on chip by bulk asynchronous copies (split-k
-// section below), and the table-stream study (stream_mv.cu) measured the
-// same for a plain f32 stream.
+// Accumulation is f32.  Kernels 1-3, 5 and 6 keep this first design.
+// Kernels 4 and 7, the compensated product unsplit and split-k, are one
+// kernel since kernel 4 was redesigned (split-k section below): each CTA's
+// table stretches reach shared memory by bulk asynchronous copies
+// (bulk_copy.cuh), x is staged beside them, and kernel 4 is that kernel at
+// one sub-table.  The table-stream study (stream_mv.cu) measured the same
+// for a plain f32 stream.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
@@ -39,6 +42,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -51,11 +55,17 @@ constexpr int kMaxThreads = 256;
 constexpr int kSmemBudget = 48 * 1024;  // dynamic shared memory, no opt-in
 constexpr int kSmemOptIn = 232448;      // 227 KB per CTA after opt-in
 constexpr int kHeader = 128;            // the mbarrier ahead of the stretches
-// rows per sub-table of one kernel-7 CTA (tools/sweep_redesign.py)
+// rows per CTA of kernel 4 (one sub-table) and per sub-table of one kernel-7
+// CTA (tools/sweep_redesign.py)
+constexpr int kCompRows = 64;
 constexpr int kCompSplitRows = 32;
-static_assert(kCompSplitRows >= 4 && kCompSplitRows % 4 == 0,
-              "kernel 7's stretches start on 16-byte boundaries");
-constexpr int kXLoads = 4;  // x loads in flight per thread (kernel 7)
+static_assert(kCompRows % 4 == 0 && kCompSplitRows % 4 == 0,
+              "the compensated kernel's stretches start on 16-byte "
+              "boundaries");
+constexpr int comp_rows(int ns) {
+  return ns == 1 ? kCompRows : kCompSplitRows;
+}
+constexpr int kXLoads = 4;  // x loads in flight per thread (kernels 4, 7)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -227,65 +237,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Compensated double-single product: (y_hi, y_lo) with
-// y_hi + y_lo ~ (A_hi + A_lo)(x_hi + x_lo) to ~2^-45 of sum_j |a_ij x_j|.
-// The dominant products a_hi * x_hi are split exactly (two_prod through one
-// fused multiply-add) and summed with two_sum error capture, column by
-// column as in the Pallas kernel.  Every add, subtract and multiply is an
-// explicitly rounded intrinsic, so nvcc cannot contract any of them into an
-// FMA, which would silently drop the error terms (the failure the reference
-// hit on its interpret path, pallas_mv.py:146-154,191-200).  Build without
-// --use_fast_math.
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv_comp_kernel(const float* __restrict__ a_hi,
-                         const float* __restrict__ a_lo,
-                         const float* __restrict__ x_hi,
-                         const float* __restrict__ x_lo,
-                         float* __restrict__ y_hi, float* __restrict__ y_lo,
-                         long long nrows_all, int m, int k, int ks, int R) {
-  extern __shared__ float smem[];
-  const Tile t = tile_of(nrows_all, R, m, k);
-  float* th = smem;
-  float* tl = smem + R * ks;
-  float* xh = smem + 2 * R * ks;
-  float* xl = xh + t.nx;
-  stage_rows(a_hi + t.r0 * k, t.nrows * k, k, ks, th);
-  stage_rows(a_lo + t.r0 * k, t.nrows * k, k, ks, tl);
-  stage_x(x_hi + t.b0 * k, t.nx, xh);
-  stage_x(x_lo + t.b0 * k, t.nx, xl);
-  __syncthreads();
-  for (int rr = threadIdx.x; rr < t.nrows; rr += blockDim.x) {
-    const long long r = t.r0 + rr;
-    const float* hr = th + rr * ks;
-    const float* lr = tl + rr * ks;
-    const long long xo = (r / m - t.b0) * k;
-    float s = 0.0f, sl = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      const float ah = hr[j], al = lr[j];
-      const float xhj = xh[xo + j], xlj = xl[xo + j];
-      // two_prod: p + err == ah * xhj exactly
-      const float p = __fmul_rn(ah, xhj);
-      const float err = __fmaf_rn(ah, xhj, -p);
-      const float small =
-          __fadd_rn(__fadd_rn(__fmul_rn(ah, xlj), __fmul_rn(al, xhj)), err);
-      // two_sum(s, p)
-      const float tt = __fadd_rn(s, p);
-      const float bb = __fsub_rn(tt, s);
-      const float e =
-          __fadd_rn(__fsub_rn(s, __fsub_rn(tt, bb)), __fsub_rn(p, bb));
-      s = tt;
-      sl = __fadd_rn(sl, __fadd_rn(e, small));
-    }
-    y_hi[r] = s;
-    y_lo[r] = sl;
-  }
-}
-
 // -- split-k variants ---------------------------------------------------------
 //
 //   nstt_block_mv_splitk_{f32,bf16}  <- _mv_kernel_splitk      (:305)
 //   nstt_block_mv2_splitk_f32        <- _mv2_kernel_splitk     (:358)
 //   nstt_block_mv_comp_splitk_f32    <- _mv_comp_kernel_splitk (:397)
+//
+// and, as the compensated kernel at ONE sub-table,
+//
+//   nstt_block_mv_comp_f32           <- _mv_comp_kernel        (:166)
 //
 // The table arrives as ns <= kMaxSplit consecutive-tile sub-tables (global
 // tile i*ns+j is tile i of sub-table j; the wrapper zero-pads the block count
@@ -306,21 +266,23 @@ __global__ void __launch_bounds__(kMaxThreads)
 //     CTA (the TPU kernel instead keeps ns block DMAs in flight per
 //     sequential grid step); x is read straight from global memory
 //     (L2-resident, a few MB);
-//   kernel 7 (redesigned): one thread starts 2*ns 1-D bulk
-//     asynchronous copies (bulk_copy.cuh), one per (table, sub-table)
-//     stretch, all onto one mbarrier, and every thread stages the x_hi and
-//     x_lo of the blocks the stretches touch beside them, kXLoads loads in
-//     flight per thread; the rows land at stride k (a 2-way bank conflict
-//     at k = 54, accepted).  No thread spends registers or instructions on
-//     the table bytes, and the CTA is small (R = 32 rows per sub-table:
-//     27.6 KB at k = 2 on 54-wide rows), so that many CTAs per SM overlap
-//     one's copies with another's arithmetic.  What bounds it: 2 x 4 x k
-//     bytes of shared memory per (row, sub-table) cap the rows resident per
-//     SM at about 530 -- one thread per row, as bitwise equality with
-//     kernel 4 demands, so about 16 warps per SM to hide the 54 dependent
-//     steps of each chain -- and on the 4-row blocks of B the x of a
-//     stretch, a sixth of its table bytes, whose latency the extra threads
-//     of plan_comp_splitk hide.
+//   kernels 7 and 4 (redesigned; kernel 4 is kernel 7 at ns = 1, where
+//     the one sub-table is the table, one tile long, and every row is
+//     real): one thread starts 2*ns 1-D bulk asynchronous copies
+//     (bulk_copy.cuh), one per (table, sub-table) stretch, all onto one
+//     mbarrier, and every thread stages the x_hi and x_lo of the blocks the
+//     stretches touch beside them, kXLoads loads in flight per thread; the
+//     rows land at stride k (a 2-way bank conflict at k = 54, accepted).
+//     No thread spends registers or instructions on the table bytes, and
+//     the CTA is small (kCompSplitRows = 32 rows per sub-table: 27.6 KB at
+//     k = 2 on 54-wide rows; kCompRows rows at ns = 1), so that many CTAs
+//     per SM overlap one's copies with another's arithmetic.  What bounds
+//     it: 2 x 4 x k bytes of shared memory per (row, sub-table) cap the
+//     rows resident per SM at about 530 -- one thread per row, as bitwise
+//     equality between the two demands, so about 16 warps per SM to hide
+//     the 54 dependent steps of each chain -- and on the 4-row blocks of B
+//     the x of a stretch, a sixth of its table bytes, whose latency the
+//     extra threads of plan_comp_splitk hide.
 //     Sweep of kCompSplitRows (tools/sweep_redesign.py, random tables of
 //     the shapes of A_ds, B_ds and BT_ds at maxh=0.09, summed; NVIDIA H100
 //     80GB HBM3, 700 W): R = 16 / 32 / 64 took 0.1161 / 0.1109 / 0.1125 ms
@@ -328,6 +290,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 //     earlier design (kernel 5's copy loop into odd-stride tiles, x read
 //     from global memory) 0.1887 and 0.1800, the f64 torch.bmm of hi + lo
 //     0.1430, the byte bound 0.0660.  Fixed: R = 32, the best at k = 2.
+//     Sweep of kCompRows (kernel 4, the same tables and card): R = 32 /
+//     64 / 128 took 0.1096 / 0.1086 / 0.1098 ms; in the same call the
+//     earlier kernel 4 (one thread per row after a copy loop into
+//     odd-stride tiles, 48 KB CTAs) 0.1873, the f64 torch.bmm 0.1437.
+//     Fixed: R = 64.  Kernel 4 is bitwise equal to the earlier one.
 
 constexpr int kMaxSplit = 8;
 
@@ -487,11 +454,21 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Kernel 7's CTA: the same stretch of R sub-table rows [r0, r0 + R) of
-// every sub-table of both tables, R = kCompSplitRows (fewer only where k-wide
-// rows would not fit).  Shared memory: the mbarrier; the 2*NS stretches as
-// the bulk copies land them (rows at stride k, table hi then lo, sub-table j
-// at j*R*k floats); x_hi and x_lo of the xb = (R-1)/m + 2 sub-table blocks a
+// The compensated double-single product (kernel 7; at NS = 1 kernel 4):
+// (y_hi, y_lo) with y_hi + y_lo ~ (A_hi + A_lo)(x_hi + x_lo) to ~2^-45 of
+// sum_j |a_ij x_j|.  The dominant products a_hi * x_hi are split exactly
+// (two_prod through one fused multiply-add) and summed with two_sum error
+// capture, column by column as in the Pallas kernel.  Every add, subtract
+// and multiply is an explicitly rounded intrinsic, so nvcc cannot contract
+// any of them into an FMA, which would silently drop the error terms (the
+// failure the reference hit on its interpret path, pallas_mv.py:146-154,
+// 191-200).  Build without --use_fast_math.
+//
+// A CTA takes the same stretch of R sub-table rows [r0, r0 + R) of every
+// sub-table of both tables, R = comp_rows(NS) (fewer only where k-wide rows
+// would not fit).  Shared memory: the mbarrier; the 2*NS stretches as the
+// bulk copies land them (rows at stride k, table hi then lo, sub-table j at
+// j*R*k floats); x_hi and x_lo of the xb = (R-1)/m + 2 sub-table blocks a
 // stretch can touch (sub-table j at j*xb*k floats).
 template <int NS>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -593,7 +570,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float* hr = th + (j * R + rr) * k;
     const float* lr = tl + (j * R + rr) * k;
     const int xo = (j * xb + static_cast<int>((t.r0 + rr) / m - sb0)) * k;
-    // block_mv_comp_kernel's recurrence, operation for operation
+    // two_prod, then two_sum(s, p), the small terms summed beside
     float s = 0.0f, sl = 0.0f;
     for (int c = 0; c < k; ++c) {
       const float ah = hr[c], al = lr[c];
@@ -637,14 +614,15 @@ Launch plan_splitk(long long nsub_rows, int ks, int ntab, int ns) {
   return L;
 }
 
-// Kernel 7: kCompSplitRows rows per sub-table, or the largest multiple of
-// 4 below it whose 2*ns stretches and x stages fit opt-in shared memory.
+// Kernels 4 and 7: comp_rows(ns) rows per sub-table, or the largest
+// multiple of 4 below it whose 2*ns stretches and x stages fit opt-in
+// shared memory.
 // Threads: one per (sub-table, row), or as many as issue every x load of a
 // stretch in one round of kXLoads, whichever is more (at most kMaxThreads):
 // 64 on 54 x 54 blocks at k = 2, 256 on the 4 x 54 blocks of B.
 Launch plan_comp_splitk(long long nsub_rows, int m, int k, int ns) {
   Launch L;
-  for (int R = kCompSplitRows; R >= 4; R -= 4) {
+  for (int R = comp_rows(ns); R >= 4; R -= 4) {
     const long long xb = (R - 1) / m + 2;
     const long long bytes = kHeader + 4LL * 2 * ns * (R + xb) * k;
     if (bytes <= kSmemOptIn) {
@@ -735,6 +713,12 @@ Launch plan(long long nrows_all, int m, int k, int ks, int ntab, int nxv) {
   return L;
 }
 
+__global__ void spin_kernel(long long cycles) {
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {
+  }
+}
+
 inline bool bad_shape(long long nblk, int m, int k) {
   return nblk < 0 || m <= 0 || k <= 0;
 }
@@ -800,22 +784,6 @@ int nstt_block_mv_ds_f32(const float* a_hi, const float* a_lo,
   block_mv_ds_kernel<<<L.grid, L.threads, L.smem,
                        static_cast<cudaStream_t>(stream)>>>(
       a_hi, a_lo, x_hi, x_lo, y_hh, y_hl, y_lh, nrows, m, k, ks, L.R);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int nstt_block_mv_comp_f32(const float* a_hi, const float* a_lo,
-                           const float* x_hi, const float* x_lo, float* y_hi,
-                           float* y_lo, long long nblk, int m, int k,
-                           void* stream) {
-  if (bad_shape(nblk, m, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nrows = nblk * m;
-  if (nrows == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan(nrows, m, k, ks, 2, 2);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_comp_kernel<<<L.grid, L.threads, L.smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      a_hi, a_lo, x_hi, x_lo, y_hi, y_lo, nrows, m, k, ks, L.R);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -902,6 +870,33 @@ int nstt_block_mv_comp_splitk_f32(const void* const* his,
             nsub * m, nblk, m, k, L.R, (L.R - 1) / m + 2, tile);
   });
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 4: the compensated kernel at one sub-table, the table itself (one
+// tile of nblk blocks, every row real).  Both tables 16-byte aligned: the
+// bulk copies start there.
+int nstt_block_mv_comp_f32(const float* a_hi, const float* a_lo,
+                           const float* x_hi, const float* x_lo, float* y_hi,
+                           float* y_lo, long long nblk, int m, int k,
+                           void* stream) {
+  if (bad_shape(nblk, m, k) || nblk > INT_MAX ||
+      reinterpret_cast<uintptr_t>(a_hi) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a_lo) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const void* his[1] = {a_hi};
+  const void* los[1] = {a_lo};
+  return nstt_block_mv_comp_splitk_f32(his, los, 1, x_hi, x_lo, y_hi, y_lo,
+                                       nblk, m, k, nblk,
+                                       static_cast<int>(nblk), stream);
+}
+
+// One thread spinning on the SM clock for `cycles` cycles: work that keeps
+// the stream busy while the host prepares a timed call
+// (utils/timers.KernelTimer).
+int nstt_spin(long long cycles, void* stream) {
+  spin_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,12 +35,35 @@
 //          k (a 2-way bank conflict for k = 54 with one thread per row).
 //          The x of the touched blocks is staged by all threads with plain
 //          loads, in flight beside the bulk copy.
-//   ring   a persistent grid (a few CTAs per SM) walks the tiles with a
-//          ring of nbuf shared-memory stages, one mbarrier per stage, each
-//          stage filled by one bulk asynchronous copy: the copy of tile
-//          i + nbuf is started as soon as every thread has finished tile i
-//          (a __syncthreads), so copies and arithmetic overlap inside the
-//          CTA.
+//   ring   a producer/consumer ring (redesigned): a persistent grid, as many
+//          CTAs per SM as fit, each walking its tiles through nbuf
+//          shared-memory stages.  One producer warp, whose one lane keeps
+//          up to nbuf stages in flight: each stage is one bulk copy of the
+//          table stretch and one of the aligned middle of its x (the at
+//          most 3 + 3 ragged x floats, and the table's last at most 3, by
+//          4-byte cp.async whose completion is the stage's one arrival),
+//          announced on the stage's full mbarrier.  G consumer groups of one thread per row (G the largest
+//          divisor of nbuf up to nbuf / 2) take the stages in turn and
+//          arrive, one arrival per warp, on the stage's empty mbarrier when
+//          done, which is what the producer waits on before refilling it:
+//          no consumer thread waits on a global load or on a CTA-wide
+//          barrier.  What bounds it: the table bytes, if enough copies are
+//          in flight per SM and enough consumer warps keep up with them.
+//          Warps per SM at k = m = 54 (stage 14,496 bytes at 64 rows,
+//          28,528 at 128; CTAs per SM from 228 KB less 1 KB per CTA),
+//          producer + consumer: nbuf 2 / 4 / 8 at 64 rows 7 + 14 / 3 + 12
+//          / 1 + 8, at 128 rows 4 + 16 / 2 + 16 / 1 + 16 (the earlier
+//          design, one thread per row and every thread refilling x with
+//          plain loads behind a per-stage __syncthreads, had 2 to 16).
+//          Measured (tools/sweep_redesign.py, 7740 x 54 x 54; NVIDIA H100
+//          80GB HBM3, 700 W): nbuf 2 / 4 / 8 took 0.0473 / 0.0472 /
+//          0.0458 ms at 64 rows and 0.0468 / 0.0479 / 0.0482 at 128
+//          (0.58-0.61 of the 0.0279 ms bound), the earlier design in the
+//          same call 0.0524 / 0.0608 / 0.1393 and 0.0492 / 0.0544 /
+//          0.0788, torch.bmm 0.0606, mega 0.0451.  With the ragged floats
+//          by plain loads in the producer lane, nbuf 8 at 64 rows (one CTA
+//          per SM) took 0.0595: one load round trip per 14.5 KB stage
+//          held the stream; by cp.async it no longer waits.
 //   soa    one thread per element e: every load of A[i, j, e] and every
 //          store of y[i, e] is coalesced across the warp with no shared
 //          memory; the element's u stays in registers, and the rows i are
@@ -65,7 +88,6 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kSmemDefault = 48 * 1024;  // dynamic shared memory, no opt-in
 constexpr int kSmemOptIn = 232448;       // 227 KB per CTA after opt-in
-constexpr int kSmemPerSm = 233472;       // 228 KB per SM, 1 KB per CTA kept
 constexpr int kHeader = 128;             // mbarriers ahead of the stages
 constexpr int kMaxStages = 8;
 constexpr int kSoaMaxNb = 64;   // u entries one thread holds in registers
@@ -185,14 +207,14 @@ __device__ __forceinline__ void fill_stage(float* tab, float* xs,
   mbar_arrive(bar);
 }
 
-// The rows of one filled stage: one thread per row, everything from shared
-// memory.
+// The rows of one filled stage, row t, t + nt, ... for thread t of nt:
+// one thread per row, everything from shared memory.
 __device__ __forceinline__ void rows_from_stage(const float* __restrict__ tab,
                                                 const float* __restrict__ xs,
                                                 float* __restrict__ y,
-                                                const Stretch& s, int m,
-                                                int k) {
-  for (int rr = threadIdx.x; rr < s.nrows; rr += blockDim.x) {
+                                                const Stretch& s, int m, int k,
+                                                int t, int nt) {
+  for (int rr = t; rr < s.nrows; rr += nt) {
     const float* ar = tab + rr * k;
     const float* xb = xs + ((s.off0 + rr) / m) * k;
     float acc = 0.0f;
@@ -218,47 +240,133 @@ __global__ void __launch_bounds__(kMaxThreads)
   __syncthreads();
   fill_stage(tab, xs, a, x, s, k, bar);
   mbar_wait(bar, 0);
-  rows_from_stage(tab, xs, y, s, m, k);
+  rows_from_stage(tab, xs, y, s, m, k, threadIdx.x, blockDim.x);
 }
 
-// A persistent CTA walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-// of R rows each through a ring of nbuf stages.  Stage s = i % nbuf holds
-// the CTA's i-th tile; its barrier completes one phase per fill, so the fill
-// of the i-th tile is phase i / nbuf.  A stage is refilled only after the
-// __syncthreads that follows the arithmetic on it: every thread has
-// finished reading it.
-__global__ void __launch_bounds__(256)
+// The ring.  A persistent CTA walks the tiles blockIdx.x, blockIdx.x +
+// gridDim.x, ... of R rows each; its i-th tile goes through stage i % nbuf.
+// Warp 0 is the producer: its lane 0 fills the stages in order.  The other
+// warps are G consumer groups of gw warps each (G divides nbuf); group g
+// takes the tiles i = g, g + G, ..., so a stage always goes to the same
+// group, which consumes its fills in order.  Two mbarriers per stage:
+//   full[s]   one arrival (the producer's, when its 4-byte copies have
+//             landed) plus the bytes of the fill's bulk copies; the f-th
+//             fill of stage s is its phase f;
+//   empty[s]  one arrival per warp of the consuming group when it is done
+//             reading the stage; the producer waits on phase f - 1 before
+//             the f-th fill.
+// Each wait is on the phase that is next to complete or has just completed
+// (a stage is never refilled before its consumers are done, and they take
+// its fills in order), so the parity of the phase names it.
+
+// Shared memory of one ring stage, in floats: R table rows at stride k, and
+// the x of the blocks they touch with 4 floats of room to shift it (see
+// ring_fill), rounded up to 16 bytes so that every stage starts aligned.
+inline __host__ __device__ long long ring_stage_floats(int R, int m, int k) {
+  const long long xfloats = static_cast<long long>((R - 1) / m + 2) * k + 4;
+  return static_cast<long long>(R) * k + (xfloats + 3) / 4 * 4;
+}
+
+// Where x entry 0 of the stretch lies in the stage's x area: as far past
+// the area's (16-byte aligned) start as src lies past a 16-byte boundary,
+// so that the bulk copy of the aligned middle lands aligned.
+__device__ __forceinline__ int ring_x_shift(const float* src) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15) / 4;
+}
+
+// 4-byte asynchronous copy global -> shared (cp.async): the producer does
+// not wait for it.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The barrier's arrival, made when every cp.async this thread started has
+// landed (.noinc: it is one of the arrivals the barrier counts).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// Producer lane: fill one stage with stretch s -- the table stretch's whole
+// 16-byte units (src 16-byte aligned) by one bulk copy, the aligned middle
+// of its x by another, both announced on full first; the at most 3 ragged
+// table floats and the ragged head and tail of x by 4-byte cp.async; the
+// stage's one arrival when those have landed.  Nothing here waits on a
+// global load.
+__device__ __forceinline__ void ring_fill(float* tab, float* xarea,
+                                          const float* __restrict__ a,
+                                          const float* __restrict__ x,
+                                          const Stretch& s, int k,
+                                          uint64_t* full) {
+  const float* src = a + s.r0 * k;
+  const int count = s.nrows * k, whole = count & ~3;
+  const float* xsrc = x + s.b0 * k;
+  float* xs = xarea + ring_x_shift(xsrc);
+  int head = (4 - ring_x_shift(xsrc)) & 3;
+  if (head > s.nx) head = s.nx;
+  const int xwhole = (s.nx - head) & ~3;
+  const uint32_t bytes = 4u * static_cast<uint32_t>(whole + xwhole);
+  if (bytes) mbar_expect_tx(full, bytes);
+  if (whole) bulk_copy(tab, src, 4u * whole, full);
+  if (xwhole) bulk_copy(xs + head, xsrc + head, 4u * xwhole, full);
+  for (int c = whole; c < count; ++c) cp_async4(tab + c, src + c);
+  for (int e = 0; e < head; ++e) cp_async4(xs + e, xsrc + e);
+  for (int e = head + xwhole; e < s.nx; ++e) cp_async4(xs + e, xsrc + e);
+  cp_async_arrive(full);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
     block_mv_ring_kernel(const float* __restrict__ a,
                          const float* __restrict__ x, float* __restrict__ y,
                          long long nrows_all, int m, int k, int R, int nbuf,
-                         int xstage, long long ntiles) {
+                         int groups, long long ntiles) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
-  float* tabs = reinterpret_cast<float*>(smem_raw + kHeader);
-  const long long tstage = static_cast<long long>(R) * k;
-  float* xss = tabs + nbuf * tstage;  // nbuf x stages of xstage floats
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kMaxStages;
+  float* stages = reinterpret_cast<float*>(smem_raw + kHeader);
+  const long long sfl = ring_stage_floats(R, m, k);
+  const long long tfl = static_cast<long long>(R) * k;
+  const int warp = threadIdx.x / 32;
+  const int gw = (blockDim.x / 32 - 1) / groups;  // warps per group
   const long long first = blockIdx.x, step = gridDim.x;
   const long long mine = (ntiles - first + step - 1) / step;
-
-  auto fill = [&](long long i) {  // the CTA's i-th tile into stage i % nbuf
-    const int s = static_cast<int>(i % nbuf);
-    fill_stage(tabs + s * tstage, xss + s * xstage, a, x,
-               stretch_of(first + i * step, R, nrows_all, m, k), k, bars + s);
-  };
-
   if (threadIdx.x == 0) {
-    for (int s = 0; s < nbuf; ++s) mbar_init(bars + s, blockDim.x);
+    for (int s = 0; s < nbuf; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, gw);
+    }
     mbar_init_fence();
   }
   __syncthreads();
-  for (long long i = 0; i < nbuf && i < mine; ++i) fill(i);
-  for (long long i = 0; i < mine; ++i) {
+  if (warp == 0) {
+    if (threadIdx.x == 0) {
+      for (long long i = 0; i < mine; ++i) {
+        const int s = static_cast<int>(i % nbuf);
+        const long long f = i / nbuf;  // the stage's fill number
+        if (f > 0) mbar_wait(empty + s, static_cast<uint32_t>((f - 1) & 1));
+        ring_fill(stages + s * sfl, stages + s * sfl + tfl, a, x,
+                  stretch_of(first + i * step, R, nrows_all, m, k), k,
+                  full + s);
+      }
+    }
+    return;
+  }
+  const int g = (warp - 1) / gw;
+  const int t = threadIdx.x - 32 - g * gw * 32;
+  for (long long i = g; i < mine; i += groups) {
     const int s = static_cast<int>(i % nbuf);
-    mbar_wait(bars + s, static_cast<uint32_t>((i / nbuf) & 1));
-    rows_from_stage(tabs + s * tstage, xss + s * xstage, y,
-                    stretch_of(first + i * step, R, nrows_all, m, k), m, k);
-    __syncthreads();
-    if (i + nbuf < mine) fill(i + nbuf);
+    const Stretch st = stretch_of(first + i * step, R, nrows_all, m, k);
+    const float* tab = stages + s * sfl;
+    mbar_wait(full + s, static_cast<uint32_t>((i / nbuf) & 1));
+    rows_from_stage(tab, tab + tfl + ring_x_shift(x + st.b0 * k), y, st, m,
+                    k, t, gw * 32);
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
   }
 }
 
@@ -377,9 +485,12 @@ int nstt_block_mv_mega_f32(const float* a, const float* x, float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows: the rows of one stage (rows * k a multiple of 4, a 16-byte aligned);
-// nbuf stages per CTA; as many CTAs per SM as fit, at most 4, and no more
-// CTAs than tiles.
+// rows: the rows of one stage (rows * k a multiple of 4, a 16-byte
+// aligned); nbuf stages per CTA.  The consumer groups: the largest divisor
+// of nbuf up to nbuf / 2 (at least 1), each of round32(rows) threads, fewer
+// where the CTA would pass kMaxThreads (a thread then takes several rows).
+// As many persistent CTAs per SM as shared memory, threads and registers
+// allow, and no more CTAs than tiles.
 int nstt_block_mv_ring_f32(const float* a, const float* x, float* y,
                            long long nblk, int m, int k, int rows, int nbuf,
                            void* stream) {
@@ -389,23 +500,30 @@ int nstt_block_mv_ring_f32(const float* a, const float* x, float* y,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long nrows = nblk * m;
   if (nrows == 0) return 0;
-  const long long smem = kHeader + nbuf * rows_smem(rows, m, k, k);
+  const long long smem = kHeader + 4 * nbuf * ring_stage_floats(rows, m, k);
   if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       block_mv_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemOptIn);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  int groups = nbuf / 2 > 1 ? nbuf / 2 : 1;
+  while (nbuf % groups) --groups;
+  int gw = round32(rows) / 32;  // warps per group
+  const int gw_max = (kMaxThreads / 32 - 1) / groups;
+  if (gw > gw_max) gw = gw_max;
+  const int threads = 32 * (1 + groups * gw);
+  int per_sm = 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, block_mv_ring_kernel, threads, static_cast<size_t>(smem));
+  if (occ != cudaSuccess) return static_cast<int>(occ);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long ntiles = (nrows + rows - 1) / rows;
-  long long per_sm = kSmemPerSm / (smem + 1024);
-  if (per_sm > 4) per_sm = 4;
-  if (per_sm < 1) per_sm = 1;
-  long long grid = per_sm * sm_count();
+  long long grid = static_cast<long long>(per_sm) * sm_count();
   if (grid > ntiles) grid = ntiles;
-  const int threads = rows < 256 ? round32(rows) : 256;
   block_mv_ring_kernel<<<static_cast<unsigned int>(grid), threads,
                          static_cast<size_t>(smem),
                          static_cast<cudaStream_t>(stream)>>>(
-      a, x, y, nrows, m, k, rows, nbuf, ((rows - 1) / m + 2) * k, ntiles);
+      a, x, y, nrows, m, k, rows, nbuf, groups, ntiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,7 +18,8 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 * :func:`block_mv_comp` replaces ``_mv_comp_kernel`` (pallas_mv.py:166):
   the compensated double-single product (two_prod / two_sum), whose
   y_hi + y_lo carries ~2^-45 of sum_j |a_ij x_j| — the phase-2 operators
-  and every per-pass residual.
+  and every per-pass residual.  Its kernel is :func:`block_mv_comp_splitk`'s
+  at one sub-table.
 
 Three more run the same functions over a table cut into k
 consecutive-tile sub-tables (:func:`pack_splitk`), all k given to ONE
@@ -69,7 +70,7 @@ import torch
 
 __all__ = [
     "LAUNCHES", "reset_launches", "SOURCES", "build_library", "build_all",
-    "load_library", "block_mv", "block_mv_plain", "block_mv2",
+    "load_library", "device_spin", "block_mv", "block_mv_plain", "block_mv2",
     "block_mv2_plain", "block_mv_ds", "block_mv_ds_plain", "block_mv_comp",
     "block_mv_comp_plain", "split_f64", "make_table_apply", "MAX_SPLIT",
     "pack_splitk", "block_mv_splitk", "block_mv_splitk_plain",
@@ -92,6 +93,7 @@ _BUILD_DIR = _PKG.parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _lib = None
+_spin = None
 
 
 def reset_launches() -> None:
@@ -183,6 +185,20 @@ def load_library():
     if _lib is None:
         _lib = _bind(build_library()[0])
     return _lib
+
+
+def device_spin(cycles: int, device=None) -> None:
+    """Keep the current stream of ``device`` busy for ``cycles`` SM clock
+    cycles: one thread of ``csrc/block_mv.cu`` spinning on ``clock64()``.
+    Bound apart from :func:`load_library`'s handle, which a sweep may swap
+    for another build."""
+    global _spin
+    if _spin is None:
+        fn = ctypes.CDLL(str(build_library()[0])).nstt_spin
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _spin = fn
+    _launch(_spin, cycles, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _check_table(A, name, dtypes=(torch.float32,)):
@@ -376,11 +392,18 @@ def block_mv_comp(A_hi, A_lo, x_hi, x_lo):
     y_hi + y_lo ~ (A_hi + A_lo)(x_hi + x_lo) to ~2^-45 of sum_j |a_ij x_j|.
 
     Replaces ``_mv_comp_kernel`` (navier_stokes_tpu/ops/pallas_mv.py:166).
-    Bound by the two table streams: 2*nblk*m*k*4 bytes / 3.35 TB/s."""
+    Bound by the two table streams: 2*nblk*m*k*4 bytes / 3.35 TB/s.  The
+    kernel is :func:`block_mv_comp_splitk`'s at one sub-table: each CTA's
+    two table stretches come by bulk asynchronous copies, so on the card
+    both tables must start on a 16-byte boundary (a fresh allocation does;
+    a view may not, and raises)."""
     _check_table(A_hi, "block_mv_comp A_hi")
     _check_table(A_lo, "block_mv_comp A_lo")
     if A_lo.shape != A_hi.shape or A_lo.device != A_hi.device:
         raise ValueError("block_mv_comp: A_hi and A_lo differ")
+    if A_hi.device.type == "cuda" and (A_hi.data_ptr() % 16
+                                       or A_lo.data_ptr() % 16):
+        raise ValueError("block_mv_comp: table not 16-byte aligned")
     _check_vec(x_hi, A_hi, "block_mv_comp x_hi")
     _check_vec(x_lo, A_hi, "block_mv_comp x_lo")
     if _device_kind(A_hi) == "cpu":

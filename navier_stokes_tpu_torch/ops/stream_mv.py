@@ -17,8 +17,10 @@ All compute y[b, i] = sum_j A[b, i, j] x[b, j]; what varies is the copy.
   copy (``cp.async.bulk`` completing on an ``mbarrier``).
 * :func:`block_mv_ring` replaces ``make_bmv_manual`` (:212, call :253): a
   persistent grid walks the tiles with a ring of ``nbuf`` shared-memory
-  stages, each filled by a bulk asynchronous copy with its own
-  ``mbarrier``; the copy of tile i + nbuf starts when tile i is consumed.
+  stages; in each CTA one producer warp fills them by bulk asynchronous
+  copies of the table stretch and its x, and consumer groups of one thread
+  per row take them in turn, each stage with a ``full`` and an ``empty``
+  ``mbarrier``.
 * :func:`block_mv_soa` replaces ``mv_kernel`` (microbench_apply2.py:123,
   call :129): y[i, e] = sum_j A2[i, j, e] u[j, e] on the structure-of-arrays
   table with the element on the fastest axis, one thread per element.
@@ -66,22 +68,26 @@ SOA_MAX_NB = 64  # csrc kSoaMaxNb
 _lib = None
 
 
+def _bind(path):
+    """The library at ``path`` with its entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.nstt_block_mv_rows_f32.argtypes = [p, p, p, i64, i32, i32, i32, p]
+    lib.nstt_block_mv_mega_f32.argtypes = [p, p, p, i64, i32, i32, i32, p]
+    lib.nstt_block_mv_ring_f32.argtypes = [p, p, p, i64, i32, i32, i32, i32,
+                                           p]
+    lib.nstt_block_mv_soa_f32.argtypes = [p, p, p, i32, i64, p]
+    for fn in (lib.nstt_block_mv_rows_f32, lib.nstt_block_mv_mega_f32,
+               lib.nstt_block_mv_ring_f32, lib.nstt_block_mv_soa_f32):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library():
     """The compiled kernels as a ctypes library (built at first use)."""
     global _lib
     if _lib is None:
-        path, _ = build_library(name="stream_mv")
-        lib = ctypes.CDLL(str(path))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.nstt_block_mv_rows_f32.argtypes = [p, p, p, i64, i32, i32, i32, p]
-        lib.nstt_block_mv_mega_f32.argtypes = [p, p, p, i64, i32, i32, i32, p]
-        lib.nstt_block_mv_ring_f32.argtypes = [p, p, p, i64, i32, i32, i32,
-                                               i32, p]
-        lib.nstt_block_mv_soa_f32.argtypes = [p, p, p, i32, i64, p]
-        for fn in (lib.nstt_block_mv_rows_f32, lib.nstt_block_mv_mega_f32,
-                   lib.nstt_block_mv_ring_f32, lib.nstt_block_mv_soa_f32):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(build_library(name="stream_mv")[0])
     return _lib
 
 
@@ -152,13 +158,18 @@ def make_bmv_splitk_seq(A: torch.Tensor, k: int, tile: int):
 # -- rows 11 and 12: bulk asynchronous copies -------------------------------------
 
 
-def _stage_bytes(rows: int, m: int, k: int) -> int:
+def _stage_bytes(rows: int, m: int, k: int, ring: bool = False) -> int:
     """One shared-memory stage of the bulk-copy kernels: ``rows`` table rows
-    at stride ``k`` and the x of the blocks they touch."""
-    return 4 * (rows * k + ((rows - 1) // m + 2) * k)
+    at stride ``k`` and the x of the blocks they touch; a ring stage also
+    has 4 floats of room to shift its x and is rounded up to 16 bytes
+    (csrc ``ring_stage_floats``)."""
+    xfloats = ((rows - 1) // m + 2) * k
+    if ring:
+        xfloats = -(-(xfloats + 4) // 4) * 4
+    return 4 * (rows * k + xfloats)
 
 
-def _check_stretch(A, rows, stages, name):
+def _check_stretch(A, rows, stages, name, ring=False):
     """The alignment rule of a bulk copy: every stretch of ``rows`` table
     rows starts on a 16-byte boundary, and ``stages`` of them fit."""
     nblk, m, k = A.shape
@@ -168,7 +179,7 @@ def _check_stretch(A, rows, stages, name):
         raise ValueError(f"{name}: rows={rows} of {k} f32 entries are not a "
                          "multiple of 16 bytes; choose rows so that rows*k "
                          "is a multiple of 4")
-    if _HEADER + stages * _stage_bytes(rows, m, k) > SMEM_OPT_IN:
+    if _HEADER + stages * _stage_bytes(rows, m, k, ring) > SMEM_OPT_IN:
         raise ValueError(f"{name}: {stages} x {rows} rows of {k} entries do "
                          f"not fit {SMEM_OPT_IN} bytes of shared memory")
     if A.device.type == "cuda" and A.data_ptr() % 16:
@@ -203,9 +214,11 @@ def block_mv_mega(A: torch.Tensor, x: torch.Tensor, k: int,
 
 def block_mv_ring(A: torch.Tensor, x: torch.Tensor, nbuf: int,
                   rows: int) -> torch.Tensor:
-    """y = A x by a persistent grid whose CTAs keep ``nbuf`` bulk
-    asynchronous copies of ``rows``-row tiles in flight (one ``mbarrier``
-    per shared-memory stage).
+    """y = A x by a persistent grid whose CTAs keep up to ``nbuf`` stages
+    of ``rows``-row tiles in flight: a producer warp fills each stage by
+    bulk asynchronous copies of the table stretch and its x, consumer groups
+    of one thread per row take the filled stages in turn, and a ``full``
+    and an ``empty`` ``mbarrier`` per stage pass it between them.
 
     Replaces ``make_bmv_manual`` (scripts/microbench_dma.py:212-264: the
     table left in device memory, ``nbuf`` block copies started by hand, one
@@ -215,7 +228,7 @@ def block_mv_ring(A: torch.Tensor, x: torch.Tensor, nbuf: int,
     _check_f32(A, x, "block_mv_ring")
     if not 1 <= nbuf <= MAX_STAGES:
         raise ValueError(f"block_mv_ring: nbuf={nbuf} outside 1..{MAX_STAGES}")
-    _check_stretch(A, rows, nbuf, "block_mv_ring")
+    _check_stretch(A, rows, nbuf, "block_mv_ring", ring=True)
     if _device_kind(A) == "cpu":
         return block_mv_plain(A, x)
     y = _empty_y(A)

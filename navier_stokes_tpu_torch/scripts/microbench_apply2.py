@@ -38,7 +38,7 @@ from ..mesh import channel_with_cylinder_mesh_3d
 from ..models.stokes_hybrid3d import HybridVelocitySpace3D, VectorFacet3D
 from ..ops import stream_mv as sm
 from ..ops.faceblock import FaceBlockLayout
-from ..utils.timers import Timer, graphed
+from ..utils.timers import KernelTimer, graphed
 
 TILE = 256  # the element count is padded to a multiple of it
 DEV_TOL = 1e-5  # relative l2 deviation between the two SoA face applies
@@ -74,7 +74,7 @@ def main(maxh: float = 0.09, device=None):
     soa_einsum = sm.face_apply_soa(lay, A2, sm.block_mv_soa_plain)
     soa_kernel = sm.face_apply_soa(lay, A2)
     aos_kernel = lay.elem_apply_tiled(lay.pack_elem_tables([A_perm]))
-    timer = Timer() if on_card else None
+    timer = KernelTimer() if on_card else None
 
     def measure(label, fn, y_ref=None):
         y = fn()

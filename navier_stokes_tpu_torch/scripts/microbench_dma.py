@@ -38,7 +38,7 @@ import torch
 from ..device import resolve_device
 from ..ops import block_mv as bm
 from ..ops import stream_mv as sm
-from ..utils.timers import Timer
+from ..utils.timers import KernelTimer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ROWS = (64, 192, 432, 864)  # CTA sizes of the rows sweep
@@ -95,7 +95,7 @@ def main(nblk: int = 7740, nb: int = 54, device=None):
     print(f"device: {name}  nblk={nblk} nb={nb}", flush=True)
     print(f"table: {nbytes / 1e6:.1f} MB, bound "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s", flush=True)
-    timer = Timer() if on_card else None
+    timer = KernelTimer() if on_card else None
     want = bm.block_mv_plain(A, x)
     ref = bm.block_mv(A, x)
     rows = []

@@ -1,34 +1,81 @@
-"""CUDA-event timers.
+"""Timers.
 
-Counterpart of ``navier_stokes_tpu/utils/timers.py``.  There a named
-wall-clock scope fences with ``block_until_ready``; on the card the device's
-own clock is read instead: CUDA events recorded on the current stream
-around the work, so that asynchronous launches cannot hide device time and
+Counterpart of ``navier_stokes_tpu/utils/timers.py``: :class:`Timer` is its
+named wall-clock scope, fenced with ``torch.cuda.synchronize`` where the
+reference runs ``block_until_ready``.  Beside it the card's own clock:
+:class:`KernelTimer` reads CUDA events recorded on the current stream
+around a call, so that asynchronous launches cannot hide device time and
 the host's launch gaps ahead of the work are not counted.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
-__all__ = ["Timer", "per_apply_ms", "graphed"]
+from ..ops.block_mv import device_spin
 
-_COVER_CYCLES = 2_000_000  # device spin ahead of each timed call (Timer)
+__all__ = ["Timer", "KernelTimer", "per_apply_ms", "graphed"]
+
+_COVER_CYCLES = 2_000_000  # device spin ahead of each timed call (KernelTimer)
+
+
+def _fence(obj) -> None:
+    """Wait for the card on which each CUDA tensor in ``obj`` (a tensor, or
+    lists, tuples and dicts of them) lives; anything else passes."""
+    if isinstance(obj, torch.Tensor):
+        if obj.is_cuda:
+            torch.cuda.synchronize(obj.device)
+    elif isinstance(obj, (list, tuple)):
+        for item in obj:
+            _fence(item)
+    elif isinstance(obj, dict):
+        for item in obj.values():
+            _fence(item)
 
 
 class Timer:
+    """Named wall-clock timer; .time accumulates across Start/Stop pairs."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self.time = 0.0
+        self._t0 = None
+
+    def Start(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def Stop(self, *fence):
+        """Stop timing; the cards of any CUDA tensors passed are
+        synchronized first."""
+        for x in fence:
+            _fence(x)
+        self.time += time.perf_counter() - self._t0
+        return self.time
+
+    def __enter__(self):
+        return self.Start()
+
+    def __exit__(self, *exc):
+        self.Stop()
+        return False
+
+
+class KernelTimer:
     """Median time of one call on the card, from CUDA events around each
     call, with the 50 MB L2 cache flushed before every call (on the main
     path every table arrives cold: the others stream through in between).
 
     Between the flush and the start event the device spins for
-    ``_COVER_CYCLES`` (about 1 ms at the H100's 1.98 GHz): the host's work
-    ahead of the call's first launch -- a wrapper's checks, allocations
-    and ctypes call, which on a slow host can outlast the flush -- then
-    overlaps the spin instead of landing between the events, and the time
-    measured is the device's, from the call's first launch to its end."""
+    ``_COVER_CYCLES`` (about 1 ms at the H100's 1.98 GHz;
+    ``ops.block_mv.device_spin``): the host's work ahead of the call's
+    first launch -- a wrapper's checks, allocations and ctypes call, which
+    on a slow host can outlast the flush -- then overlaps the spin instead
+    of landing between the events, and the time measured is the device's,
+    from the call's first launch to its end."""
 
     def __init__(self, reps: int = 25):
         self.reps = reps
@@ -42,7 +89,7 @@ class Timer:
         evs = []
         for _ in range(self.reps):
             self.flush.zero_()
-            torch.cuda._sleep(_COVER_CYCLES)
+            device_spin(_COVER_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()

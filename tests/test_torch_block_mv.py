@@ -493,3 +493,40 @@ def test_splitk_kernels_match_plain_on_card(k):
         uh, ul = bm.block_mv_comp(hi, lo, xh, xl)
         assert torch.equal(yh, uh) and torch.equal(yl, ul)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_block_mv_comp_equals_splitk_on_card():
+    """On the card: kernel 4, which is kernel 7's kernel at one sub-table,
+    bitwise equal to its plain version and to kernel 7 at k = 2, 4, 8 on
+    the edge shapes (``EDGE_SPLITK``); a table view that does not start on
+    a 16-byte boundary is refused, as the bulk copies need."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for nblk, m, kk, tile in EDGE_SPLITK:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        x64 = torch.randn((nblk, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        yh, yl = bm.block_mv_comp(hi, lo, xh, xl)
+        rh, rl = bm.block_mv_comp_plain(hi, lo, xh, xl)
+        assert torch.equal(yh, rh) and torch.equal(yl, rl)
+        for k in (2, 4, 8):
+            hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            sh, sl = bm.block_mv_comp_splitk(hs, ls, xh, xl, tile)
+            assert torch.equal(yh, sh) and torch.equal(yl, sl)
+    torch.cuda.synchronize()
+    nblk, m, kk = 300, 54, 54
+    flat = torch.zeros(1 + nblk * m * kk, device=dev)
+    view = flat[1:].view(nblk, m, kk)  # 4 bytes past a 16-byte boundary
+    table = torch.zeros((nblk, m, kk), device=dev)
+    x = torch.zeros((nblk, kk), device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_comp(view, table, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_comp(table, view, x, x)

@@ -302,3 +302,29 @@ def test_stream_mv_kernels_match_plain_on_card():
         y = sm.block_mv_soa(A2, uT)
         torch.cuda.synchronize()
         assert float((y - sm.block_mv_soa_plain(A2, uT)).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 12, 64, 128])
+def test_block_mv_ring_equals_block_mv_on_card(rows):
+    """On the card: the producer/consumer ring at every depth 1..8 bitwise
+    equal to ``block_mv`` and within 1e-4 of the plain version -- on the
+    bench block (its last stage ragged at 64 and 128 rows), on 7 x 13
+    blocks (a ragged last stage at every row count, a table tail that is
+    not whole 16-byte units, x stretches starting anywhere in a 16-byte
+    unit), with x a view 0 or 4 bytes past a 16-byte boundary, and on a
+    table of fewer tiles than the card holds CTAs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (3, 5, 4)):
+        A = torch.randn((nblk, m, k), generator=gen, device="cuda")
+        for off in (0, 1):
+            flat = torch.randn(off + nblk * k, generator=gen, device="cuda")
+            x = flat[off:].view(nblk, k)
+            ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
+            for nbuf in range(1, 9):
+                y = sm.block_mv_ring(A, x, nbuf, rows)
+                torch.cuda.synchronize()
+                assert torch.equal(y, ref), (nblk, m, k, off, nbuf)
+                assert float((y - want).abs().max()) <= 1e-4

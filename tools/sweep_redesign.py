@@ -1,31 +1,41 @@
 #!/usr/bin/env python3
-"""Sweep of the launch constants of the redesigned kernels 7
-(``block_mv_comp_splitk``) and 8 (``batched_local_matvec``) on the card,
-with an earlier design beside them in the same call.
+"""Sweep of the launch constants of the redesigned hand-written kernels on
+the card, with an earlier design beside them in the same call.
 
-* Kernel 7, rows per sub-table ``kCompSplitRows`` of ``csrc/block_mv.cu``
-  in {16, 32, 64}, at k = 2 and 4, on random hi/lo pairs of the shapes of
-  the flagship's A_ds (7740 x 54 x 54, tile 256), B_ds (7740 x 4 x 54, tile
-  128) and BT_ds (7740 x 54 x 4, tile 128) at maxh=0.09.  Each variant must
-  be BITWISE equal to the unchanged ``block_mv_comp`` (kernel 4), which is
-  timed beside it, as is the f64 ``torch.bmm`` of hi + lo (the yardstick of
-  ``chip_smoke.py``).
-* Kernel 8, rows per CTA ``kRows`` of ``csrc/local_mv.cu`` in {32, 64,
-  128}, in float and double, on random tables of the shapes of the
-  transient step's M_loc and A_cond (7740 x 54 x 54) and S_inv (7740 x 4 x
-  4).  Each variant must stay within 2e-6 (f32) or 1e-13 (f64) of
-  sum_j |a_ij u_j| of the plain version; ``torch.bmm`` is timed beside it.
+* Kernel 4 (``block_mv_comp``, kernel 7's kernel at one sub-table), rows
+  per CTA ``kCompRows`` of ``csrc/block_mv.cu`` in {32, 64, 128}, on random
+  hi/lo pairs of the shapes of the flagship's A_ds (7740 x 54 x 54), B_ds
+  (7740 x 4 x 54) and BT_ds (7740 x 54 x 4) at maxh=0.09.  Each variant
+  must be BITWISE equal to the plain version, as must the other tree's
+  kernel 4, when one is given; the f64 ``torch.bmm`` of hi + lo (the
+  yardstick of ``chip_smoke.py``) is timed beside it.
+* Kernel 7 (``block_mv_comp_splitk``), rows per sub-table
+  ``kCompSplitRows`` in {16, 32, 64}, at k = 2 and 4, on the same shapes
+  (tiles 256, 128, 128).  Each variant must be BITWISE equal to the
+  package's own ``block_mv_comp``, which is timed beside it.
+* Kernel 8 (``batched_local_matvec``), rows per CTA ``kRows`` of
+  ``csrc/local_mv.cu`` in {32, 64, 128}, in float and double, on random
+  tables of the shapes of the transient step's M_loc and A_cond (7740 x 54
+  x 54) and S_inv (7740 x 4 x 4).  Each variant must stay within 2e-6
+  (f32) or 1e-13 (f64) of sum_j |a_ij u_j| of the plain version;
+  ``torch.bmm`` is timed beside it.
+* Kernel 12 (``block_mv_ring``), the package's ``csrc/stream_mv.cu`` at the
+  six variants of the ported microbenchmark (nbuf 2, 4, 8 x rows 64, 128)
+  on a random 7740 x 54 x 54 f32 table.  Each must be BITWISE equal to
+  ``block_mv`` and within 1e-4 of the plain version; ``torch.bmm`` and one
+  ``block_mv_mega`` (64 rows per CTA, one bulk copy) are timed beside it.
 
 Each variant is the package's ``csrc/`` copied under ``build/sweep/`` with
-that one constant rewritten, compiled with the package's nvcc flags (all
-nvcc processes at once), and called through the package's own wrappers,
-whose library is swapped for the variant's.  With ``--parent DIR`` the
-``csrc/`` of another tree (an earlier commit unpacked with ``git archive``)
-is built and timed too.  Times are medians of 25 calls with the L2 flushed
-(``utils.timers.Timer``), taken in the order parent, variants, variants,
-parent; both passes are printed.  The last lines are the card's name and
-power limit and a JSON object of every time; ``--out`` also writes it to a
-file.
+that one constant rewritten (kernel 12: copied as it is), compiled with the
+package's nvcc flags (all nvcc processes at once), and called through the
+package's own wrappers, whose library is swapped for the variant's.  With
+``--parent DIR`` the ``csrc/`` of another tree (an earlier commit unpacked
+with ``git archive``) is built and timed too.  Times are medians of 25
+calls with the L2 flushed (``utils.timers.KernelTimer``), taken in the
+order parent, variants, variants, parent; both passes are printed, and at
+the end each variant's sum over the tables of the better pass.  The last
+lines are the card's name and power limit and a JSON object of every time;
+``--out`` also writes it to a file.
 
 Run from the repository root, on the card::
 
@@ -52,7 +62,9 @@ sys.path.insert(0, str(ROOT))
 
 from navier_stokes_tpu_torch.ops import block_mv as bm  # noqa: E402
 from navier_stokes_tpu_torch.ops import local_mv as lm  # noqa: E402
-from navier_stokes_tpu_torch.utils.timers import Timer  # noqa: E402
+from navier_stokes_tpu_torch.ops import stream_mv as sm  # noqa: E402
+from navier_stokes_tpu_torch.scripts import microbench_dma  # noqa: E402
+from navier_stokes_tpu_torch.utils.timers import KernelTimer  # noqa: E402
 
 CSRC = ROOT / "navier_stokes_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "sweep"
@@ -60,6 +72,7 @@ NBLK, NB, NQ = 7740, 54, 4  # maxh=0.09: elements, velocity / pressure dofs
 COMP_TABLES = (("A_ds", NB, NB, 256), ("B_ds", NQ, NB, 128),
                ("BT_ds", NB, NQ, 128))
 LOCAL_TABLES = (("M_loc", NB), ("A_cond", NB), ("S_inv", NQ))
+COMP1_ROWS = (32, 64, 128)  # kCompRows
 COMP_ROWS = (16, 32, 64)  # kCompSplitRows
 SPLITS = (2, 4)
 LOCAL_ROWS = (32, 64, 128)  # kRows
@@ -73,18 +86,20 @@ def card_line() -> str:
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def variant(name: str, const: str, value: int) -> Path:
-    """``csrc/<name>.cu`` with ``constexpr int <const> = <value>;``, in a
-    copy of ``csrc/`` of its own; returns the source's path."""
-    dst = OUT / f"{name}_{const}_{value}"
+def variant(name: str, const: str | None = None, value: int = 0) -> Path:
+    """``csrc/<name>.cu`` with ``constexpr int <const> = <value>;`` (as it
+    is without ``const``), in a copy of ``csrc/`` of its own; returns the
+    source's path."""
+    dst = OUT / (f"{name}_{const}_{value}" if const else name)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(CSRC, dst)
     src = dst / f"{name}.cu"
-    text, n = re.subn(rf"(constexpr int {const} = )\d+;", rf"\g<1>{value};",
-                      src.read_text())
-    if n != 1:
-        raise RuntimeError(f"{const} is defined {n} times in {name}.cu")
-    src.write_text(text)
+    if const:
+        text, n = re.subn(rf"(constexpr int {const} = )\d+;",
+                          rf"\g<1>{value};", src.read_text())
+        if n != 1:
+            raise RuntimeError(f"{const} is defined {n} times in {name}.cu")
+        src.write_text(text)
     return src
 
 
@@ -115,6 +130,49 @@ def warm_up(seconds=1.0):
         torch.cuda.synchronize()
 
 
+def comp_pair(rng, m, kk):
+    """A random f64 table (NBLK, m, kk) and x, split into f32 hi/lo pairs."""
+    A64 = torch.as_tensor(rng.standard_normal((NBLK, m, kk)), device="cuda")
+    x64 = torch.as_tensor(rng.standard_normal((NBLK, kk)), device="cuda")
+    return A64, x64, bm.split_f64(A64), bm.split_f64(x64)
+
+
+def sweep_comp1(timer, libs, rng, times):
+    """Kernel 4: every variant (and the parent, first and last) on every
+    table, each bitwise against the plain version, so all bitwise equal."""
+    names = list(libs)
+    order = names + names[::-1]
+    for tname, m, kk, _ in COMP_TABLES:
+        A64, x64, (hi, lo), (xh, xl) = comp_pair(rng, m, kk)
+        want = bm.block_mv_comp_plain(hi, lo, xh, xl)
+        xb = x64[:, :, None]
+        tb = timer(lambda: torch.bmm(A64, xb))
+        nbytes = 4 * (2 * hi.numel() + 4 * xh.numel())
+        bound = nbytes / 3.35e12 * 1e3
+        times["comp1"].append({"table": tname, "kernel": "f64 bmm",
+                               "ms": [tb]})
+        print(f"[comp1] {tname} {tuple(hi.shape)}: f64 bmm {tb:.4f} ms, "
+              f"bound {bound:.4f}", flush=True)
+        ms = {}
+        for key in order:
+            bm._lib = libs[key]
+            got = bm.block_mv_comp(hi, lo, xh, xl)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"kernel 4 {key} {tname}: not bitwise "
+                                   "equal to the plain version")
+            ms.setdefault(key, []).append(timer(
+                lambda: bm.block_mv_comp(hi, lo, xh, xl)))
+        for key in names:
+            times["comp1"].append({"table": tname, "kernel": key,
+                                   "ms": ms[key]})
+            print(f"  {key:10s} " + " / ".join(f"{t:.4f}" for t in ms[key])
+                  + f" ms ({min(ms[key]) / tb:.3f} x f64 bmm, "
+                  f"{bound / min(ms[key]):.3f} of bound), bitwise = plain",
+                  flush=True)
+    bm._lib = None
+
+
 def sweep_comp(timer, libs, rng, times):
     """Kernel 7: every variant on every table at every k, bitwise against
     kernel 4 of the package's own build; the parent (if any) first and
@@ -123,11 +181,7 @@ def sweep_comp(timer, libs, rng, times):
     order = names + names[::-1]
     main = bm.load_library()
     for tname, m, kk, tile in COMP_TABLES:
-        A64 = torch.as_tensor(rng.standard_normal((NBLK, m, kk)),
-                              device="cuda")
-        x64 = torch.as_tensor(rng.standard_normal((NBLK, kk)), device="cuda")
-        hi, lo = bm.split_f64(A64)
-        xh, xl = bm.split_f64(x64)
+        A64, x64, (hi, lo), (xh, xl) = comp_pair(rng, m, kk)
         bm._lib = main
         ref = bm.block_mv_comp(hi, lo, xh, xl)
         xb = x64[:, :, None]
@@ -207,6 +261,64 @@ def sweep_local(timer, libs, rng, times):
     lm._lib = None
 
 
+def sweep_ring(timer, libs, rng, times):
+    """Kernel 12: the six variants of the ported microbenchmark, this
+    tree's kernel and the parent's, bitwise against ``block_mv``."""
+    names = list(libs)
+    order = names + names[::-1]
+    A = torch.as_tensor(rng.standard_normal((NBLK, NB, NB)).astype(
+        np.float32), device="cuda")
+    x = torch.as_tensor(rng.standard_normal((NBLK, NB)).astype(np.float32),
+                        device="cuda")
+    ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
+    xb = x[:, :, None]
+    tb = timer(lambda: torch.bmm(A, xb))
+    tm = timer(lambda: sm.block_mv_mega(A, x, 2, 32))
+    bound = 4 * (A.numel() + 2 * x.numel()) / 3.35e12 * 1e3
+    times["ring"] += [{"kernel": "bmm", "ms": [tb]},
+                      {"kernel": "block_mv_mega k=2 rows=32", "ms": [tm]}]
+    print(f"[ring] {tuple(A.shape)} f32: bmm {tb:.4f} ms, block_mv_mega k=2 "
+          f"rows=32 {tm:.4f}, bound {bound:.4f}", flush=True)
+    for nbuf in microbench_dma.RING_NBUF:
+        for rows in microbench_dma.RING_ROWS:
+            ms = {}
+            for key in order:
+                sm._lib = libs[key]
+                y = sm.block_mv_ring(A, x, nbuf, rows)
+                torch.cuda.synchronize()
+                err = float((y - want).abs().max())
+                if not (torch.equal(y, ref) and err <= 1e-4):
+                    raise RuntimeError(f"kernel 12 {key} nbuf={nbuf} rows="
+                                       f"{rows}: not bitwise equal to "
+                                       f"block_mv, or {err:.2e} > 1e-4")
+                ms.setdefault(key, []).append(timer(
+                    lambda: sm.block_mv_ring(A, x, nbuf, rows)))
+            for key in names:
+                times["ring"].append({"table": f"nbuf={nbuf} rows={rows}",
+                                      "kernel": key, "ms": ms[key]})
+                print(f"  nbuf={nbuf} rows={rows:3d} {key:10s} "
+                      + " / ".join(f"{t:.4f}" for t in ms[key])
+                      + f" ms ({min(ms[key]) / tb:.3f} x bmm, "
+                      f"{bound / min(ms[key]):.3f} of bound), bitwise = "
+                      "block_mv", flush=True)
+    sm._lib = None
+
+
+def summary(times):
+    """Each kernel's sum over its tables of the better pass, per section
+    (and per k for kernel 7, per type for kernel 8)."""
+    for section, rows in times.items():
+        sums = {}
+        for r in rows:
+            key = (r.get("k"), r.get("dtype"), r["kernel"])
+            sums[key] = sums.get(key, 0.0) + min(r["ms"])
+        for (k, dt, kernel), total in sums.items():
+            what = " ".join(str(v) for v in (f"k={k}" if k else None, dt)
+                            if v)
+            print(f"[sum] {section} {what} {kernel}: {total:.4f} ms",
+                  flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another tree whose csrc/ is timed "
@@ -216,29 +328,45 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("sweep_redesign: no CUDA device available", file=sys.stderr)
         return 2
-    jobs = {("comp", f"R={r}"): variant("block_mv", "kCompSplitRows", r)
-            for r in COMP_ROWS}
+    jobs = {("comp1", f"R={r}"): variant("block_mv", "kCompRows", r)
+            for r in COMP1_ROWS}
+    jobs.update({("comp", f"R={r}"): variant("block_mv", "kCompSplitRows", r)
+                 for r in COMP_ROWS})
     jobs.update({("local", f"R={r}"): variant("local_mv", "kRows", r)
                  for r in LOCAL_ROWS})
+    jobs[("ring", "this tree")] = variant("stream_mv")
+    sources = {"comp1": "block_mv", "comp": "block_mv", "local": "local_mv",
+               "ring": "stream_mv"}
     if args.parent:
         csrc = Path(args.parent).resolve() / "navier_stokes_tpu_torch" / "csrc"
-        for kind, name in (("comp", "block_mv"), ("local", "local_mv")):
+        for name in ("block_mv", "local_mv", "stream_mv"):
             dst = OUT / f"parent_{name}"
             shutil.rmtree(dst, ignore_errors=True)
             shutil.copytree(csrc, dst)
-            jobs[(kind, "parent")] = dst / f"{name}.cu"
-    paths = compile_all(jobs)
-    print(f"[build] {len(jobs)} libraries", flush=True)
-    libs = {"comp": {}, "local": {}}
-    binders = {"comp": bm._bind, "local": lm._bind}
-    for (kind, key) in sorted(jobs, key=lambda j: j[1] != "parent"):
-        libs[kind][key] = binders[kind](paths[(kind, key)])
-    timer = Timer()
+            jobs[(name, "parent")] = dst / f"{name}.cu"
+    with ThreadPoolExecutor(1) as pool:  # the package's own libraries
+        own = pool.submit(bm.build_all)
+        paths = compile_all(jobs)
+        own.result()
+    print(f"[build] {len(jobs)} libraries and the package's own", flush=True)
+    binders = {"block_mv": bm._bind, "local_mv": lm._bind,
+               "stream_mv": sm._bind}
+    libs = {kind: {} for kind in sources}
+    if args.parent:
+        for kind, name in sources.items():
+            libs[kind]["parent"] = binders[name](paths[(name, "parent")])
+    for (kind, key), path in paths.items():
+        if key != "parent":
+            libs[kind][key] = binders[sources[kind]](path)
+    timer = KernelTimer()
     warm_up()
     rng = np.random.default_rng(0)
-    times = {"comp": [], "local": []}
+    times = {kind: [] for kind in sources}
+    sweep_comp1(timer, libs["comp1"], rng, times)
     sweep_comp(timer, libs["comp"], rng, times)
     sweep_local(timer, libs["local"], rng, times)
+    sweep_ring(timer, libs["ring"], rng, times)
+    summary(times)
     card = card_line()
     times["card"] = card
     print(card, flush=True)
