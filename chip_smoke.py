@@ -55,7 +55,8 @@ phases; any failed phase ends the run with a non-zero exit:
     (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
     7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
     launch counters set to 0 just before; each of the five table-stream
-    wrappers must have launched;
+    wrappers must have launched, and the split-k variants must be bitwise
+    equal to ``block_mv``;
 12. amg: at maxh=0.04 (5,859 free velocity-P1 vertices, above the dense
     limit of 5,000, so both coarse solves are SA-AMG V-cycles):
     AMG-preconditioned CG on the P1 stiffness to 1e-8 in under 40
@@ -70,7 +71,7 @@ condensed-operator and pressure-block tables of the transient step),
 table-stream kernels (``block_mv_rows``, split-k at k = 2, 4, 8,
 ``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the bench table,
 each also bitwise against ``block_mv``, and the edges of the CTA stretches
-of kernels 7 and 8 (``check_edges``: the shapes of the card tests).
+of kernels 5-8 (``check_edges``: the shapes of the card tests).
 
 It prints the kernels' JSON line and the card's name and power limit on
 lines before the last, and as its last line
@@ -108,16 +109,22 @@ PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
 # kernels already redesigned for this card, and how
 REDESIGNED = {"block_mv_comp_splitk": "bulk copies, x in shared memory",
               "block_mv_comp": "kernel 7 at one sub-table",
+              "block_mv_splitk": "kernel 7's staging, bf16 copied as "
+                                 "stored, one fmaf chain per row",
+              "block_mv_splitk_seq": "kernel 5 on the bench table",
+              "block_mv2_splitk": "kernel 7's staging, two fmaf chains per "
+                                  "row",
               "batched_local_matvec": "bulk copy per CTA",
               "batched_local_matvec_f64": "bulk copy per CTA",
               "block_mv_ring": "producer warp, consumer groups, full and "
                                "empty mbarriers"}
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
-# the edges of kernel 7's and kernel 8's CTA stretches, as the card tests
-# (nblk, m, k, tile): stretches across tile boundaries, rows * k not a
-# multiple of 4 floats, real rows ending mid-stretch, empty sub-tables
+# the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
+# the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
+# * k not a multiple of 4 floats or 8 bf16 entries (ragged tails of up to 7
+# entries), real rows ending mid-stretch, empty sub-tables
 EDGE_SPLITK = ((37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
-               (45, 54, 4, 3), (5, 3, 7, 2))
+               (45, 54, 4, 3), (5, 3, 7, 2), (19, 5, 3, 4), (203, 7, 9, 16))
 # (ne, nb, offset in elements of the view into its allocation)
 EDGE_LOCAL = ((700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
               (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
@@ -397,16 +404,22 @@ def check_local_mv(torch, lm, timer, rep, label, A, gen):
 
 
 def check_edges(torch, bm, lm):
-    """Kernels 7 and 8 at the edges of their CTA stretches
-    (``EDGE_SPLITK``, ``EDGE_LOCAL``): kernel 7 at k = 2, 4, 8, BITWISE
-    against ``block_mv_comp`` on the unsplit table and within 1e-12 of the
+    """The split-k kernels and kernel 8 at the edges of their CTA
+    stretches (``EDGE_SPLITK``, ``EDGE_LOCAL``): kernels 5 (f32 and bf16),
+    6 and 7 at k = 2, 4, 8, BITWISE against ``block_mv`` / ``block_mv2`` /
+    ``block_mv_comp`` on the unsplit table, kernels 5 and 6 within 1e-5 of
+    sum_j |a_ij x_j| of their plain versions, kernel 7 within 1e-12 of the
     row scale of the f64 product; kernel 8 in both types, on views that
     start 0, 4, 8 or 12 bytes past a 16-byte boundary, within 2e-6 (f32)
     or 1e-13 (f64) of sum_j |a_ij u_j| of its plain version."""
     import numpy as np
 
+    def row_scale(A, x):
+        return torch.einsum("bmk,bk->bm", A.double().abs(),
+                            x.double().abs()).clamp_min(1e-300)
+
     rng = np.random.default_rng(5)
-    n7 = 0
+    n5 = n6 = n7 = 0
     for nblk, m, kk, tile in EDGE_SPLITK:
         A64 = torch.as_tensor(rng.standard_normal((nblk, m, kk)),
                               device="cuda")
@@ -414,8 +427,37 @@ def check_edges(torch, bm, lm):
         hi, lo = bm.split_f64(A64)
         xs = bm.split_f64(x64)
         unsplit = bm.block_mv_comp(hi, lo, *xs)
+        x = xs[0]
+        mv = {}
+        for dt in (torch.float32, torch.bfloat16):
+            A = hi.to(dt)
+            mv[dt] = (A, bm.block_mv(A, x), row_scale(A, x))
+        unsplit2 = bm.block_mv2(hi, lo, x)
+        scale2 = row_scale(A64, x)
         for k in (2, 4, 8):
+            where = f"{(nblk, m, kk)} tile {tile} k={k}"
+            for dt, (A, want, scale) in mv.items():
+                subs = bm.pack_splitk(A, k, tile)
+                y = bm.block_mv_splitk(subs, x, tile)
+                d = (y - bm.block_mv_splitk_plain(subs, x, tile)).abs()
+                torch.cuda.synchronize()
+                label = f"block_mv_splitk {str(dt)[6:]} {where}"
+                check(torch.equal(y, want),
+                      f"{label}: not bitwise equal to block_mv")
+                worst = float((d.double() / scale).max())
+                check(worst <= 1e-5, f"{label}: {worst:.2e} > 1e-5 of "
+                      "sum|a x|")
+                n5 += 1
             hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            y = bm.block_mv2_splitk(hs, ls, x, tile)
+            d = (y - bm.block_mv2_splitk_plain(hs, ls, x, tile)).abs()
+            torch.cuda.synchronize()
+            label = f"block_mv2_splitk {where}"
+            check(torch.equal(y, unsplit2),
+                  f"{label}: not bitwise equal to block_mv2")
+            worst = float((d.double() / scale2).max())
+            check(worst <= 1e-5, f"{label}: {worst:.2e} > 1e-5 of sum|a x|")
+            n6 += 1
             got = bm.block_mv_comp_splitk(hs, ls, *xs, tile)
             ref = bm.block_mv_comp_splitk_plain(hs, ls, *xs, tile)
             torch.cuda.synchronize()
@@ -444,9 +486,10 @@ def check_edges(torch, bm, lm):
                   f"batched_local_matvec {(ne, nb)} {str(dt)[6:]} at "
                   f"{off * A.element_size()} bytes: {worst:.2e} > {tol:.0e}")
             n8 += 1
-    log(f"[kernels] edges: block_mv_comp_splitk on {n7} split tables "
-        "bitwise = block_mv_comp; batched_local_matvec on "
-        f"{n8} tables within tolerance")
+    log(f"[kernels] edges: block_mv_splitk on {n5} split tables (f32 and "
+        f"bf16) bitwise = block_mv; block_mv2_splitk on {n6} bitwise = "
+        f"block_mv2; block_mv_comp_splitk on {n7} bitwise = block_mv_comp; "
+        f"batched_local_matvec on {n8} tables within tolerance")
 
 
 def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
@@ -943,6 +986,9 @@ def microbench_phase(bm):
     for name in ("block_mv_rows", "block_mv_splitk", "block_mv_mega",
                  "block_mv_ring", "block_mv_soa"):
         check(launches[name] > 0, f"{name} never launched in [microbench]")
+    for r in rows:
+        check(r["kernel"] != "block_mv_splitk" or r["bitwise"],
+              f"[microbench] {r['label']}: not bitwise equal to block_mv")
     best = min((r for r in rows if r["kernel"] != "library"),
                key=lambda r: r["ms"])
     log(f"[microbench] fastest variant: {best['label']} {best['ms']:.4f} ms "

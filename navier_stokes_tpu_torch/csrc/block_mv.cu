@@ -17,10 +17,11 @@
 // rate for the bytes moved, so each is bound by device memory bandwidth:
 // table bytes / 3.35 TB/s on an H100 SXM.
 //
-// Design.  Viewed as nblk * m output rows, the table rows of any run of
-// consecutive output rows are one contiguous stretch of memory, whatever the
-// block boundaries.  A CTA owns R consecutive rows (R chosen on the host so
-// that its tiles fit 48 KB of shared memory):
+// Design of the unsplit kernels 1-3.  Viewed as nblk * m output rows, the
+// table rows of any run of consecutive output rows are one contiguous
+// stretch of memory, whatever the block boundaries.  A CTA owns R
+// consecutive rows (R chosen on the host so that its tiles fit 48 KB of
+// shared memory):
 //   1. the CTA copies its rows' table stretch into shared memory with
 //      coalesced 16-byte loads (bf16 is widened to f32 on the way), one row
 //      per ks = k | 1 floats -- an odd row stride, so that the threads of a
@@ -28,13 +29,12 @@
 //   2. it copies the x rows of the blocks those rows belong to;
 //   3. each thread computes one output row from shared memory, in column
 //      order, and writes it (coalesced).
-// Accumulation is f32.  Kernels 1-3, 5 and 6 keep this first design.
-// Kernels 4 and 7, the compensated product unsplit and split-k, are one
-// kernel since kernel 4 was redesigned (split-k section below): each CTA's
-// table stretches reach shared memory by bulk asynchronous copies
-// (bulk_copy.cuh), x is staged beside them, and kernel 4 is that kernel at
-// one sub-table.  The table-stream study (stream_mv.cu) measured the same
-// for a plain f32 stream.
+// Accumulation is f32.  The split-k kernels 5-7, and kernel 4 as kernel 7
+// at one sub-table, are one kernel with three row bodies (split-k section
+// below): each CTA's table stretches reach shared memory by bulk
+// asynchronous copies (bulk_copy.cuh) and x is staged beside them.  The
+// table-stream study (stream_mv.cu) measured the same for a plain f32
+// stream.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
@@ -55,17 +55,6 @@ constexpr int kMaxThreads = 256;
 constexpr int kSmemBudget = 48 * 1024;  // dynamic shared memory, no opt-in
 constexpr int kSmemOptIn = 232448;      // 227 KB per CTA after opt-in
 constexpr int kHeader = 128;            // the mbarrier ahead of the stretches
-// rows per CTA of kernel 4 (one sub-table) and per sub-table of one kernel-7
-// CTA (tools/sweep_redesign.py)
-constexpr int kCompRows = 64;
-constexpr int kCompSplitRows = 32;
-static_assert(kCompRows % 4 == 0 && kCompSplitRows % 4 == 0,
-              "the compensated kernel's stretches start on 16-byte "
-              "boundaries");
-constexpr int comp_rows(int ns) {
-  return ns == 1 ? kCompRows : kCompSplitRows;
-}
-constexpr int kXLoads = 4;  // x loads in flight per thread (kernels 4, 7)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -237,7 +226,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// -- split-k variants ---------------------------------------------------------
+// -- split-k kernels ----------------------------------------------------------
 //
 //   nstt_block_mv_splitk_{f32,bf16}  <- _mv_kernel_splitk      (:305)
 //   nstt_block_mv2_splitk_f32        <- _mv2_kernel_splitk     (:358)
@@ -255,48 +244,92 @@ __global__ void __launch_bounds__(kMaxThreads)
 // Bound: the bytes of the nblk real blocks (and x, y) / 3.35 TB/s, as for
 // the unsplit kernels.
 //
-// Design.  A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in
-// EVERY sub-table.  Each thread computes output rows in the unsplit
-// kernel's column order -- the same fmaf chain, or the same two_prod /
-// two_sum chain -- so a split-k result is bitwise equal to the unsplit
-// kernel's on the same table.  How the stretches reach shared memory:
-//   kernels 5 and 6: the copy loop reads one 16-byte vector from each of
-//     the ns sub-tables into registers before it stores any of them to an
-//     odd-stride tile, so ns independent table streams are in flight per
-//     CTA (the TPU kernel instead keeps ns block DMAs in flight per
-//     sequential grid step); x is read straight from global memory
-//     (L2-resident, a few MB);
-//   kernels 7 and 4 (redesigned; kernel 4 is kernel 7 at ns = 1, where
-//     the one sub-table is the table, one tile long, and every row is
-//     real): one thread starts 2*ns 1-D bulk asynchronous copies
-//     (bulk_copy.cuh), one per (table, sub-table) stretch, all onto one
-//     mbarrier, and every thread stages the x_hi and x_lo of the blocks the
-//     stretches touch beside them, kXLoads loads in flight per thread; the
-//     rows land at stride k (a 2-way bank conflict at k = 54, accepted).
-//     No thread spends registers or instructions on the table bytes, and
-//     the CTA is small (kCompSplitRows = 32 rows per sub-table: 27.6 KB at
-//     k = 2 on 54-wide rows; kCompRows rows at ns = 1), so that many CTAs
-//     per SM overlap one's copies with another's arithmetic.  What bounds
-//     it: 2 x 4 x k bytes of shared memory per (row, sub-table) cap the
-//     rows resident per SM at about 530 -- one thread per row, as bitwise
-//     equality between the two demands, so about 16 warps per SM to hide
-//     the 54 dependent steps of each chain -- and on the 4-row blocks of B
-//     the x of a stretch, a sixth of its table bytes, whose latency the
-//     extra threads of plan_comp_splitk hide.
-//     Sweep of kCompSplitRows (tools/sweep_redesign.py, random tables of
-//     the shapes of A_ds, B_ds and BT_ds at maxh=0.09, summed; NVIDIA H100
-//     80GB HBM3, 700 W): R = 16 / 32 / 64 took 0.1161 / 0.1109 / 0.1125 ms
-//     at k = 2 and 0.1133 / 0.1150 / 0.1196 at k = 4; in the same call the
-//     earlier design (kernel 5's copy loop into odd-stride tiles, x read
-//     from global memory) 0.1887 and 0.1800, the f64 torch.bmm of hi + lo
-//     0.1430, the byte bound 0.0660.  Fixed: R = 32, the best at k = 2.
-//     Sweep of kCompRows (kernel 4, the same tables and card): R = 32 /
-//     64 / 128 took 0.1096 / 0.1086 / 0.1098 ms; in the same call the
-//     earlier kernel 4 (one thread per row after a copy loop into
-//     odd-stride tiles, 48 KB CTAs) 0.1873, the f64 torch.bmm 0.1437.
-//     Fixed: R = 64.  Kernel 4 is bitwise equal to the earlier one.
+// Design.  One kernel, splitk_kernel<OP, T, NS>, with three row bodies:
+//   kMv   (kernel 5): one table, f32 or bf16, and x; one fmaf chain per
+//         row, each bf16 entry widened where it is used;
+//   kMv2  (kernel 6): the f32 pair (hi, lo) and x; two fmaf chains per
+//         row, added once at the end;
+//   kComp (kernel 7; kernel 4 at NS = 1, where the one sub-table is the
+//         table, one tile long, and every row is real): the f32 pair,
+//         x_hi and x_lo; the two_prod / two_sum chain.
+// A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in EVERY
+// sub-table.  Each thread computes output rows in the unsplit kernel's
+// column order, so a split-k result is bitwise equal to the unsplit
+// kernel's on the same table (one thread per row: lanes per row would sum
+// in another order).  The stretches reach shared memory by stage_split:
+// one thread starts NT*NS 1-D bulk asynchronous copies (bulk_copy.cuh),
+// one per (table, sub-table) stretch of real rows, all onto one mbarrier,
+// and every thread stages the x of the blocks the stretches touch beside
+// them, kXLoads loads in flight per thread.  The rows land at stride k; a
+// thread reads its row a 16-byte vector at a time where the row holds
+// whole vectors (walk_row), else entry by entry (a 2-way bank conflict
+// for f32 at k = 54, accepted; none for bf16 there).  No thread spends registers or instructions on the table bytes, and the
+// CTA is small, so that many CTAs per SM overlap one's copies with
+// another's arithmetic.  Every stretch must start on a 16-byte boundary:
+// the sub-table bases are (the entries refuse any other), and R is a
+// multiple of V = 16 / sizeof(T) entries (4 f32, 8 bf16), so r0 * k
+// entries are a whole number of 16-byte units for any k.
+//
+// Rows per sub-table (split_rows): kernels 4 and 7 take kCompRows and
+// kCompSplitRows; kernels 5 and 6 share kSplitCtaRows rows among their NS
+// sub-tables, so that the CTA stays the same size at every k.
+//   Sweep of kCompSplitRows (tools/sweep_redesign.py, random tables of
+//   the shapes of A_ds, B_ds and BT_ds at maxh=0.09, summed; NVIDIA H100
+//   80GB HBM3, 700 W): R = 16 / 32 / 64 took 0.1161 / 0.1109 / 0.1125 ms
+//   at k = 2 and 0.1133 / 0.1150 / 0.1196 at k = 4; in the same call the
+//   earlier design (a copy loop into odd-stride tiles, x read from global
+//   memory) 0.1887 and 0.1800, the f64 torch.bmm of hi + lo 0.1430, the
+//   byte bound 0.0660.  Fixed: R = 32, the best at k = 2.
+//   Sweep of kCompRows (kernel 4, the same tables and card): R = 32 /
+//   64 / 128 took 0.1096 / 0.1086 / 0.1098 ms; in the same call the
+//   earlier kernel 4 (one thread per row after a copy loop into
+//   odd-stride tiles, 48 KB CTAs) 0.1873, the f64 torch.bmm 0.1437.
+//   Fixed: R = 64.  Kernel 4 is bitwise equal to the earlier one.
+//   Sweep of kSplitCtaRows (the same tool and card; random tables): on the
+//   A32-shaped pair (7740 x 54 x 54, kernel 6, tile 256) 32 / 64 / 128 /
+//   256 rows took 0.0748 / 0.0744 / 0.0745 / 0.0750 ms at k = 2, 0.0824 /
+//   0.0744 / 0.0758 / 0.0763 at k = 8 (the earlier design, kernel 5's copy
+//   loop into odd-stride tiles with x read from global memory: 0.1326 and
+//   0.1395; torch.bmm of the stacked pair 0.1159); kernel 10's six variants
+//   on the 7740 x 54 x 54 f32 table 0.3260 / 0.2728 / 0.2691 / 0.2756
+//   (earlier 0.3720; six torch.bmm 0.3606); tables of the shapes of S, ext,
+//   ext^T and inner 0.0714 / 0.0689 / 0.0689 / 0.0722 at k = 2, 0.0953 /
+//   0.0761 / 0.0713 / 0.0739 at k = 8 (earlier 0.0836 and 0.1020).
+//   Fixed: 128, the best summed over every case, tied at k = 2.
 
 constexpr int kMaxSplit = 8;
+constexpr int kXLoads = 4;  // x loads in flight per thread
+// rows per CTA of kernel 4 (one sub-table) and per sub-table of one kernel-7
+// CTA; rows per kernel-5/6 CTA, summed over its sub-tables
+// (tools/sweep_redesign.py)
+constexpr int kCompRows = 64;
+constexpr int kCompSplitRows = 32;
+constexpr int kSplitCtaRows = 128;
+static_assert(kCompRows % 4 == 0 && kCompSplitRows % 4 == 0,
+              "the compensated kernel's f32 stretches start on 16-byte "
+              "boundaries");
+
+enum SplitOp { kMv, kMv2, kComp };
+
+// tables and x vectors each row body stages
+__host__ __device__ constexpr int split_tables(int op) {
+  return op == kMv ? 1 : 2;
+}
+__host__ __device__ constexpr int split_xs(int op) {
+  return op == kComp ? 2 : 1;
+}
+
+// Rows per sub-table of row body op at ns sub-tables of es-byte entries:
+// a multiple of 16 / es entries (see above).
+constexpr int split_rows(int op, int ns, int es) {
+  return op == kComp ? (ns == 1 ? kCompRows : kCompSplitRows)
+         : kSplitCtaRows / ns >= 16 / es
+             ? kSplitCtaRows / ns / (16 / es) * (16 / es)
+             : 16 / es;
+}
+static_assert(split_rows(kMv, 3, 2) % 8 == 0 && split_rows(kMv, 8, 2) % 8 == 0
+                  && split_rows(kMv2, 3, 4) % 4 == 0,
+              "kernel 5's and 6's stretches start on 16-byte boundaries");
 
 struct SubTables {
   const void* p[kMaxSplit];
@@ -308,71 +341,6 @@ struct SubTables {
 struct SplitReal {
   long long n[kMaxSplit];
 };
-
-// Copy count entries at element offset off of each of the NS sub-tables
-// into dst as rows of k entries at row stride ks, sub-table j at
-// dst + j * jstride, loading only the entries of real rows (a 16-byte vector
-// that straddles the end of the real rows is loaded whole: it lies inside
-// the sub-table).  All sub-tables share their base alignment mod 16 (the
-// wrapper checks 16-byte aligned bases), so they share the unaligned head.
-// NS is a compile-time constant: j indexes the by-value pointer array with
-// compile-time indices only (a run-time index would put the kernel
-// parameters in local memory), and a thread holds NS vectors, not
-// kMaxSplit.
-template <typename T, int NS>
-__device__ __forceinline__ void stage_rows_split(
-    const SubTables& subs, const SplitReal& real, long long off, int count,
-    int k, int ks, int jstride, float* __restrict__ dst) {
-  constexpr int V = 16 / sizeof(T);
-  const uintptr_t addr =
-      reinterpret_cast<uintptr_t>(static_cast<const T*>(subs.p[0]) + off);
-  int head = static_cast<int>(((16 - (addr & 15)) & 15) / sizeof(T));
-  if (head > count) head = count;
-  const int nvec = (count - head) / V;
-  const int tail0 = head + nvec * V;
-  // head and tail, one entry per thread
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    const T* src = static_cast<const T*>(subs.p[j]) + off;
-    float* d = dst + j * jstride;
-    const long long l = real.n[j] - off;  // real entries in this stretch
-    const int lim = static_cast<int>(l < 0 ? 0 : (l > count ? count : l));
-    const int hj = head < lim ? head : lim;
-    for (int c = threadIdx.x; c < hj; c += blockDim.x)
-      d[(c / k) * ks + c % k] = to_f32(src[c]);
-    for (int c = tail0 + threadIdx.x; c < lim; c += blockDim.x)
-      d[(c / k) * ks + c % k] = to_f32(src[c]);
-  }
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const int e0 = head + i * V;
-    const long long pos = off + e0;
-    uint4 w[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      if (pos < real.n[j]) {
-        const T* src = static_cast<const T*>(subs.p[j]) + off + head;
-        w[j] = __ldg(reinterpret_cast<const uint4*>(src) + i);
-      }
-    }
-    const int row0 = e0 / k, col0 = e0 - row0 * k;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      if (pos < real.n[j]) {
-        float v[V];
-        unpack<T>(w[j], v);
-        int row = row0, col = col0;
-#pragma unroll
-        for (int q = 0; q < V; ++q) {
-          dst[j * jstride + row * ks + col] = v[q];
-          if (++col == k) {
-            col = 0;
-            ++row;
-          }
-        }
-      }
-    }
-  }
-}
 
 // Global output row of row sr of sub-table j, or -1 for a row of the pad.
 __device__ __forceinline__ long long global_row(long long sr, int j, int ns,
@@ -399,143 +367,87 @@ __device__ __forceinline__ SplitTile split_tile_of(long long nsub_rows,
   return t;
 }
 
-template <typename T, int NS>
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv_splitk_kernel(SubTables subs, SplitReal real,
-                           const float* __restrict__ x, float* __restrict__ y,
-                           long long nsub_rows, long long nblk, int m, int k,
-                           int ks, int R, int tile) {
-  extern __shared__ float smem[];
-  const SplitTile t = split_tile_of(nsub_rows, R);
-  stage_rows_split<T, NS>(subs, real, t.r0 * k, t.nrows * k, k, ks, R * ks,
-                          smem);
-  __syncthreads();
-  for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
-    const int j = e / t.nrows, rr = e - j * t.nrows;
-    const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
-    if (g < 0) continue;
-    const float* ar = smem + (j * R + rr) * ks;
-    const float* xb = x + (g / m) * k;
-    float acc = 0.0f;
-    for (int c = 0; c < k; ++c) acc = fmaf(ar[c], __ldg(xb + c), acc);
-    y[g] = acc;
-  }
-}
+// A CTA's shared memory after stage_split: the mbarrier; the NT tables'
+// stretches (table i, sub-table j at tab[i] + j * R * k entries); the NX
+// x vectors of the xb = (R - 1) / m + 2 sub-table blocks a stretch can
+// touch (vector i, sub-table j at x[i] + j * xb * k floats).
+template <typename T, int NT, int NX>
+struct SplitSmem {
+  uint64_t* bar;
+  T* tab[NT];
+  float* x[NX];
+};
 
-template <int NS>
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv2_splitk_kernel(SubTables his, SubTables los, SplitReal real,
-                            const float* __restrict__ x, float* __restrict__ y,
-                            long long nsub_rows, long long nblk, int m, int k,
-                            int ks, int R, int tile) {
-  extern __shared__ float smem[];
-  const SplitTile t = split_tile_of(nsub_rows, R);
-  float* th = smem;
-  float* tl = smem + NS * R * ks;
-  stage_rows_split<float, NS>(his, real, t.r0 * k, t.nrows * k, k, ks,
-                              R * ks, th);
-  stage_rows_split<float, NS>(los, real, t.r0 * k, t.nrows * k, k, ks,
-                              R * ks, tl);
-  __syncthreads();
-  for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
-    const int j = e / t.nrows, rr = e - j * t.nrows;
-    const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
-    if (g < 0) continue;
-    const float* hr = th + (j * R + rr) * ks;
-    const float* lr = tl + (j * R + rr) * ks;
-    const float* xb = x + (g / m) * k;
-    float acc_hi = 0.0f, acc_lo = 0.0f;
-    for (int c = 0; c < k; ++c) {
-      const float xc = __ldg(xb + c);
-      acc_hi = fmaf(hr[c], xc, acc_hi);
-      acc_lo = fmaf(lr[c], xc, acc_lo);
-    }
-    y[g] = acc_hi + acc_lo;
-  }
-}
-
-// The compensated double-single product (kernel 7; at NS = 1 kernel 4):
-// (y_hi, y_lo) with y_hi + y_lo ~ (A_hi + A_lo)(x_hi + x_lo) to ~2^-45 of
-// sum_j |a_ij x_j|.  The dominant products a_hi * x_hi are split exactly
-// (two_prod through one fused multiply-add) and summed with two_sum error
-// capture, column by column as in the Pallas kernel.  Every add, subtract
-// and multiply is an explicitly rounded intrinsic, so nvcc cannot contract
-// any of them into an FMA, which would silently drop the error terms (the
-// failure the reference hit on its interpret path, pallas_mv.py:146-154,
-// 191-200).  Build without --use_fast_math.
-//
-// A CTA takes the same stretch of R sub-table rows [r0, r0 + R) of every
-// sub-table of both tables, R = comp_rows(NS) (fewer only where k-wide rows
-// would not fit).  Shared memory: the mbarrier; the 2*NS stretches as the
-// bulk copies land them (rows at stride k, table hi then lo, sub-table j at
-// j*R*k floats); x_hi and x_lo of the xb = (R-1)/m + 2 sub-table blocks a
-// stretch can touch (sub-table j at j*xb*k floats).
-template <int NS>
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv_comp_splitk_kernel(SubTables his, SubTables los, SplitReal real,
-                                const float* __restrict__ x_hi,
-                                const float* __restrict__ x_lo,
-                                float* __restrict__ y_hi,
-                                float* __restrict__ y_lo, long long nsub_rows,
-                                long long nblk, int m, int k, int R, int xb,
-                                int tile) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
-  float* th = reinterpret_cast<float*>(smem_raw + kHeader);
-  float* tl = th + NS * R * k;
-  float* xh = tl + NS * R * k;
-  float* xl = xh + NS * xb * k;
-  const SplitTile t = split_tile_of(nsub_rows, R);
+// Bring the CTA's stretches of NT tables (a0, and a1 if NT = 2) and of NX
+// x vectors (x0, and x1 if NX = 2) on chip, and wait until every byte has
+// landed.  Only the real rows of each sub-table are loaded: their whole
+// 16-byte units by one bulk copy per (table, sub-table), all NT*NS
+// started before anyone waits on their one barrier; the at most V - 1
+// entries after them by plain loads.  NS is a compile-time constant: j
+// indexes the by-value pointer arrays with compile-time indices only (a
+// run-time index would put the kernel parameters in local memory).
+template <typename T, int NT, int NX, int NS>
+__device__ __forceinline__ SplitSmem<T, NT, NX> stage_split(
+    unsigned char* smem_raw, const SubTables& a0, const SubTables& a1,
+    const SplitReal& real, const float* __restrict__ x0,
+    const float* __restrict__ x1, const SplitTile& t, long long nblk, int m,
+    int k, int R, int xb, int tile) {
+  constexpr int V = 16 / sizeof(T);
+  SplitSmem<T, NT, NX> s;
+  s.bar = reinterpret_cast<uint64_t*>(smem_raw);
+  T* tp = reinterpret_cast<T*>(smem_raw + kHeader);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) s.tab[i] = tp + i * NS * R * k;
+  float* xp = reinterpret_cast<float*>(tp + NT * NS * R * k);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) s.x[i] = xp + i * NS * xb * k;
   const long long off = t.r0 * k;
   const int count = t.nrows * k;
   if (threadIdx.x == 0) {
-    mbar_init(bar, blockDim.x);
+    mbar_init(s.bar, blockDim.x);
     mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    // Only the real rows of each sub-table (the zero pad is not loaded):
-    // their whole 16-byte units by one bulk copy per (table, sub-table),
-    // all 2*NS started before anyone waits on their one barrier; the at
-    // most three floats after them by plain loads.  Every start is 16-byte
-    // aligned: the bases are, and r0 * k is a multiple of 4 (R is).
     int lim[NS];
     uint32_t bytes = 0;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const long long l = real.n[j] - off;  // real entries in this stretch
       lim[j] = static_cast<int>(l < 0 ? 0 : (l > count ? count : l));
-      bytes += 2u * 4u * static_cast<uint32_t>(lim[j] & ~3);
+      bytes += static_cast<uint32_t>(NT * sizeof(T)) *
+               static_cast<uint32_t>(lim[j] & ~(V - 1));
     }
-    if (bytes) mbar_expect_tx(bar, bytes);
+    if (bytes) mbar_expect_tx(s.bar, bytes);
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      const float* h = static_cast<const float*>(his.p[j]) + off;
-      const float* l = static_cast<const float*>(los.p[j]) + off;
-      float* dh = th + j * R * k;
-      float* dl = tl + j * R * k;
-      const int whole = lim[j] & ~3;
+      const T* src[NT];
+      src[0] = static_cast<const T*>(a0.p[j]) + off;
+      if constexpr (NT == 2) src[1] = static_cast<const T*>(a1.p[j]) + off;
+      const int whole = lim[j] & ~(V - 1);
       if (whole) {
-        bulk_copy(dh, h, 4u * whole, bar);
-        bulk_copy(dl, l, 4u * whole, bar);
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          bulk_copy(s.tab[i] + j * R * k, src[i],
+                    static_cast<uint32_t>(sizeof(T)) * whole, s.bar);
       }
       for (int c = whole; c < lim[j]; ++c) {
-        dh[c] = __ldg(h + c);
-        dl[c] = __ldg(l + c);
+#pragma unroll
+        for (int i = 0; i < NT; ++i) s.tab[i][j * R * k + c] = __ldg(src[i] + c);
       }
     }
   }
   // x of the touched blocks, by every thread beside the copies: stretch
   // block b of sub-table j is global block gb (a stretch that crosses a
   // tile boundary jumps in gb; blocks of the pad are skipped).  Each
-  // thread issues kXLoads pairs of loads before it stores any: with few
+  // thread issues kXLoads rounds of loads before it stores any: with few
   // rows per block (m = 4) the x of a stretch is a sixth of its table
   // bytes, and one load in flight per thread would serialize on latency.
   const long long sb0 = t.r0 / m;
   const int nbx = static_cast<int>((t.r0 + t.nrows - 1) / m - sb0 + 1);
   const int nx = NS * nbx * k;
   for (int e0 = threadIdx.x; e0 < nx; e0 += kXLoads * blockDim.x) {
-    float vh[kXLoads], vl[kXLoads];
+    float v[NX][kXLoads];
     int at[kXLoads];
 #pragma unroll
     for (int q = 0; q < kXLoads; ++q) {
@@ -547,8 +459,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         const long long sb = sb0 + b, i = sb / tile;
         const long long gb = (i * NS + j) * tile + (sb - i * tile);
         if (gb < nblk) {
-          vh[q] = __ldg(x_hi + gb * k + c);
-          vl[q] = __ldg(x_lo + gb * k + c);
+          v[0][q] = __ldg(x0 + gb * k + c);
+          if constexpr (NX == 2) v[1][q] = __ldg(x1 + gb * k + c);
           at[q] = (j * xb + b) * k + c;
         }
       }
@@ -556,75 +468,133 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
     for (int q = 0; q < kXLoads; ++q) {
       if (at[q] >= 0) {
-        xh[at[q]] = vh[q];
-        xl[at[q]] = vl[q];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) s.x[i][at[q]] = v[i][q];
       }
     }
   }
-  mbar_arrive(bar);  // releases this thread's stores
-  mbar_wait(bar, 0);  // every store made, every copied byte landed
+  mbar_arrive(s.bar);  // releases this thread's stores
+  mbar_wait(s.bar, 0);  // every store made, every copied byte landed
+  return s;
+}
+
+// f(c, a, b) for the entries c = 0..k-1 of the row at ao, in column order,
+// a from table 0 and b from table NT - 1, widened to f32.  Where a row holds
+// whole 16-byte vectors (k a multiple of V) they are read a vector at a
+// time: at row stride k the threads of a warp then meet at most 4-way bank
+// conflicts (none at odd k / V), where entry-by-entry reads would meet up
+// to 16-way ones (gcd(k, 32) for f32: 16 at k = 48).
+template <typename T, int NT, typename F>
+__device__ __forceinline__ void walk_row(T* const (&tab)[NT], int ao, int k,
+                                         F&& f) {
+  constexpr int V = 16 / sizeof(T);
+  if (k % V == 0) {
+    for (int c0 = 0; c0 < k; c0 += V) {
+      float a[NT][V];
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        unpack<T>(*reinterpret_cast<const uint4*>(tab[i] + ao + c0), a[i]);
+#pragma unroll
+      for (int q = 0; q < V; ++q) f(c0 + q, a[0][q], a[NT - 1][q]);
+    }
+  } else {
+    for (int c = 0; c < k; ++c)
+      f(c, to_f32(tab[0][ao + c]), to_f32(tab[NT - 1][ao + c]));
+  }
+}
+
+// The compensated double-single product of kComp (kernel 7; at NS = 1
+// kernel 4): (y_hi, y_lo) with y_hi + y_lo ~ (A_hi + A_lo)(x_hi + x_lo) to
+// ~2^-45 of sum_j |a_ij x_j|.  The dominant products a_hi * x_hi are split
+// exactly (two_prod through one fused multiply-add) and summed with two_sum
+// error capture, column by column as in the Pallas kernel.  Every add,
+// subtract and multiply is an explicitly rounded intrinsic, so nvcc cannot
+// contract any of them into an FMA, which would silently drop the error
+// terms (the failure the reference hit on its interpret path,
+// pallas_mv.py:146-154, 191-200).  Build without --use_fast_math.
+//
+// Parameters: a0 (and a1: lo) the sub-tables, x0 (and x1: x_lo) the
+// vectors, y0 (and y1: y_lo) the outputs; unused ones are never read.
+template <int OP, typename T, int NS>
+__global__ void __launch_bounds__(kMaxThreads)
+    splitk_kernel(SubTables a0, SubTables a1, SplitReal real,
+                  const float* __restrict__ x0, const float* __restrict__ x1,
+                  float* __restrict__ y0, float* __restrict__ y1,
+                  long long nsub_rows, long long nblk, int m, int k, int R,
+                  int xb, int tile) {
+  constexpr int NT = split_tables(OP), NX = split_xs(OP);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const SplitTile t = split_tile_of(nsub_rows, R);
+  const SplitSmem<T, NT, NX> s = stage_split<T, NT, NX, NS>(
+      smem_raw, a0, a1, real, x0, x1, t, nblk, m, k, R, xb, tile);
+  const long long sb0 = t.r0 / m;
   for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
     const int j = e / t.nrows, rr = e - j * t.nrows;
     const long long g = global_row(t.r0 + rr, j, NS, m, tile, nblk);
     if (g < 0) continue;
-    const float* hr = th + (j * R + rr) * k;
-    const float* lr = tl + (j * R + rr) * k;
+    const int ao = (j * R + rr) * k;
     const int xo = (j * xb + static_cast<int>((t.r0 + rr) / m - sb0)) * k;
-    // two_prod, then two_sum(s, p), the small terms summed beside
-    float s = 0.0f, sl = 0.0f;
-    for (int c = 0; c < k; ++c) {
-      const float ah = hr[c], al = lr[c];
-      const float xhj = xh[xo + c], xlj = xl[xo + c];
-      const float p = __fmul_rn(ah, xhj);
-      const float err = __fmaf_rn(ah, xhj, -p);
-      const float small =
-          __fadd_rn(__fadd_rn(__fmul_rn(ah, xlj), __fmul_rn(al, xhj)), err);
-      const float tt = __fadd_rn(s, p);
-      const float bb = __fsub_rn(tt, s);
-      const float e2 =
-          __fadd_rn(__fsub_rn(s, __fsub_rn(tt, bb)), __fsub_rn(p, bb));
-      s = tt;
-      sl = __fadd_rn(sl, __fadd_rn(e2, small));
+    const float* xr = s.x[0] + xo;
+    if constexpr (OP == kMv) {
+      float acc = 0.0f;
+      walk_row(s.tab, ao, k, [&](int c, float a, float) {
+        acc = fmaf(a, xr[c], acc);
+      });
+      y0[g] = acc;
+    } else if constexpr (OP == kMv2) {
+      float acc_hi = 0.0f, acc_lo = 0.0f;
+      walk_row(s.tab, ao, k, [&](int c, float h, float l) {
+        const float xc = xr[c];
+        acc_hi = fmaf(h, xc, acc_hi);
+        acc_lo = fmaf(l, xc, acc_lo);
+      });
+      y0[g] = acc_hi + acc_lo;
+    } else {
+      const float* xl = s.x[NX - 1] + xo;
+      // two_prod, then two_sum(sh, p), the small terms summed beside
+      float sh = 0.0f, sl = 0.0f;
+      walk_row(s.tab, ao, k, [&](int c, float ah, float al) {
+        const float xhj = xr[c], xlj = xl[c];
+        const float p = __fmul_rn(ah, xhj);
+        const float err = __fmaf_rn(ah, xhj, -p);
+        const float small =
+            __fadd_rn(__fadd_rn(__fmul_rn(ah, xlj), __fmul_rn(al, xhj)), err);
+        const float tt = __fadd_rn(sh, p);
+        const float bb = __fsub_rn(tt, sh);
+        const float e2 =
+            __fadd_rn(__fsub_rn(sh, __fsub_rn(tt, bb)), __fsub_rn(p, bb));
+        sh = tt;
+        sl = __fadd_rn(sl, __fadd_rn(e2, small));
+      });
+      y0[g] = sh;
+      y1[g] = sl;
     }
-    y_hi[g] = s;
-    y_lo[g] = sl;
   }
 }
 
 struct Launch {
-  int R = 0;        // rows per CTA
+  int R = 0;        // rows per CTA (split-k: per sub-table)
   int threads = 0;  // threads per CTA
   unsigned int grid = 0;
   size_t smem = 0;  // dynamic shared memory bytes
 };
 
-// Largest row stretch whose ntab x ns sub-table tiles fit the budget.
-Launch plan_splitk(long long nsub_rows, int ks, int ntab, int ns) {
+// Split-k launch: split_rows rows per sub-table, or the largest multiple of
+// V below it whose NT*ns stretches and NX x stages fit opt-in shared
+// memory.  Threads: one per (sub-table, row), or as many as issue every x
+// load of a stretch in one round of kXLoads, whichever is more (at most
+// kMaxThreads): 64 on 54 x 54 blocks at k = 2, 256 on the 4 x 54 blocks of
+// B.
+template <int OP, typename T>
+Launch plan_split(long long nsub_rows, int m, int k, int ns) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int NT = split_tables(OP), NX = split_xs(OP);
   Launch L;
-  const long long per_row = 4LL * ntab * ns * ks;
-  long long R = kSmemBudget / per_row;
-  if (R > kMaxThreads) R = kMaxThreads;
-  if (R < 1) return L;
-  L.R = static_cast<int>(R);
-  const long long work = static_cast<long long>(ns) * R;
-  L.threads = work >= kMaxThreads ? kMaxThreads
-                                  : static_cast<int>((work + 31) / 32 * 32);
-  L.smem = static_cast<size_t>(per_row * R);
-  L.grid = static_cast<unsigned int>((nsub_rows + R - 1) / R);
-  return L;
-}
-
-// Kernels 4 and 7: comp_rows(ns) rows per sub-table, or the largest
-// multiple of 4 below it whose 2*ns stretches and x stages fit opt-in
-// shared memory.
-// Threads: one per (sub-table, row), or as many as issue every x load of a
-// stretch in one round of kXLoads, whichever is more (at most kMaxThreads):
-// 64 on 54 x 54 blocks at k = 2, 256 on the 4 x 54 blocks of B.
-Launch plan_comp_splitk(long long nsub_rows, int m, int k, int ns) {
-  Launch L;
-  for (int R = comp_rows(ns); R >= 4; R -= 4) {
+  for (int R = split_rows(OP, ns, sizeof(T)); R >= V; R -= V) {
     const long long xb = (R - 1) / m + 2;
-    const long long bytes = kHeader + 4LL * 2 * ns * (R + xb) * k;
+    const long long bytes =
+        kHeader + static_cast<long long>(sizeof(T)) * NT * ns * R * k +
+        4LL * NX * ns * xb * k;
     if (bytes <= kSmemOptIn) {
       L.R = R;
       long long want = static_cast<long long>(ns) * R;
@@ -641,11 +611,12 @@ Launch plan_comp_splitk(long long nsub_rows, int m, int k, int ns) {
   return L;
 }
 
-template <int NS>
-cudaError_t comp_splitk_opt_in() {
+// Opt in to kSmemOptIn bytes once per instantiation.
+template <int OP, typename T, int NS>
+cudaError_t split_opt_in() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      block_mv_comp_splitk_kernel<NS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+      splitk_kernel<OP, T, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemOptIn);
   return err;
 }
 
@@ -655,6 +626,14 @@ inline bool bad_split(int ns, long long nblk, long long nsub, int m, int k,
          tile <= 0 || nsub % tile != 0 || nblk > ns * nsub;
 }
 
+// Any of the ns sub-table bases off a 16-byte boundary (the bulk copies
+// start there).
+inline bool misaligned(const void* const* p, int ns) {
+  for (int j = 0; j < ns; ++j)
+    if (reinterpret_cast<uintptr_t>(p[j]) % 16 != 0) return true;
+  return false;
+}
+
 SubTables sub_tables(const void* const* p, int ns) {
   SubTables s;
   for (int j = 0; j < kMaxSplit; ++j) s.p[j] = j < ns ? p[j] : p[0];
@@ -662,7 +641,7 @@ SubTables sub_tables(const void* const* p, int ns) {
 }
 
 // Calls f(std::integral_constant<int, ns>()) for ns in 1..kMaxSplit: the
-// split-k kernels are instantiated per sub-table count.
+// split-k kernel is instantiated per sub-table count.
 template <typename F>
 void with_split(int ns, F&& f) {
   switch (ns) {
@@ -692,6 +671,35 @@ SplitReal split_real(int ns, long long nblk, int m, int k, int tile) {
     r.n[j] = blocks * m * k;
   }
   return r;
+}
+
+// One split-k launch of row body OP: a0 (and a1) point at ns sub-table
+// pointers (host memory), each 16-byte aligned; unused operands may be
+// null.
+template <int OP, typename T>
+int launch_split(const void* const* a0, const void* const* a1, int ns,
+                 const float* x0, const float* x1, float* y0, float* y1,
+                 long long nblk, int m, int k, long long nsub, int tile,
+                 void* stream) {
+  if (bad_split(ns, nblk, nsub, m, k, tile) || misaligned(a0, ns) ||
+      misaligned(a1, ns))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const Launch L = plan_split<OP, T>(nsub * m, m, k, ns);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  with_split(ns, [&](auto c) {
+    constexpr int NS = decltype(c)::value;
+    err = split_opt_in<OP, T, NS>();
+    if (err != cudaSuccess) return;
+    splitk_kernel<OP, T, NS>
+        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
+            sub_tables(a0, ns), sub_tables(a1, ns),
+            split_real(ns, nblk, m, k, tile), x0, x1, y0, y1, nsub * m, nblk,
+            m, k, L.R, (L.R - 1) / m + 2, tile);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Largest row tile whose ntab table tiles (row stride ks) and nxv x stages
@@ -787,64 +795,31 @@ int nstt_block_mv_ds_f32(const float* a_hi, const float* a_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Split-k entry points: subs points at ns sub-table pointers (host memory),
-// nblk is the real block count (rows of x and y), nsub the blocks of each
-// sub-table (a multiple of tile).
+// Split-k entry points: subs (his, los) point at ns sub-table pointers
+// (host memory), each 16-byte aligned; nblk is the real block count (rows
+// of x and y), nsub the blocks of each sub-table (a multiple of tile).
 
 int nstt_block_mv_splitk_f32(const void* const* subs, int ns, const float* x,
                              float* y, long long nblk, int m, int k,
                              long long nsub, int tile, void* stream) {
-  if (bad_split(ns, nblk, nsub, m, k, tile))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nblk == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan_splitk(nsub * m, ks, 1, ns);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  with_split(ns, [&](auto c) {
-    block_mv_splitk_kernel<float, decltype(c)::value>
-        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
-            sub_tables(subs, ns), split_real(ns, nblk, m, k, tile), x, y,
-            nsub * m, nblk, m, k, ks, L.R, tile);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return launch_split<kMv, float>(subs, subs, ns, x, nullptr, y, nullptr,
+                                  nblk, m, k, nsub, tile, stream);
 }
 
 int nstt_block_mv_splitk_bf16(const void* const* subs, int ns, const float* x,
                               float* y, long long nblk, int m, int k,
                               long long nsub, int tile, void* stream) {
-  if (bad_split(ns, nblk, nsub, m, k, tile))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nblk == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan_splitk(nsub * m, ks, 1, ns);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  with_split(ns, [&](auto c) {
-    block_mv_splitk_kernel<__nv_bfloat16, decltype(c)::value>
-        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
-            sub_tables(subs, ns), split_real(ns, nblk, m, k, tile), x, y,
-            nsub * m, nblk, m, k, ks, L.R, tile);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return launch_split<kMv, __nv_bfloat16>(subs, subs, ns, x, nullptr, y,
+                                          nullptr, nblk, m, k, nsub, tile,
+                                          stream);
 }
 
 int nstt_block_mv2_splitk_f32(const void* const* his, const void* const* los,
                               int ns, const float* x, float* y,
                               long long nblk, int m, int k, long long nsub,
                               int tile, void* stream) {
-  if (bad_split(ns, nblk, nsub, m, k, tile))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nblk == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan_splitk(nsub * m, ks, 2, ns);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  with_split(ns, [&](auto c) {
-    block_mv2_splitk_kernel<decltype(c)::value>
-        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
-            sub_tables(his, ns), sub_tables(los, ns),
-            split_real(ns, nblk, m, k, tile), x, y, nsub * m, nblk, m, k, ks,
-            L.R, tile);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return launch_split<kMv2, float>(his, los, ns, x, nullptr, y, nullptr,
+                                   nblk, m, k, nsub, tile, stream);
 }
 
 int nstt_block_mv_comp_splitk_f32(const void* const* his,
@@ -853,36 +828,18 @@ int nstt_block_mv_comp_splitk_f32(const void* const* his,
                                   float* y_hi, float* y_lo, long long nblk,
                                   int m, int k, long long nsub, int tile,
                                   void* stream) {
-  if (bad_split(ns, nblk, nsub, m, k, tile))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nblk == 0) return 0;
-  const Launch L = plan_comp_splitk(nsub * m, m, k, ns);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSuccess;
-  with_split(ns, [&](auto c) {
-    constexpr int NS = decltype(c)::value;
-    err = comp_splitk_opt_in<NS>();
-    if (err != cudaSuccess) return;
-    block_mv_comp_splitk_kernel<NS>
-        <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
-            sub_tables(his, ns), sub_tables(los, ns),
-            split_real(ns, nblk, m, k, tile), x_hi, x_lo, y_hi, y_lo,
-            nsub * m, nblk, m, k, L.R, (L.R - 1) / m + 2, tile);
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split<kComp, float>(his, los, ns, x_hi, x_lo, y_hi, y_lo,
+                                    nblk, m, k, nsub, tile, stream);
 }
 
 // Kernel 4: the compensated kernel at one sub-table, the table itself (one
 // tile of nblk blocks, every row real).  Both tables 16-byte aligned: the
-// bulk copies start there.
+// bulk copies start there (launch_split refuses any other).
 int nstt_block_mv_comp_f32(const float* a_hi, const float* a_lo,
                            const float* x_hi, const float* x_lo, float* y_hi,
                            float* y_lo, long long nblk, int m, int k,
                            void* stream) {
-  if (bad_shape(nblk, m, k) || nblk > INT_MAX ||
-      reinterpret_cast<uintptr_t>(a_hi) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(a_lo) % 16 != 0)
+  if (bad_shape(nblk, m, k) || nblk > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblk == 0) return 0;
   const void* his[1] = {a_hi};

@@ -23,8 +23,11 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 
 Three more run the same functions over a table cut into k
 consecutive-tile sub-tables (:func:`pack_splitk`), all k given to ONE
-launch as separate operands, with every sub-table's loads issued before
-the arithmetic:
+launch as separate operands.  They are one CUDA kernel with three row
+bodies: each CTA brings its stretch of every (table, sub-table) on chip by
+one bulk asynchronous copy, all started before any wait, and stages x in
+shared memory beside them; every sub-table must start on a 16-byte
+boundary (a fresh allocation does; a view may not, and raises):
 
 * :func:`block_mv_splitk` replaces ``_mv_kernel_splitk``
   (pallas_mv.py:305);
@@ -515,8 +518,11 @@ def block_mv_splitk(subs, x: torch.Tensor, tile: int) -> torch.Tensor:
 
     Replaces ``_mv_kernel_splitk`` (navier_stokes_tpu/ops/pallas_mv.py:305).
     Bound by the table stream of the real blocks: nblk*m*kk*itemsize
-    bytes / 3.35 TB/s (the kernel does not load the zero pad).  Bitwise
-    equal to :func:`block_mv` on the unsplit table."""
+    bytes / 3.35 TB/s (the kernel does not load the zero pad).  The
+    kernel brings each sub-table's stretch of a CTA on chip with one bulk
+    asynchronous copy, bf16 entries as stored (widened where used), and
+    stages x in shared memory.  Bitwise equal to :func:`block_mv` on the
+    unsplit table."""
     subs = _check_subs(subs, "block_mv_splitk tables",
                        (torch.float32, torch.bfloat16))
     _check_split_x(x, subs, tile, "block_mv_splitk x")
@@ -557,7 +563,9 @@ def block_mv2_splitk(his, los, x: torch.Tensor, tile: int) -> torch.Tensor:
 
     Replaces ``_mv2_kernel_splitk`` (navier_stokes_tpu/ops/pallas_mv.py:358).
     Bound: 2*nblk*m*kk*4 bytes / 3.35 TB/s (the zero pad is not loaded).
-    Bitwise equal to :func:`block_mv2` on the unsplit pair."""
+    The kernel brings each (table, sub-table) stretch of a CTA on chip with
+    one bulk asynchronous copy and stages x in shared memory.  Bitwise
+    equal to :func:`block_mv2` on the unsplit pair."""
     his, los = _check_pair(his, los, "block_mv2_splitk")
     _check_split_x(x, his, tile, "block_mv2_splitk x")
     if _device_kind(his[0]) == "cpu":

@@ -10,7 +10,8 @@ with numpy from a seed and handed to both.  Tolerances:
 * block_mv_comp: y_hi + y_lo within 1e-12 of sum_j |a_ij x_j| of the f64
   product, as the Pallas kernel is held (test_pallas_mv.py:125-151);
 * the split-k versions: the same bounds against the JAX split-k launchers,
-  fed through ``_pack_splitk`` (tests/test_pallas_mv.py:196-240); the
+  fed through ``_pack_splitk`` (tests/test_pallas_mv.py:196-240), also at
+  the edges of the kernels' CTA stretches (``EDGE_SPLITK``); the
   port's sub-tables EQUAL the JAX sub-tables up to layout; the compensated
   split-k version BITWISE equal to the unsplit one on the cancellation
   case, and the face-block applies at split_k=2 equal to split_k=1.
@@ -41,13 +42,14 @@ from navier_stokes_tpu_torch.ops.local_mv import batched_local_matvec
 
 NE, NB, TILE = 37, 14, 16  # deliberately non-multiple ne, as test_pallas_mv
 STILE = 8  # split-k tile: 5 tiles, which neither k = 2 nor k = 3 divides
-# The edges of kernel 7's CTA stretches (32 rows of every sub-table; the
-# same shapes as chip_smoke.EDGE_SPLITK), (nblk, m, k, tile): stretches
-# that cross a tile boundary (tile * m not a multiple of 32), rows * k not a
-# multiple of 4 floats, real rows that end mid-stretch, and at k = 8
-# sub-tables of zero pad only.
+# The edges of the split-k kernels' CTA stretches (kernels 5-7; the same
+# shapes as chip_smoke.EDGE_SPLITK), (nblk, m, k, tile): stretches that
+# cross a tile boundary (tile * m not a multiple of the rows per
+# stretch), rows * k not a multiple of 4 floats or of 8 bf16 entries
+# (ragged tails of up to 7 entries after the last whole 16-byte unit), real
+# rows that end mid-stretch, and at k = 8 sub-tables of zero pad only.
 EDGE_SPLITK = [(37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
-               (45, 54, 4, 3), (5, 3, 7, 2)]
+               (45, 54, 4, 3), (5, 3, 7, 2), (19, 5, 3, 4), (203, 7, 9, 16)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -272,6 +274,62 @@ def test_block_mv_comp_splitk_edges_match_pallas(nblk, m, kk, tile, k):
     _assert_within(got, jax_got, scale, 1e-12)
     rh, rl = bm.block_mv_comp(ah, al, x_hi, x_lo)
     assert torch.equal(yh, rh) and torch.equal(yl, rl)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("nblk,m,kk,tile", EDGE_SPLITK)
+def test_block_mv_splitk_edges_match_pallas(nblk, m, kk, tile, k, dtype):
+    """Kernel 5 at the edges of its CTA stretches: the JAX split-k launcher
+    in interpret mode against the port (its plain version on the CPU) on
+    the same stored table, within 1e-5 of sum_j |a_ij x_j| (f32
+    arithmetic, sums in another order), and the port within 1e-6 of the
+    unsplit block_mv (on the card the two are bitwise equal)."""
+    rng = np.random.default_rng(80 + k)
+    A = rng.standard_normal((nblk, m, kk)).astype(np.float32)
+    x = rng.standard_normal((nblk, kk)).astype(np.float32)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    At = torch.from_numpy(A).to(tdt)
+    A_r = At.to(torch.float32).numpy()  # as stored
+    got = bm.block_mv_splitk(bm.pack_splitk(At, k, tile), torch.from_numpy(x),
+                             tile).numpy()
+    assert got.dtype == np.float32 and got.shape == (nblk, m)
+    jsubs, npad = _jax_splitk(A_r, k, tile)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    want = np.asarray(_call_mv_splitk(
+        k, _soa(x, npad), *[jnp.asarray(a).astype(jdt) for a in jsubs],
+        interpret=True))[:, :nblk].T
+    scale = _row_scale(A_r, x)
+    _assert_within(got, want, scale, 1e-5)
+    _assert_within(got, bm.block_mv(At, torch.from_numpy(x)).numpy(), scale,
+                   1e-6)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("nblk,m,kk,tile", EDGE_SPLITK)
+def test_block_mv2_splitk_edges_match_pallas(nblk, m, kk, tile, k):
+    """Kernel 6 at the edges of its CTA stretches: the JAX split-k launcher
+    in interpret mode against the port, within 1e-5 of sum_j |a_ij x_j|
+    of the f64 table, and the port within 1e-6 of the unsplit block_mv2."""
+    rng = np.random.default_rng(90 + k)
+    A64 = rng.standard_normal((nblk, m, kk))
+    A_hi = A64.astype(np.float32)
+    A_lo = (A64 - A_hi.astype(np.float64)).astype(np.float32)
+    x = rng.standard_normal((nblk, kk)).astype(np.float32)
+    ah, al = torch.from_numpy(A_hi), torch.from_numpy(A_lo)
+    got = bm.block_mv2_splitk(bm.pack_splitk(ah, k, tile),
+                              bm.pack_splitk(al, k, tile),
+                              torch.from_numpy(x), tile).numpy()
+    assert got.dtype == np.float32 and got.shape == (nblk, m)
+    hs, npad = _jax_splitk(A_hi, k, tile)
+    ls, _ = _jax_splitk(A_lo, k, tile)
+    want = np.asarray(_call_mv2_splitk(
+        k, _soa(x, npad), *[jnp.asarray(a) for a in hs + ls],
+        interpret=True))[:, :nblk].T
+    scale = _row_scale(A64, x)
+    _assert_within(got, want, scale, 1e-5)
+    _assert_within(got, bm.block_mv2(ah, al, torch.from_numpy(x)).numpy(),
+                   scale, 1e-6)
 
 
 def test_make_table_apply_splitk_equals_unsplit():
@@ -530,3 +588,95 @@ def test_block_mv_comp_equals_splitk_on_card():
         bm.block_mv_comp(view, table, x, x)
     with pytest.raises(ValueError, match="16-byte"):
         bm.block_mv_comp(table, view, x, x)
+
+
+# (nblk, m, k, tile) of the card tests of kernels 5 and 6 beyond
+# EDGE_SPLITK: tiles of 2 to 256 blocks, rows of 1 to 132 entries, f32 rows
+# of whole 16-byte vectors (k = 48: read a vector at a time) and not
+CARD_SPLITK = [(7, 1, 1, 2), (130, 12, 9, 256), (600, 48, 48, 64),
+               (257, 6, 48, 128), (90, 48, 6, 5), (41, 132, 132, 4),
+               (1000, 6, 6, 256)]
+
+
+def _card_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_mv_splitk_equals_block_mv_on_card(dtype):
+    """On the card: kernel 5 BITWISE equal to block_mv on the unsplit table
+    at k = 1..8, for tiles of 2 to 256 blocks, stretches across tile
+    boundaries and sub-tables of zero pad only, and within 1e-5 of
+    sum_j |a_ij x_j| of its plain version."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for nblk, m, kk, tile in EDGE_SPLITK + CARD_SPLITK:
+        A = torch.randn((nblk, m, kk), generator=gen, device="cuda").to(dtype)
+        x = torch.randn((nblk, kk), generator=gen, device="cuda")
+        want = bm.block_mv(A, x)
+        scale = torch.einsum("bmk,bk->bm", A.double().abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        for k in range(1, 9):
+            subs = bm.pack_splitk(A, k, tile)
+            y = bm.block_mv_splitk(subs, x, tile)
+            d = (y - bm.block_mv_splitk_plain(subs, x, tile)).abs()
+            assert torch.equal(y, want), (nblk, m, kk, tile, k)
+            assert float((d / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_block_mv2_splitk_equals_block_mv2_on_card():
+    """On the card: kernel 6 BITWISE equal to block_mv2 on the unsplit pair
+    at k = 1..8 on the shapes of the kernel-5 card test, and within 1e-5
+    of sum_j |a_ij x_j| of its plain version."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    for nblk, m, kk, tile in EDGE_SPLITK + CARD_SPLITK:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        x = torch.randn((nblk, kk), generator=gen, device="cuda")
+        want = bm.block_mv2(hi, lo, x)
+        scale = torch.einsum("bmk,bk->bm", A64.abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        for k in range(1, 9):
+            hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            y = bm.block_mv2_splitk(hs, ls, x, tile)
+            d = (y - bm.block_mv2_splitk_plain(hs, ls, x, tile)).abs()
+            assert torch.equal(y, want), (nblk, m, kk, tile, k)
+            assert float((d / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_splitk_refuses_misaligned_sub_table_on_card():
+    """On the card: a sub-table view that does not start on a 16-byte
+    boundary is refused by every split-k wrapper, as the bulk copies need,
+    and by the C entry itself."""
+    _card_or_skip()
+    nblk, m, kk = 64, 6, 8
+    flat = torch.zeros(2 + nblk * m * kk, device="cuda")
+    view = flat[1:1 + nblk * m * kk].view(nblk, m, kk)  # 4 bytes off
+    good = torch.zeros((nblk, m, kk), device="cuda")
+    flat16 = torch.zeros(8 + nblk * m * kk, device="cuda",
+                         dtype=torch.bfloat16)
+    view16 = flat16[4:4 + nblk * m * kk].view(nblk, m, kk)  # 8 bytes off
+    x = torch.zeros((nblk, kk), device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_splitk([good, view], x, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_splitk([view16], x, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv2_splitk([view], [good], x, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_comp_splitk([good], [view], x, x, 64)
+    y = torch.empty((nblk, m), device="cuda")
+    rc = bm.load_library().nstt_block_mv_splitk_f32(
+        bm._ptrs([view]), 1, x.data_ptr(), y.data_ptr(), nblk, m, kk, nblk,
+        nblk, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0

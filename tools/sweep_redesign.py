@@ -13,6 +13,24 @@ the card, with an earlier design beside them in the same call.
   ``kCompSplitRows`` in {16, 32, 64}, at k = 2 and 4, on the same shapes
   (tiles 256, 128, 128).  Each variant must be BITWISE equal to the
   package's own ``block_mv_comp``, which is timed beside it.
+* Kernel 6 (``block_mv2_splitk``), rows per CTA summed over its
+  sub-tables ``kSplitCtaRows`` in {32, 64, 128, 256}, at k = 2, 4 and 8
+  (tile 256) on a random hi/lo pair of the shape of A32 (7740 x 54 x 54).
+  Each variant, and the other tree's kernel 6, must be BITWISE equal to
+  the package's own ``block_mv2``; it, the f32 ``torch.bmm`` of the
+  stacked pair and ``block_mv_mega`` on the stacked pair (64 rows per CTA)
+  are timed beside it.
+* Kernel 5 (``block_mv_splitk``), the same constant, on the bench table of
+  kernel 10 (7740 x 54 x 54 f32, k = 2, 4, 8 x tile 128, 256: the six
+  variants of ``make_bmv_splitk_seq``) and at k = 2, 4, 8 (tile 256) on
+  random tables of the shapes of the six tables it streams on the split-k
+  solve's path at maxh=0.09: S, M_F and M_F^T (f32), ext, ext^T and inner
+  (bf16).  Each variant must be BITWISE
+  equal to the package's own ``block_mv``; it, the f32 ``torch.bmm`` and
+  (f32 tables) ``block_mv_mega`` are timed beside it.  As a data point,
+  the package's kernel 5 at k = 1 (one sub-table, the table itself) is
+  timed beside ``block_mv`` on the bench table and on a bf16 table of the
+  shape of a merged GS solve table (1540 x 132 x 132).
 * Kernel 8 (``batched_local_matvec``), rows per CTA ``kRows`` of
   ``csrc/local_mv.cu`` in {32, 64, 128}, in float and double, on random
   tables of the shapes of the transient step's M_loc and A_cond (7740 x 54
@@ -75,6 +93,17 @@ LOCAL_TABLES = (("M_loc", NB), ("A_cond", NB), ("S_inv", NQ))
 COMP1_ROWS = (32, 64, 128)  # kCompRows
 COMP_ROWS = (16, 32, 64)  # kCompSplitRows
 SPLITS = (2, 4)
+SPLIT_ROWS = (32, 64, 128, 256)  # kSplitCtaRows
+MV_SPLITS, MV_TILES, GS_TILE = (2, 4, 8), (128, 256), 256
+NFACE = 16406  # faces at maxh=0.09: the blocks of M_F and M_F^T
+# the six tables of kernel 5 on the split-k solve's path, at maxh=0.09
+GS_TABLES = (("S", NBLK, NB - 6, NB - 6, torch.float32),
+             ("ext", NBLK, 6, NB - 6, torch.bfloat16),
+             ("ext^T", NBLK, NB - 6, 6, torch.bfloat16),
+             ("inner", NBLK, 6, 6, torch.bfloat16),
+             ("M_F", NFACE, 12, 9, torch.float32),
+             ("M_F^T", NFACE, 9, 12, torch.float32))
+GS_SOLVE = (1540, 132, 132)  # a merged GS solve table, bf16
 LOCAL_ROWS = (32, 64, 128)  # kRows
 TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 
@@ -219,6 +248,138 @@ def sweep_comp(timer, libs, rng, times):
     bm._lib = main
 
 
+def timed_variants(timer, libs, call, ref, label, times, section, row,
+                   bound, base):
+    """Every ``block_mv.cu`` library of ``libs`` (the parent first and
+    last, if any) on one call, each BITWISE equal to ``ref``; appends one
+    row per library to ``times[section]`` and prints its line (``base``:
+    the yardstick's ms)."""
+    names = list(libs)
+    ms = {}
+    for key in names + names[::-1]:
+        bm._lib = libs[key]
+        got = call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"{label} {key}: not bitwise equal to the "
+                               "unsplit kernel")
+        ms.setdefault(key, []).append(timer(call))
+    for key in names:
+        times[section].append({**row, "kernel": key, "ms": ms[key]})
+        print(f"  {label} {key:10s} " + " / ".join(f"{t:.4f}" for t in ms[key])
+              + f" ms ({min(ms[key]) / base:.3f} x f32 bmm, "
+              f"{bound / min(ms[key]):.3f} of bound), bitwise = unsplit",
+              flush=True)
+
+
+def sweep_mv2(timer, libs, rng, times):
+    """Kernel 6 on the A32-shaped pair at k = 2, 4, 8, every variant
+    bitwise against the package's own ``block_mv2``."""
+    main = bm.load_library()
+    A64 = torch.as_tensor(rng.standard_normal((NBLK, NB, NB)), device="cuda")
+    hi, lo = bm.split_f64(A64)
+    del A64
+    x = torch.as_tensor(rng.standard_normal((NBLK, NB)).astype(np.float32),
+                        device="cuda")
+    ref = bm.block_mv2(hi, lo, x)
+    Acat = torch.cat([hi, lo], dim=2)
+    xcat = torch.cat([x, x], dim=1).contiguous()
+    xb = xcat[:, :, None]
+    tb = timer(lambda: torch.bmm(Acat, xb))
+    t2 = timer(lambda: bm.block_mv2(hi, lo, x))
+    tm = timer(lambda: sm.block_mv_mega(Acat, xcat, 2, 32))
+    bound = 4 * (2 * hi.numel() + 2 * x.numel()) / 3.35e12 * 1e3
+    times["mv2"] += [{"kernel": "f32 bmm", "ms": [tb]},
+                     {"kernel": "block_mv2", "ms": [t2]},
+                     {"kernel": "block_mv_mega k=2 rows=32", "ms": [tm]}]
+    print(f"[mv2] A32 {tuple(hi.shape)} hi/lo: f32 bmm {tb:.4f} ms, "
+          f"block_mv2 {t2:.4f}, block_mv_mega on the stacked pair {tm:.4f}, "
+          f"bound {bound:.4f}", flush=True)
+    for k in MV_SPLITS:
+        hs, ls = bm.pack_splitk(hi, k, 256), bm.pack_splitk(lo, k, 256)
+        timed_variants(timer, libs,
+                       lambda: bm.block_mv2_splitk(hs, ls, x, 256), ref,
+                       f"k={k}", times, "mv2", {"k": k}, bound, tb)
+        del hs, ls
+    bm._lib = main
+
+
+def sweep_mv(timer, libs, rng, times):
+    """Kernel 5 on the bench table (the six variants of kernel 10) and on
+    the GS-shaped tables at k = 2, 4, 8, every variant bitwise against the
+    package's own ``block_mv``; then kernel 5 at k = 1 beside
+    ``block_mv``."""
+    main = bm.load_library()
+
+    def table(nblk, m, kk, dt):
+        A = torch.as_tensor(rng.standard_normal((nblk, m, kk)).astype(
+            np.float32), device="cuda").to(dt)
+        x = torch.as_tensor(rng.standard_normal((nblk, kk)).astype(
+            np.float32), device="cuda")
+        return A, x
+
+    def yardsticks(name, A, x, section, row):
+        Af, xb = A.to(torch.float32), x[:, :, None]
+        tb = timer(lambda: torch.bmm(Af, xb))
+        t1 = timer(lambda: bm.block_mv(A, x))
+        line = f"f32 bmm {tb:.4f} ms, block_mv {t1:.4f}"
+        times[section] += [{**row, "kernel": "f32 bmm", "ms": [tb]},
+                           {**row, "kernel": "block_mv", "ms": [t1]}]
+        if A.dtype == torch.float32:
+            tm = timer(lambda: sm.block_mv_mega(A, x, 2, 32))
+            line += f", block_mv_mega k=2 rows=32 {tm:.4f}"
+            times[section].append({**row, "kernel": "block_mv_mega",
+                                   "ms": [tm]})
+        bound = (A.numel() * A.element_size() + 4 * x.numel()
+                 + 4 * A.shape[0] * A.shape[1]) / 3.35e12 * 1e3
+        print(f"[{section}] {name} {tuple(A.shape)} {str(A.dtype)[6:]}: "
+              f"{line}, bound {bound:.4f}", flush=True)
+        return tb, bound
+
+    bm._lib = main
+    A, x = table(NBLK, NB, NB, torch.float32)
+    ref = bm.block_mv(A, x)
+    tb, bound = yardsticks("bench", A, x, "mv_bench", {})
+    for k in MV_SPLITS:
+        for tile in MV_TILES:
+            subs = bm.pack_splitk(A, k, tile)
+            timed_variants(timer, libs,
+                           lambda: bm.block_mv_splitk(subs, x, tile), ref,
+                           f"k={k} tile={tile}", times, "mv_bench",
+                           {"table": f"k={k} tile={tile}"}, bound, tb)
+            del subs
+    for name, nblk, m, kk, dt in GS_TABLES:
+        bm._lib = main
+        A, x = table(nblk, m, kk, dt)
+        ref = bm.block_mv(A, x)
+        tb, bound = yardsticks(name, A, x, "mv_gs", {"table": name})
+        for k in MV_SPLITS:
+            subs = bm.pack_splitk(A, k, GS_TILE)
+            timed_variants(timer, libs,
+                           lambda: bm.block_mv_splitk(subs, x, GS_TILE), ref,
+                           f"{name} k={k}", times, "mv_gs",
+                           {"table": name, "k": k}, bound, tb)
+            del subs
+    # kernel 5 at k = 1 beside block_mv (the package's own build)
+    bm._lib = main
+    for name, shape, dt in (("bench", (NBLK, NB, NB), torch.float32),
+                            ("GS solve", GS_SOLVE, torch.bfloat16)):
+        A, x = table(*shape, dt)
+        ref = bm.block_mv(A, x)
+        tb, bound = yardsticks(name, A, x, "k1", {"table": name})
+        got = bm.block_mv_splitk([A], x, A.shape[0])
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"kernel 5 at k=1 {name}: not bitwise equal "
+                               "to block_mv")
+        t = timer(lambda: bm.block_mv_splitk([A], x, A.shape[0]))
+        times["k1"].append({"table": name, "kernel": "block_mv_splitk k=1",
+                            "ms": [t]})
+        print(f"  {name} block_mv_splitk k=1 {t:.4f} ms ({t / tb:.3f} x f32 "
+              f"bmm, {bound / t:.3f} of bound), bitwise = block_mv",
+              flush=True)
+
+
 def sweep_local(timer, libs, rng, times):
     """Kernel 8: every variant on every table in both types."""
     names = list(libs)
@@ -306,7 +467,8 @@ def sweep_ring(timer, libs, rng, times):
 
 def summary(times):
     """Each kernel's sum over its tables of the better pass, per section
-    (and per k for kernel 7, per type for kernel 8)."""
+    (and per k for kernels 5-7, per type for kernel 8; the six variants of
+    ``mv_bench`` summed together)."""
     for section, rows in times.items():
         sums = {}
         for r in rows:
@@ -332,11 +494,13 @@ def main(argv=None):
             for r in COMP1_ROWS}
     jobs.update({("comp", f"R={r}"): variant("block_mv", "kCompSplitRows", r)
                  for r in COMP_ROWS})
+    jobs.update({("split", f"R={r}"): variant("block_mv", "kSplitCtaRows", r)
+                 for r in SPLIT_ROWS})
     jobs.update({("local", f"R={r}"): variant("local_mv", "kRows", r)
                  for r in LOCAL_ROWS})
     jobs[("ring", "this tree")] = variant("stream_mv")
-    sources = {"comp1": "block_mv", "comp": "block_mv", "local": "local_mv",
-               "ring": "stream_mv"}
+    sources = {"comp1": "block_mv", "comp": "block_mv", "split": "block_mv",
+               "local": "local_mv", "ring": "stream_mv"}
     if args.parent:
         csrc = Path(args.parent).resolve() / "navier_stokes_tpu_torch" / "csrc"
         for name in ("block_mv", "local_mv", "stream_mv"):
@@ -361,9 +525,12 @@ def main(argv=None):
     timer = KernelTimer()
     warm_up()
     rng = np.random.default_rng(0)
-    times = {kind: [] for kind in sources}
+    times = {kind: [] for kind in ("comp1", "comp", "mv2", "mv_bench",
+                                   "mv_gs", "k1", "local", "ring")}
     sweep_comp1(timer, libs["comp1"], rng, times)
     sweep_comp(timer, libs["comp"], rng, times)
+    sweep_mv2(timer, libs["split"], rng, times)
+    sweep_mv(timer, libs["split"], rng, times)
     sweep_local(timer, libs["local"], rng, times)
     sweep_ring(timer, libs["ring"], rng, times)
     summary(times)
