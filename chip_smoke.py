@@ -20,9 +20,13 @@ phases; any failed phase ends the run with a non-zero exit:
    time, its byte bound, the plain version's time and one PyTorch library
    call's time as a yardstick; the split-k kernels at k=2 and k=4 on the
    same tables, also BITWISE against their unsplit kernels; slice 1's
-   tables are checked the same way.  A bound counts the bytes the function
-   needs: the split-k kernels' on the unsplit tables (their zero pad is
-   not loaded), the merged GS solve tables' on their real inverse blocks;
+   tables are checked the same way.  The GS solve tables, stored by
+   segment, go through ``block_mv_segments`` (counted as ``block_mv``),
+   held EQUAL (``torch.equal``) to ``block_mv`` on the padded table they
+   stand for, with the bytes each streams in either layout.  A bound
+   counts the bytes the function needs: the split-k kernels' on the
+   unsplit tables (their zero pad is not loaded), the GS solve tables' on
+   their real inverse blocks;
 4. main path: launch counters set to 0, ``FlagshipSolve.full_solve`` of the
    curved GS configuration cold, counters read; every unsplit kernel must
    have launched; then a warm solve; the true-f64 residual of each must be
@@ -71,7 +75,8 @@ condensed-operator and pressure-block tables of the transient step),
 table-stream kernels (``block_mv_rows``, split-k at k = 2, 4, 8,
 ``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the bench table,
 each also bitwise against ``block_mv``, and the edges of the CTA stretches
-of kernels 5-8 (``check_edges``: the shapes of the card tests).
+of kernels 1, 2 and 5-8 and of the segment entry (``check_edges``: the
+shapes of the card tests).
 
 It prints the kernels' JSON line and the card's name and power limit on
 lines before the last, and as its last line
@@ -107,7 +112,10 @@ APPLY2 = "scripts/microbench_apply2.py"
 PALLAS = "navier_stokes_tpu/ops/pallas_mv.py"
 PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
 # kernels already redesigned for this card, and how
-REDESIGNED = {"block_mv_comp_splitk": "bulk copies, x in shared memory",
+REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
+                          "segment, without padding",
+              "block_mv2": "kernel 6 at one sub-table",
+              "block_mv_comp_splitk": "bulk copies, x in shared memory",
               "block_mv_comp": "kernel 7 at one sub-table",
               "block_mv_splitk": "kernel 7's staging, bf16 copied as "
                                  "stored, one fmaf chain per row",
@@ -129,6 +137,18 @@ EDGE_SPLITK = ((37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
 EDGE_LOCAL = ((700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
               (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
               (3001, 4, 2), (5, 130, 3), (1, 1, 1))
+# kernels 1 and 2 at one sub-table, as the card tests (nblk, m, k): m * k
+# not whole 16-byte units, odd k in bf16, one block, stretches ending
+# mid-block, blocks wider than a CTA's rows, rows of an even number of
+# 16-byte vectors (k = 8, 16, 48, 96)
+EDGE_UNSPLIT = ((1, 1, 1), (1, 54, 54), (37, 6, 7), (301, 4, 54),
+                (45, 54, 4), (5, 3, 7), (19, 5, 3), (203, 7, 9),
+                (7, 132, 132), (1000, 6, 6), (3, 300, 11), (130, 12, 96),
+                (3, 5, 48), (7, 1, 16), (33, 3, 8))
+# the segment entry, as the card tests: (count, d) per segment (d not a
+# multiple of 8, a one-block segment, d = 16: rows of two or four 16-byte
+# vectors) and the padded width
+EDGE_SEGMENTS = (((5, 7), (1, 13), (9, 5), (3, 12), (4, 1), (6, 16)), 16)
 
 
 def log(*a):
@@ -201,10 +221,7 @@ def add(rep, *a):
         rep.add(*a)
 
 
-def check_block_mv(torch, bm, timer, rep, label, A, gen, real_bytes=None):
-    """``real_bytes``: the table bytes the function needs, where the table
-    holds zero padding (the merged GS solve tables: every block padded to
-    the color's largest); the bound counts those, not the padded table."""
+def check_block_mv(torch, bm, timer, rep, label, A, gen):
     nblk, m, k = A.shape
     x = torch.randn((nblk, k), generator=gen, device="cuda")
     y = bm.block_mv(A, x)
@@ -221,19 +238,50 @@ def check_block_mv(torch, bm, timer, rep, label, A, gen, real_bytes=None):
     plain_ms = timer(lambda: bm.block_mv_plain(A, x))
     lib_ms = timer(lambda: torch.bmm(A32, xb))  # f32 copy: a yardstick
     nb = nbytes(A, x, y)
-    bound = f"bound {nb / HBM_BYTES_PER_S * 1e3:.4f}"
-    flops = 2 * A.numel()
-    if real_bytes is not None:
-        real_nb = real_bytes + nbytes(x, y)
-        bound += (f" ({nb / 1e6:.1f} MB); real blocks "
-                  f"{real_bytes / 1e6:.1f} MB, bound "
-                  f"{real_nb / HBM_BYTES_PER_S * 1e3:.4f}")
-        flops = 2 * real_bytes // A.element_size()
-        nb = real_nb
-    add(rep, ms, plain_ms, lib_ms, nb, flops, float(err.max()))
+    add(rep, ms, plain_ms, lib_ms, nb, 2 * A.numel(), float(err.max()))
     log(f"  block_mv {label} {tuple(A.shape)} {str(A.dtype)[6:]}: "
         f"max|d|={float(err.max()):.3e} rel={worst:.2e} | kernel {ms:.4f} ms"
-        f", plain {plain_ms:.4f}, bmm {lib_ms:.4f}, {bound}")
+        f", plain {plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
+        f"{nb / HBM_BYTES_PER_S * 1e3:.4f}")
+
+
+def check_block_mv_segments(torch, bm, timer, rep, label, T, gen):
+    """A GS solve table stored by segment (``bm.SegmentTable``):
+    ``block_mv_segments`` EQUAL (``torch.equal``) to ``block_mv`` on the
+    padded table it stands for and within 1e-5 of sum_j |a_ij x_j| of its
+    plain version.  The bound counts the real blocks' bytes (and x, y);
+    the yardstick stays ``torch.bmm`` on an f32 copy of the padded table,
+    and ``block_mv`` on the padded table is timed beside it."""
+    x = torch.randn((T.nblk, T.width), generator=gen, device="cuda")
+    P = T.padded()
+    y = bm.block_mv_segments(T, x)
+    y_ref = bm.block_mv_segments_plain(T, x)
+    y_pad = bm.block_mv(P, x)
+    torch.cuda.synchronize()
+    P32 = P.to(torch.float32)
+    scale = torch.einsum("bmk,bk->bm", P32.abs().double(), x.abs().double())
+    err = (y - y_ref).abs()
+    worst = float((err.double() / scale.clamp_min(1e-300)).max())
+    check(bool(torch.isfinite(y).all()), f"block_mv {label}: non-finite")
+    check(worst <= 1e-5, f"block_mv {label}: {worst:.2e} > 1e-5 of sum|a x|")
+    check(torch.equal(y, y_pad), f"block_mv {label}: the segments differ "
+          "from block_mv on the padded table")
+    xb = x[:, :, None]
+    ms = timer(lambda: bm.block_mv_segments(T, x))
+    plain_ms = timer(lambda: bm.block_mv_segments_plain(T, x))
+    lib_ms = timer(lambda: torch.bmm(P32, xb))  # f32 copy: a yardstick
+    pad_ms = timer(lambda: bm.block_mv(P, x))
+    nb = T.real_bytes + nbytes(x, y)
+    add(rep, ms, plain_ms, lib_ms, nb, 2 * T.real_bytes // P.element_size(),
+        float(err.max()))
+    segs = ", ".join(f"{d}x{d} x{c}" for _, _, c, d in T.desc.tolist())
+    log(f"  block_mv {label} segments ({segs}) of {tuple(P.shape)} "
+        f"{str(P.dtype)[6:]}: max|d|={float(err.max()):.3e} rel={worst:.2e},"
+        f" = block_mv on the padded table | kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, bmm {lib_ms:.4f}, block_mv padded {pad_ms:.4f}; "
+        f"streams {T.real_bytes / 1e6:.2f} MB (padded {nbytes(P) / 1e6:.2f}"
+        f" MB), bound {nb / HBM_BYTES_PER_S * 1e3:.4f}")
+    return nbytes(P), T.real_bytes
 
 
 def check_block_mv2(torch, bm, timer, rep, label, A_hi, A_lo, gen):
@@ -404,14 +452,22 @@ def check_local_mv(torch, lm, timer, rep, label, A, gen):
 
 
 def check_edges(torch, bm, lm):
-    """The split-k kernels and kernel 8 at the edges of their CTA
-    stretches (``EDGE_SPLITK``, ``EDGE_LOCAL``): kernels 5 (f32 and bf16),
-    6 and 7 at k = 2, 4, 8, BITWISE against ``block_mv`` / ``block_mv2`` /
-    ``block_mv_comp`` on the unsplit table, kernels 5 and 6 within 1e-5 of
-    sum_j |a_ij x_j| of their plain versions, kernel 7 within 1e-12 of the
-    row scale of the f64 product; kernel 8 in both types, on views that
-    start 0, 4, 8 or 12 bytes past a 16-byte boundary, within 2e-6 (f32)
-    or 1e-13 (f64) of sum_j |a_ij u_j| of its plain version."""
+    """The hand-written kernels at the edges of their CTA stretches:
+
+    * kernels 1 (f32 and bf16) and 2 on ``EDGE_UNSPLIT``, within 1e-5 of
+      sum_j |a_ij x_j| of their plain versions and BITWISE against kernels
+      5 and 6 at k = 2 and 4; a table off a 16-byte boundary refused;
+    * the segment entry on ``EDGE_SEGMENTS`` (f32 and bf16), EQUAL to
+      ``block_mv`` on the padded table and within 1e-5 of its plain
+      version;
+    * the split-k kernels on ``EDGE_SPLITK``: kernels 5 (f32 and bf16), 6
+      and 7 at k = 2, 4, 8, BITWISE against ``block_mv`` / ``block_mv2`` /
+      ``block_mv_comp`` on the unsplit table, kernels 5 and 6 within 1e-5
+      of sum_j |a_ij x_j| of their plain versions, kernel 7 within 1e-12 of
+      the row scale of the f64 product;
+    * kernel 8 on ``EDGE_LOCAL`` in both types, on views that start 0, 4,
+      8 or 12 bytes past a 16-byte boundary, within 2e-6 (f32) or 1e-13
+      (f64) of sum_j |a_ij u_j| of its plain version."""
     import numpy as np
 
     def row_scale(A, x):
@@ -419,6 +475,61 @@ def check_edges(torch, bm, lm):
                             x.double().abs()).clamp_min(1e-300)
 
     rng = np.random.default_rng(5)
+    n1 = n2 = 0
+    for nblk, m, kk in EDGE_UNSPLIT:
+        A64 = torch.as_tensor(rng.standard_normal((nblk, m, kk)),
+                              device="cuda")
+        hi, lo = bm.split_f64(A64)
+        x = torch.as_tensor(rng.standard_normal((nblk, kk)),
+                            device="cuda").float()
+        scale = row_scale(A64, x)
+        for A in (hi, hi.to(torch.bfloat16)):
+            y = bm.block_mv(A, x)
+            d = (y - bm.block_mv_plain(A, x)).abs().double()
+            label = f"block_mv {(nblk, m, kk)} {str(A.dtype)[6:]}"
+            check(float((d / scale).max()) <= 1e-5,
+                  f"{label}: beyond 1e-5 of sum|a x|")
+            for k in (2, 4):
+                check(torch.equal(y, bm.block_mv_splitk(
+                    bm.pack_splitk(A, k, 4), x, 4)),
+                    f"{label}: not bitwise equal to block_mv_splitk k={k}")
+            n1 += 1
+        y = bm.block_mv2(hi, lo, x)
+        d = (y - bm.block_mv2_plain(hi, lo, x)).abs().double()
+        label = f"block_mv2 {(nblk, m, kk)}"
+        check(float((d / scale).max()) <= 1e-5,
+              f"{label}: beyond 1e-5 of sum|a x|")
+        for k in (2, 4):
+            check(torch.equal(y, bm.block_mv2_splitk(
+                bm.pack_splitk(hi, k, 4), bm.pack_splitk(lo, k, 4), x, 4)),
+                f"{label}: not bitwise equal to block_mv2_splitk k={k}")
+        n2 += 1
+    flat = torch.zeros(1 + 6 * 8 * 8, device="cuda")
+    view = flat[1:].view(6, 8, 8)  # 4 bytes past a 16-byte boundary
+    x = torch.zeros((6, 8), device="cuda")
+    for call in (lambda: bm.block_mv(view, x),
+                 lambda: bm.block_mv2(view, view, x)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise Fail("a table off a 16-byte boundary was not refused")
+    segs, width = EDGE_SEGMENTS
+    nblk = sum(c for c, _ in segs) + 2
+    for dt in (torch.float32, torch.bfloat16):
+        T = bm.pack_segments(
+            [torch.as_tensor(rng.standard_normal((c, d, d))) for c, d in segs],
+            nblk, width, dt, "cuda")
+        x = torch.as_tensor(rng.standard_normal((nblk, width)),
+                            device="cuda").float()
+        y = bm.block_mv_segments(T, x)
+        P = T.padded()
+        d = (y - bm.block_mv_segments_plain(T, x)).abs().double()
+        check(torch.equal(y, bm.block_mv(P, x)),
+              f"block_mv_segments {str(dt)[6:]}: differs from block_mv on "
+              "the padded table")
+        check(float((d / row_scale(P, x)).max()) <= 1e-5,
+              f"block_mv_segments {str(dt)[6:]}: beyond 1e-5 of sum|a x|")
     n5 = n6 = n7 = 0
     for nblk, m, kk, tile in EDGE_SPLITK:
         A64 = torch.as_tensor(rng.standard_normal((nblk, m, kk)),
@@ -486,7 +597,11 @@ def check_edges(torch, bm, lm):
                   f"batched_local_matvec {(ne, nb)} {str(dt)[6:]} at "
                   f"{off * A.element_size()} bytes: {worst:.2e} > {tol:.0e}")
             n8 += 1
-    log(f"[kernels] edges: block_mv_splitk on {n5} split tables (f32 and "
+    log(f"[kernels] edges: block_mv on {n1} tables (f32 and bf16) and "
+        f"block_mv2 on {n2} within tolerance and bitwise = split-k at k=2, "
+        "4, misaligned tables refused; block_mv_segments (f32 and bf16) = "
+        "block_mv on the padded table; "
+        f"block_mv_splitk on {n5} split tables (f32 and "
         f"bf16) bitwise = block_mv; block_mv2_splitk on {n6} bitwise = "
         f"block_mv2; block_mv_comp_splitk on {n7} bitwise = block_mv_comp; "
         f"batched_local_matvec on {n8} tables within tolerance")
@@ -544,21 +659,6 @@ def cancellation_case(torch, nblk, nb, seed):
     lo = (A - hi.double()).to(torch.float32)
     return hi.contiguous(), lo.contiguous(), torch.as_tensor(x64,
                                                              device="cuda")
-
-
-def solve_table_real_bytes(parts):
-    """Per merged GS solve table: the bytes of its real inverse blocks
-    (block b of a color holds nf_b faces of nfb rows each: (nf_b*nfb)^2
-    entries; the rest of its (12 fsz_max)^2 is zero padding)."""
-    out = {}
-    nfb = parts["layout"].nfb
-    for c, g in enumerate(parts.get("groups", [])):
-        nsel = g.faces.shape[0] - 1
-        nf = (g.rows < nsel).sum(dim=1)  # real faces per block (pad: 0)
-        A = g.solve.table
-        out[f"GS color {c} solve"] = int(((nf * nfb) ** 2).sum()) \
-            * A.element_size()
-    return out
 
 
 def profile_minres(torch, solver, label, steps=100):
@@ -1292,16 +1392,20 @@ def run():
             return reports[name] if keep else None
 
         log(f"[kernels] {label}: block_mv on every table of one preA apply")
-        real = solve_table_real_bytes(o32["preA"].parts)
+        padded = real = 0
         for tname, A in o32["preA"].parts["tables"].items():
-            check_block_mv(torch, bm, timer, rep("block_mv"), tname, A, gen,
-                           real.get(tname))
+            if isinstance(A, bm.SegmentTable):
+                p_, r_ = check_block_mv_segments(torch, bm, timer,
+                                                 rep("block_mv"), tname, A,
+                                                 gen)
+                padded, real = padded + p_, real + r_
+            else:
+                check_block_mv(torch, bm, timer, rep("block_mv"), tname, A,
+                               gen)
         if real:
-            tabs_ = o32["preA"].parts["tables"]
-            merged = sum(nbytes(tabs_[t]) for t in real)
-            log(f"[kernels] {label}: the GS solve tables hold "
-                f"{merged / 1e6:.1f} MB, of which "
-                f"{sum(real.values()) / 1e6:.1f} MB are real inverse blocks")
+            log(f"[kernels] {label}: the GS solve tables stream "
+                f"{real / 1e6:.1f} MB per sweep direction by segment; padded "
+                f"they would hold {padded / 1e6:.1f} MB")
         log(f"[kernels] {label}: block_mv2 on the split-f32 A32, B32, BT32")
         for tname, op in (("A32", o32["A"]), ("B32", o32["B"]),
                           ("BT32", o32["BT"])):

@@ -2,10 +2,11 @@
 // (sm_90a).  Counterpart of the Pallas kernels in
 // navier_stokes_tpu/ops/pallas_mv.py:
 //
-//   nstt_block_mv_{f32,bf16}  <- _mv_kernel      (pallas_mv.py:118)
-//   nstt_block_mv2_f32        <- _mv2_kernel     (pallas_mv.py:124)
-//   nstt_block_mv_ds_f32      <- _mv_ds_kernel   (pallas_mv.py:129)
-//   nstt_block_mv_comp_f32    <- _mv_comp_kernel (pallas_mv.py:166)
+//   nstt_block_mv_{f32,bf16}      <- _mv_kernel      (pallas_mv.py:118)
+//   nstt_block_mv_seg_{f32,bf16}  <- _mv_kernel on the GS solve tables
+//   nstt_block_mv2_f32            <- _mv2_kernel     (pallas_mv.py:124)
+//   nstt_block_mv_ds_f32          <- _mv_ds_kernel   (pallas_mv.py:129)
+//   nstt_block_mv_comp_f32        <- _mv_comp_kernel (pallas_mv.py:166)
 //
 // Each computes y[b, i] = sum_j A[b, i, j] x[b, j] for a batch of small dense
 // blocks.  Layout: tables (nblk, m, k) row-major and contiguous, vectors
@@ -17,24 +18,26 @@
 // rate for the bytes moved, so each is bound by device memory bandwidth:
 // table bytes / 3.35 TB/s on an H100 SXM.
 //
-// Design of the unsplit kernels 1-3.  Viewed as nblk * m output rows, the
-// table rows of any run of consecutive output rows are one contiguous
-// stretch of memory, whatever the block boundaries.  A CTA owns R
+// Kernels 1 and 2, and kernel 4, are the split-k kernel (section below) at
+// one sub-table: each CTA's table stretch reaches shared memory by a bulk
+// asynchronous copy (bulk_copy.cuh), bf16 as stored, x is staged beside it,
+// and one thread computes one output row in column order.  The segment
+// entry is kernel 1 over the ragged blocks of a GS solve table (its section
+// below).
+//
+// Design of kernel 3, the one left of the first design.  Viewed as nblk * m
+// output rows, the table rows of any run of consecutive output rows are one
+// contiguous stretch of memory, whatever the block boundaries.  A CTA owns R
 // consecutive rows (R chosen on the host so that its tiles fit 48 KB of
 // shared memory):
 //   1. the CTA copies its rows' table stretch into shared memory with
-//      coalesced 16-byte loads (bf16 is widened to f32 on the way), one row
-//      per ks = k | 1 floats -- an odd row stride, so that the threads of a
-//      warp, each reading its own row, hit distinct banks;
+//      coalesced 16-byte loads, one row per ks = k | 1 floats -- an odd row
+//      stride, so that the threads of a warp, each reading its own row, hit
+//      distinct banks;
 //   2. it copies the x rows of the blocks those rows belong to;
 //   3. each thread computes one output row from shared memory, in column
 //      order, and writes it (coalesced).
-// Accumulation is f32.  The split-k kernels 5-7, and kernel 4 as kernel 7
-// at one sub-table, are one kernel with three row bodies (split-k section
-// below): each CTA's table stretches reach shared memory by bulk
-// asynchronous copies (bulk_copy.cuh) and x is staged beside them.  The
-// table-stream study (stream_mv.cu) measured the same for a plain f32
-// stream.
+// Accumulation is f32.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
@@ -76,23 +79,22 @@ __device__ __forceinline__ void unpack(uint4 w, float* out) {
   }
 }
 
-// Copy count contiguous table entries src[0..count) into dst as rows of k
-// entries at row stride ks.  Coalesced 16-byte loads for the aligned middle,
-// single loads for the unaligned head and the tail.
-template <typename T>
-__device__ void stage_rows(const T* __restrict__ src, int count, int k, int ks,
-                           float* __restrict__ dst) {
-  constexpr int V = 16 / sizeof(T);
+// Copy count contiguous f32 table entries src[0..count) into dst as rows of
+// k entries at row stride ks.  Coalesced 16-byte loads for the aligned
+// middle, single loads for the unaligned head and the tail.
+__device__ void stage_rows(const float* __restrict__ src, int count, int k,
+                           int ks, float* __restrict__ dst) {
+  constexpr int V = 4;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
-  int head = static_cast<int>(((16 - (addr & 15)) & 15) / sizeof(T));
+  int head = static_cast<int>(((16 - (addr & 15)) & 15) / sizeof(float));
   if (head > count) head = count;
   const int nvec = (count - head) / V;
   for (int e = threadIdx.x; e < head; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = to_f32(src[e]);
+    dst[(e / k) * ks + e % k] = src[e];
   const uint4* pv = reinterpret_cast<const uint4*>(src + head);
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
     float v[V];
-    unpack<T>(__ldg(pv + i), v);
+    unpack<float>(__ldg(pv + i), v);
     const int e0 = head + i * V;
     int row = e0 / k, col = e0 - row * k;
 #pragma unroll
@@ -105,7 +107,7 @@ __device__ void stage_rows(const T* __restrict__ src, int count, int k, int ks,
     }
   }
   for (int e = head + nvec * V + threadIdx.x; e < count; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = to_f32(src[e]);
+    dst[(e / k) * ks + e % k] = src[e];
 }
 
 __device__ __forceinline__ void stage_x(const float* __restrict__ src,
@@ -130,59 +132,6 @@ __device__ __forceinline__ Tile tile_of(long long nrows_all, int R, int m,
   t.b0 = t.r0 / m;
   t.nx = static_cast<int>((r1 - 1) / m - t.b0 + 1) * k;
   return t;
-}
-
-// y[r] = sum_j a[r, j] * x[r / m, j]
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv_kernel(const T* __restrict__ a, const float* __restrict__ x,
-                    float* __restrict__ y, long long nrows_all, int m, int k,
-                    int ks, int R) {
-  extern __shared__ float smem[];
-  const Tile t = tile_of(nrows_all, R, m, k);
-  float* tab = smem;
-  float* xs = smem + R * ks;
-  stage_rows(a + t.r0 * k, t.nrows * k, k, ks, tab);
-  stage_x(x + t.b0 * k, t.nx, xs);
-  __syncthreads();
-  for (int rr = threadIdx.x; rr < t.nrows; rr += blockDim.x) {
-    const long long r = t.r0 + rr;
-    const float* ar = tab + rr * ks;
-    const float* xb = xs + (r / m - t.b0) * k;
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j) acc = fmaf(ar[j], xb[j], acc);
-    y[r] = acc;
-  }
-}
-
-// y = (A_hi x) + (A_lo x): both tables in one pass sharing x, the two
-// products summed separately and added at the end as _mv2_kernel does.
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv2_kernel(const float* __restrict__ a_hi,
-                     const float* __restrict__ a_lo,
-                     const float* __restrict__ x, float* __restrict__ y,
-                     long long nrows_all, int m, int k, int ks, int R) {
-  extern __shared__ float smem[];
-  const Tile t = tile_of(nrows_all, R, m, k);
-  float* th = smem;
-  float* tl = smem + R * ks;
-  float* xs = smem + 2 * R * ks;
-  stage_rows(a_hi + t.r0 * k, t.nrows * k, k, ks, th);
-  stage_rows(a_lo + t.r0 * k, t.nrows * k, k, ks, tl);
-  stage_x(x + t.b0 * k, t.nx, xs);
-  __syncthreads();
-  for (int rr = threadIdx.x; rr < t.nrows; rr += blockDim.x) {
-    const long long r = t.r0 + rr;
-    const float* hr = th + rr * ks;
-    const float* lr = tl + rr * ks;
-    const float* xb = xs + (r / m - t.b0) * k;
-    float acc_hi = 0.0f, acc_lo = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      acc_hi = fmaf(hr[j], xb[j], acc_hi);
-      acc_lo = fmaf(lr[j], xb[j], acc_lo);
-    }
-    y[r] = acc_hi + acc_lo;
-  }
 }
 
 // The three f32 products of the plain double-single apply, A_hi x_hi,
@@ -232,8 +181,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 //   nstt_block_mv2_splitk_f32        <- _mv2_kernel_splitk     (:358)
 //   nstt_block_mv_comp_splitk_f32    <- _mv_comp_kernel_splitk (:397)
 //
-// and, as the compensated kernel at ONE sub-table,
+// and, as the same kernels at ONE sub-table (the table itself, one tile of
+// nblk blocks, every row real),
 //
+//   nstt_block_mv_{f32,bf16}         <- _mv_kernel             (:118)
+//   nstt_block_mv2_f32               <- _mv2_kernel            (:124)
 //   nstt_block_mv_comp_f32           <- _mv_comp_kernel        (:166)
 //
 // The table arrives as ns <= kMaxSplit consecutive-tile sub-tables (global
@@ -245,13 +197,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 // the unsplit kernels.
 //
 // Design.  One kernel, splitk_kernel<OP, T, NS>, with three row bodies:
-//   kMv   (kernel 5): one table, f32 or bf16, and x; one fmaf chain per
-//         row, each bf16 entry widened where it is used;
-//   kMv2  (kernel 6): the f32 pair (hi, lo) and x; two fmaf chains per
-//         row, added once at the end;
-//   kComp (kernel 7; kernel 4 at NS = 1, where the one sub-table is the
-//         table, one tile long, and every row is real): the f32 pair,
-//         x_hi and x_lo; the two_prod / two_sum chain.
+//   kMv   (kernel 5; kernel 1 at NS = 1): one table, f32 or bf16, and x;
+//         one fmaf chain per row, each bf16 entry widened where it is used;
+//   kMv2  (kernel 6; kernel 2 at NS = 1): the f32 pair (hi, lo) and x; two
+//         fmaf chains per row, added once at the end;
+//   kComp (kernel 7; kernel 4 at NS = 1): the f32 pair, x_hi and x_lo; the
+//         two_prod / two_sum chain.
 // A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in EVERY
 // sub-table.  Each thread computes output rows in the unsplit kernel's
 // column order, so a split-k result is bitwise equal to the unsplit
@@ -263,8 +214,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 // them, kXLoads loads in flight per thread.  The rows land at stride k; a
 // thread reads its row a 16-byte vector at a time where the row holds
 // whole vectors (walk_row), else entry by entry (a 2-way bank conflict
-// for f32 at k = 54, accepted; none for bf16 there).  No thread spends registers or instructions on the table bytes, and the
-// CTA is small, so that many CTAs per SM overlap one's copies with
+// for f32 at k = 54, accepted; none for bf16 there).  No thread spends
+// registers or instructions on the table bytes, and the CTA is small, so that many CTAs per SM overlap one's copies with
 // another's arithmetic.  Every stretch must start on a 16-byte boundary:
 // the sub-table bases are (the entries refuse any other), and R is a
 // multiple of V = 16 / sizeof(T) entries (4 f32, 8 bf16), so r0 * k
@@ -272,7 +223,20 @@ __global__ void __launch_bounds__(kMaxThreads)
 //
 // Rows per sub-table (split_rows): kernels 4 and 7 take kCompRows and
 // kCompSplitRows; kernels 5 and 6 share kSplitCtaRows rows among their NS
-// sub-tables, so that the CTA stays the same size at every k.
+// sub-tables, so that the CTA stays the same size at every k; at NS = 1
+// (kernels 1 and 2, and the segment entry) they take kMvRows.
+//   Sweep of kMvRows (the same tool and card; random tables of the main
+//   path's shapes at maxh=0.09, sums of the better of two passes): kernel
+//   1 on S, ext, ext^T, inner, M_F, M_F^T and one color's GS row panels
+//   (7799 x 12 x 96 f32) 32 / 64 / 128 / 256 rows took 0.1235 / 0.1210 /
+//   0.1253 / 0.1322 ms (the parent's kernel 1, per-thread loads into
+//   odd-stride tiles, 0.1466; seven torch.bmm 0.1966); the segment entry
+//   on one color's GS solve table (bf16, 12.20 MB of segments standing for
+//   1497 x 96 x 96) 0.0140 / 0.0140 / 0.0140 / 0.0145 (kernel 1 on the
+//   padded table 0.0216, the parent's 0.0336); kernel 2 on pairs of the
+//   shapes of A32, B32 and BT32 0.1039 / 0.1028 / 0.1040 / 0.1076 (the
+//   parent's 0.1637; three torch.bmm of the stacked pairs 0.1713).  Fixed:
+//   64, the best on kernels 1 and 2, tied on the segments.
 //   Sweep of kCompSplitRows (tools/sweep_redesign.py, random tables of
 //   the shapes of A_ds, B_ds and BT_ds at maxh=0.09, summed; NVIDIA H100
 //   80GB HBM3, 700 W): R = 16 / 32 / 64 took 0.1161 / 0.1109 / 0.1125 ms
@@ -300,14 +264,17 @@ __global__ void __launch_bounds__(kMaxThreads)
 constexpr int kMaxSplit = 8;
 constexpr int kXLoads = 4;  // x loads in flight per thread
 // rows per CTA of kernel 4 (one sub-table) and per sub-table of one kernel-7
-// CTA; rows per kernel-5/6 CTA, summed over its sub-tables
-// (tools/sweep_redesign.py)
+// CTA; rows per kernel-5/6 CTA, summed over its sub-tables; rows per CTA of
+// kernels 1 and 2 and the segment entry (tools/sweep_redesign.py)
 constexpr int kCompRows = 64;
 constexpr int kCompSplitRows = 32;
 constexpr int kSplitCtaRows = 128;
+constexpr int kMvRows = 64;
 static_assert(kCompRows % 4 == 0 && kCompSplitRows % 4 == 0,
               "the compensated kernel's f32 stretches start on 16-byte "
               "boundaries");
+static_assert(kMvRows % 8 == 0,
+              "kernel 1's and 2's stretches start on 16-byte boundaries");
 
 enum SplitOp { kMv, kMv2, kComp };
 
@@ -323,6 +290,7 @@ __host__ __device__ constexpr int split_xs(int op) {
 // a multiple of 16 / es entries (see above).
 constexpr int split_rows(int op, int ns, int es) {
   return op == kComp ? (ns == 1 ? kCompRows : kCompSplitRows)
+         : ns == 1                 ? kMvRows
          : kSplitCtaRows / ns >= 16 / es
              ? kSplitCtaRows / ns / (16 / es) * (16 / es)
              : 16 / es;
@@ -379,11 +347,11 @@ struct SplitSmem {
 };
 
 // Bring the CTA's stretches of NT tables (a0, and a1 if NT = 2) and of NX
-// x vectors (x0, and x1 if NX = 2) on chip, and wait until every byte has
-// landed.  Only the real rows of each sub-table are loaded: their whole
-// 16-byte units by one bulk copy per (table, sub-table), all NT*NS
-// started before anyone waits on their one barrier; the at most V - 1
-// entries after them by plain loads.  NS is a compile-time constant: j
+// x vectors (x0, and x1 if NX = 2; block gb's entries at gb * xstride) on
+// chip, and wait until every byte has landed.  Only the real rows of each
+// sub-table are loaded: their whole 16-byte units by one bulk copy per
+// (table, sub-table), all NT*NS started before anyone waits on their one
+// barrier; the at most V - 1 entries after them by plain loads.  NS is a compile-time constant: j
 // indexes the by-value pointer arrays with compile-time indices only (a
 // run-time index would put the kernel parameters in local memory).
 template <typename T, int NT, int NX, int NS>
@@ -391,7 +359,7 @@ __device__ __forceinline__ SplitSmem<T, NT, NX> stage_split(
     unsigned char* smem_raw, const SubTables& a0, const SubTables& a1,
     const SplitReal& real, const float* __restrict__ x0,
     const float* __restrict__ x1, const SplitTile& t, long long nblk, int m,
-    int k, int R, int xb, int tile) {
+    int k, int R, int xb, int tile, long long xstride) {
   constexpr int V = 16 / sizeof(T);
   SplitSmem<T, NT, NX> s;
   s.bar = reinterpret_cast<uint64_t*>(smem_raw);
@@ -459,8 +427,8 @@ __device__ __forceinline__ SplitSmem<T, NT, NX> stage_split(
         const long long sb = sb0 + b, i = sb / tile;
         const long long gb = (i * NS + j) * tile + (sb - i * tile);
         if (gb < nblk) {
-          v[0][q] = __ldg(x0 + gb * k + c);
-          if constexpr (NX == 2) v[1][q] = __ldg(x1 + gb * k + c);
+          v[0][q] = __ldg(x0 + gb * xstride + c);
+          if constexpr (NX == 2) v[1][q] = __ldg(x1 + gb * xstride + c);
           at[q] = (j * xb + b) * k + c;
         }
       }
@@ -481,9 +449,10 @@ __device__ __forceinline__ SplitSmem<T, NT, NX> stage_split(
 // f(c, a, b) for the entries c = 0..k-1 of the row at ao, in column order,
 // a from table 0 and b from table NT - 1, widened to f32.  Where a row holds
 // whole 16-byte vectors (k a multiple of V) they are read a vector at a
-// time: at row stride k the threads of a warp then meet at most 4-way bank
-// conflicts (none at odd k / V), where entry-by-entry reads would meet up
-// to 16-way ones (gcd(k, 32) for f32: 16 at k = 48).
+// time: at row stride k the 8 threads of a quarter warp then meet
+// 8 / gcd(k / V, 8)-way bank conflicts (none at odd k / V, 4-way at k = 48
+// f32, 8-way at k = 96 f32: the GS row panels), where entry-by-entry reads
+// would meet up to 16-way ones (gcd(k, 32) for f32: 16 at k = 48).
 template <typename T, int NT, typename F>
 __device__ __forceinline__ void walk_row(T* const (&tab)[NT], int ao, int k,
                                          F&& f) {
@@ -526,7 +495,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const SplitTile t = split_tile_of(nsub_rows, R);
   const SplitSmem<T, NT, NX> s = stage_split<T, NT, NX, NS>(
-      smem_raw, a0, a1, real, x0, x1, t, nblk, m, k, R, xb, tile);
+      smem_raw, a0, a1, real, x0, x1, t, nblk, m, k, R, xb, tile, k);
   const long long sb0 = t.r0 / m;
   for (int e = threadIdx.x; e < NS * t.nrows; e += blockDim.x) {
     const int j = e / t.nrows, rr = e - j * t.nrows;
@@ -569,6 +538,135 @@ __global__ void __launch_bounds__(kMaxThreads)
       y0[g] = sh;
       y1[g] = sl;
     }
+  }
+}
+
+// -- kernel 1 on segments: the GS solve tables without their padding ---------
+//
+//   nstt_block_mv_seg_{f32,bf16}  <- _mv_kernel (:118) on the merged GS
+//                                    solve tables (ops/faceblock.py)
+//
+// A segmented table stands for an (nblk, width, width) table whose blocks
+// are zero-padded squares: segment s is count_s blocks of d_s x d_s
+// entries, row-major, at entry offset off_s of one allocation, and holds
+// blocks first_s .. first_s + count_s - 1; the segments cover blocks
+// 0 .. nreal - 1 in order, and the blocks from nreal on are zero.  The
+// descriptors are rows {off, first, count, d} of int64, one copy in host
+// memory (checked, and read to plan the launch) and one in device memory
+// (read by the kernel: a color has more segments than a launch can take by
+// value).  x and y are (nblk, width):
+//   y[first_s + b, i] = sum_{j < d_s} T_s[b, i, j] x[first_s + b, j]
+// for i < d_s, and every other entry of y is 0.  That is kernel 1 on the
+// padded table without the products with its zero entries: equal as values
+// to it (a sum of -0 may come out +0 there), and it streams only the real
+// blocks.  Bound: their bytes (and x, y) / 3.35 TB/s.
+//
+// Design: kernel 1 (splitk_kernel<kMv, T, 1>) per segment, all segments in
+// one launch.  The CTAs of segment s are the ceil(count_s d_s / R) after
+// those of the segments before it; warp 0 of each CTA finds its segment by
+// a prefix sum over the descriptors (32 at a time, by shuffles).  A CTA
+// stages its stretch of R segment rows as kernel 1 does (stage_split), the
+// x of a block being the first d_s entries of its row of x, and writes the
+// zero columns of the blocks whose last row lies in its stretch.  The CTAs
+// after all segments' write the zero blocks, kZeroPerThread floats a thread.
+
+constexpr int kSegFields = 4;  // off, first, count, d
+constexpr int kZeroPerThread = 8;
+constexpr int kSegAt = 64;  // byte offset of the CTA's descriptor copy
+static_assert(kSegAt >= 8 && kSegAt + 8 * (kSegFields + 1) <= kHeader,
+              "the descriptor copy sits between the mbarrier and the "
+              "stretches");
+
+// Warp 0: this CTA's segment descriptor into seg[0..3] and its CTA index
+// within the segment into seg[4]; for a CTA past every segment's, seg[4] =
+// -1 and seg[0] = its index among the zero-writing CTAs.
+__device__ __forceinline__ void find_segment(const long long* __restrict__ desc,
+                                             int nseg, int R, long long* seg) {
+  const int lane = threadIdx.x;
+  long long before = 0;  // CTAs of the segments already scanned
+  bool found = false;
+  for (int s0 = 0; s0 < nseg && !found; s0 += 32) {
+    const int s = s0 + lane;
+    long long n = 0;
+    if (s < nseg)
+      n = (__ldg(desc + kSegFields * s + 2) * __ldg(desc + kSegFields * s + 3) +
+           R - 1) / R;
+    long long inc = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long v = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += v;
+    }
+    const long long c = static_cast<long long>(blockIdx.x) - before;
+    const bool mine = c >= inc - n && c < inc;  // n = 0 past the last
+    if (mine) {
+#pragma unroll
+      for (int f = 0; f < kSegFields; ++f)
+        seg[f] = __ldg(desc + kSegFields * s + f);
+      seg[4] = c - (inc - n);
+    }
+    found = __any_sync(0xffffffffu, mine);
+    before += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  if (!found && lane == 0) {
+    seg[0] = static_cast<long long>(blockIdx.x) - before;
+    seg[4] = -1;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    segment_kernel(const T* __restrict__ tab,
+                   const long long* __restrict__ desc, int nseg,
+                   const float* __restrict__ x, float* __restrict__ y,
+                   long long nreal, long long nblk, int width, int R) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // in the header, past the mbarrier: no static shared memory, which would
+  // take from the kSmemOptIn bytes the launch opts in to
+  long long* seg = reinterpret_cast<long long*>(smem_raw + kSegAt);
+  if (threadIdx.x < 32) find_segment(desc, nseg, R, seg);
+  __syncthreads();
+  if (seg[4] < 0) {  // a zero-writing CTA
+    const long long n = (nblk - nreal) * width;
+    const long long e0 = seg[0] * blockDim.x * kZeroPerThread + threadIdx.x;
+    float* yz = y + nreal * width;
+#pragma unroll
+    for (int q = 0; q < kZeroPerThread; ++q) {
+      const long long e = e0 + static_cast<long long>(q) * blockDim.x;
+      if (e < n) yz[e] = 0.0f;
+    }
+    return;
+  }
+  const long long first = seg[1], count = seg[2];
+  const int d = static_cast<int>(seg[3]);
+  SplitTile t;
+  t.r0 = seg[4] * R;
+  const long long r1 = t.r0 + R < count * d ? t.r0 + R : count * d;
+  t.nrows = static_cast<int>(r1 - t.r0);
+  SubTables a;
+  a.p[0] = tab + seg[0];
+  SplitReal real;
+  real.n[0] = count * d * d;
+  const SplitSmem<T, 1, 1> s = stage_split<T, 1, 1, 1>(
+      smem_raw, a, a, real, x + first * width, nullptr, t, count, d, d, R,
+      (R - 1) / d + 2, static_cast<int>(count), width);
+  const long long sb0 = t.r0 / d;
+  for (int rr = threadIdx.x; rr < t.nrows; rr += blockDim.x) {
+    const long long sb = (t.r0 + rr) / d;
+    const int i = static_cast<int>(t.r0 + rr - sb * d);
+    const float* xr = s.x[0] + (sb - sb0) * d;
+    float acc = 0.0f;
+    walk_row(s.tab, rr * d, d, [&](int c, float av, float) {
+      acc = fmaf(av, xr[c], acc);
+    });
+    y[(first + sb) * width + i] = acc;
+  }
+  // the zero columns of the blocks whose last row is in this stretch
+  const int pad = width - d;
+  const long long b0 = t.r0 / d, nb = r1 / d - b0;
+  for (long long e = threadIdx.x; e < nb * pad; e += blockDim.x) {
+    const long long b = e / pad;
+    y[(first + b0 + b) * width + d + (e - b * pad)] = 0.0f;
   }
 }
 
@@ -702,6 +800,90 @@ int launch_split(const void* const* a0, const void* const* a1, int ns,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Segment launch: kernel 1's rows per CTA at one sub-table, or the largest
+// multiple of V below it whose stretch and x stage fit opt-in shared memory
+// for every segment; threads as plan_split's, for the segment that wants
+// the most.  Sets *nreal to the blocks the segments cover.  R = 0 for
+// descriptors that break the layout (segments in block order from block
+// 0, offsets increasing and 16-byte aligned, each segment inside the
+// table, 1 <= d <= width, at most nblk blocks) or a launch too large.
+template <typename T>
+Launch plan_segments(const long long* desc, int nseg, long long entries,
+                     long long nblk, int width, long long* nreal) {
+  constexpr int V = 16 / sizeof(T);
+  Launch L;
+  long long next_block = 0, next_off = 0;
+  for (int s = 0; s < nseg; ++s) {
+    const long long* g = desc + kSegFields * s;
+    const long long off = g[0], first = g[1], count = g[2], d = g[3];
+    if (first != next_block || off < next_off ||
+        off * static_cast<long long>(sizeof(T)) % 16 != 0 || count < 1 ||
+        count > INT_MAX || d < 1 || d > width ||
+        count > (entries - off) / (d * d))
+      return L;
+    next_block += count;
+    next_off = off + count * d * d;
+  }
+  if (next_block > nblk) return L;
+  *nreal = next_block;
+  for (int R = split_rows(kMv, 1, sizeof(T)); R >= V; R -= V) {
+    long long bytes = kHeader, want = 32, grid = 0;
+    for (int s = 0; s < nseg; ++s) {
+      const long long count = desc[kSegFields * s + 2];
+      const long long d = desc[kSegFields * s + 3];
+      const long long xb = (R - 1) / d + 2;
+      const long long b = kHeader + static_cast<long long>(sizeof(T)) * R * d +
+                          4LL * xb * d;
+      const long long w = (xb * d + kXLoads - 1) / kXLoads;
+      if (b > bytes) bytes = b;
+      if (w > want) want = w;
+      if (R > want) want = R;
+      grid += (count * d + R - 1) / R;
+    }
+    if (bytes > kSmemOptIn) continue;
+    L.R = R;
+    L.threads = want >= kMaxThreads ? kMaxThreads
+                                    : static_cast<int>((want + 31) / 32 * 32);
+    const long long per = static_cast<long long>(L.threads) * kZeroPerThread;
+    grid += ((nblk - next_block) * width + per - 1) / per;
+    if (grid > INT_MAX) {
+      L.R = 0;
+      return L;
+    }
+    L.grid = static_cast<unsigned int>(grid);
+    L.smem = static_cast<size_t>(bytes);
+    return L;
+  }
+  return L;
+}
+
+// One segment launch: tab (entries long, 16-byte aligned) and its nseg
+// descriptors, desc_host in host memory and desc_dev the same in device
+// memory.
+template <typename T>
+int launch_segments(const void* tab, long long entries,
+                    const long long* desc_host, const long long* desc_dev,
+                    int nseg, const float* x, float* y, long long nblk,
+                    int width, void* stream) {
+  if (nseg < 0 || nblk < 0 || width <= 0 || entries < 0 ||
+      reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  long long nreal = 0;
+  const Launch L =
+      plan_segments<T>(desc_host, nseg, entries, nblk, width, &nreal);
+  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t opt = cudaFuncSetAttribute(
+      segment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemOptIn);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
+  segment_kernel<T>
+      <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(tab), desc_dev, nseg, x, y, nreal, nblk, width,
+          L.R);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Largest row tile whose ntab table tiles (row stride ks) and nxv x stages
 // fit the shared-memory budget.
 Launch plan(long long nrows_all, int m, int k, int ks, int ntab, int nxv) {
@@ -733,50 +915,67 @@ inline bool bad_shape(long long nblk, int m, int k) {
 
 inline int row_stride(int k) { return k | 1; }
 
+// Row body OP at one sub-table: the table itself, one tile of nblk blocks,
+// every row real (kernels 1, 2 and 4).  launch_split refuses tables off a
+// 16-byte boundary.
+template <int OP, typename T>
+int launch_unsplit(const void* a0, const void* a1, const float* x0,
+                   const float* x1, float* y0, float* y1, long long nblk,
+                   int m, int k, void* stream) {
+  if (bad_shape(nblk, m, k) || nblk > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) return 0;
+  const void* p0[1] = {a0};
+  const void* p1[1] = {a1};
+  return launch_split<OP, T>(p0, p1, 1, x0, x1, y0, y1, nblk, m, k, nblk,
+                             static_cast<int>(nblk), stream);
+}
+
 }  // namespace
 
 extern "C" {
 
+// Kernels 1 and 2: the split-k kernel at one sub-table (launch_unsplit).
+// Tables 16-byte aligned: the bulk copies start there.
+
 int nstt_block_mv_f32(const float* a, const float* x, float* y,
                       long long nblk, int m, int k, void* stream) {
-  if (bad_shape(nblk, m, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nrows = nblk * m;
-  if (nrows == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan(nrows, m, k, ks, 1, 1);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_kernel<float><<<L.grid, L.threads, L.smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, x, y, nrows, m, k, ks, L.R);
-  return static_cast<int>(cudaGetLastError());
+  return launch_unsplit<kMv, float>(a, a, x, nullptr, y, nullptr, nblk, m, k,
+                                    stream);
 }
 
 int nstt_block_mv_bf16(const void* a, const float* x, float* y,
                        long long nblk, int m, int k, void* stream) {
-  if (bad_shape(nblk, m, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nrows = nblk * m;
-  if (nrows == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan(nrows, m, k, ks, 1, 1);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_kernel<__nv_bfloat16><<<L.grid, L.threads, L.smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), x, y, nrows, m, k, ks, L.R);
-  return static_cast<int>(cudaGetLastError());
+  return launch_unsplit<kMv, __nv_bfloat16>(a, a, x, nullptr, y, nullptr,
+                                            nblk, m, k, stream);
 }
 
 int nstt_block_mv2_f32(const float* a_hi, const float* a_lo, const float* x,
                        float* y, long long nblk, int m, int k, void* stream) {
-  if (bad_shape(nblk, m, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nrows = nblk * m;
-  if (nrows == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan(nrows, m, k, ks, 2, 1);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv2_kernel<<<L.grid, L.threads, L.smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      a_hi, a_lo, x, y, nrows, m, k, ks, L.R);
-  return static_cast<int>(cudaGetLastError());
+  return launch_unsplit<kMv2, float>(a_hi, a_lo, x, nullptr, y, nullptr,
+                                     nblk, m, k, stream);
+}
+
+// Kernel 1 on a segmented table (the section above): tab holds `entries`
+// entries; desc_host and desc_dev hold the same nseg descriptors {off,
+// first, count, d}, in host and in device memory; x and y are (nblk,
+// width).
+
+int nstt_block_mv_seg_f32(const float* tab, long long entries,
+                          const long long* desc_host,
+                          const long long* desc_dev, int nseg, const float* x,
+                          float* y, long long nblk, int width, void* stream) {
+  return launch_segments<float>(tab, entries, desc_host, desc_dev, nseg, x, y,
+                                nblk, width, stream);
+}
+
+int nstt_block_mv_seg_bf16(const void* tab, long long entries,
+                           const long long* desc_host,
+                           const long long* desc_dev, int nseg,
+                           const float* x, float* y, long long nblk,
+                           int width, void* stream) {
+  return launch_segments<__nv_bfloat16>(tab, entries, desc_host, desc_dev,
+                                        nseg, x, y, nblk, width, stream);
 }
 
 int nstt_block_mv_ds_f32(const float* a_hi, const float* a_lo,
@@ -832,21 +1031,14 @@ int nstt_block_mv_comp_splitk_f32(const void* const* his,
                                     nblk, m, k, nsub, tile, stream);
 }
 
-// Kernel 4: the compensated kernel at one sub-table, the table itself (one
-// tile of nblk blocks, every row real).  Both tables 16-byte aligned: the
-// bulk copies start there (launch_split refuses any other).
+// Kernel 4: the compensated kernel at one sub-table (launch_unsplit).  Both
+// tables 16-byte aligned: the bulk copies start there.
 int nstt_block_mv_comp_f32(const float* a_hi, const float* a_lo,
                            const float* x_hi, const float* x_lo, float* y_hi,
                            float* y_lo, long long nblk, int m, int k,
                            void* stream) {
-  if (bad_shape(nblk, m, k) || nblk > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nblk == 0) return 0;
-  const void* his[1] = {a_hi};
-  const void* los[1] = {a_lo};
-  return nstt_block_mv_comp_splitk_f32(his, los, 1, x_hi, x_lo, y_hi, y_lo,
-                                       nblk, m, k, nblk,
-                                       static_cast<int>(nblk), stream);
+  return launch_unsplit<kComp, float>(a_hi, a_lo, x_hi, x_lo, y_hi, y_lo,
+                                      nblk, m, k, stream);
 }
 
 // One thread spinning on the SM clock for `cycles` cycles: work that keeps

@@ -221,7 +221,8 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
     block matvec a table apply; ``cdt`` is the arithmetic dtype.
     ``preA.parts`` holds its components for per-part timings and, under
     ``"tables"``, the device table of every table apply it launches (per GS
-    color: the panels and the solve table)."""
+    color: the panels and the solve table, a
+    :class:`~navier_stokes_tpu_torch.ops.block_mv.SegmentTable`)."""
     dev = lay.device
     free = torch.as_tensor(V.free_mask, device=dev)
     S_perm_np = lay.permute_skel_blocks(S_loc)

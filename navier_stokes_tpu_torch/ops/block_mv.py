@@ -7,10 +7,15 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 * :func:`block_mv` replaces ``_mv_kernel`` (pallas_mv.py:118): f32 or
   bf16-STORED tables, f32 arithmetic, any m x k.  Every preconditioner table
   apply goes through it on the card (harmonic extension and its transpose,
-  interior solve, coarse face transfer, edge-star inverses).
+  interior solve, coarse face transfer, edge-star inverses, GS row
+  panels); :func:`block_mv_segments` is the same kernel over a table of
+  ragged square blocks (:class:`SegmentTable`: the GS color solves, which
+  the JAX package zero-pads to the color's largest block).  Its kernel is
+  :func:`block_mv_splitk`'s at one sub-table.
 * :func:`block_mv2` replaces ``_mv2_kernel`` (pallas_mv.py:124): the split
   operator (A_hi + A_lo) x streamed in one pass sharing x — the phase-1
-  f32 operators A32, B32 and BT32.
+  f32 operators A32, B32 and BT32.  Its kernel is
+  :func:`block_mv2_splitk`'s at one sub-table.
 * :func:`block_mv_ds` replaces ``_mv_ds_kernel`` (pallas_mv.py:129): the
   three f32 products A_hi x_hi, A_hi x_lo, A_lo x_hi of the plain
   double-single apply from one pass over both tables
@@ -27,7 +32,9 @@ launch as separate operands.  They are one CUDA kernel with three row
 bodies: each CTA brings its stretch of every (table, sub-table) on chip by
 one bulk asynchronous copy, all started before any wait, and stages x in
 shared memory beside them; every sub-table must start on a 16-byte
-boundary (a fresh allocation does; a view may not, and raises):
+boundary (a fresh allocation does; a view may not, and raises).  So must
+the tables of :func:`block_mv`, :func:`block_mv2` and
+:func:`block_mv_comp`, which are those kernels at one sub-table:
 
 * :func:`block_mv_splitk` replaces ``_mv_kernel_splitk``
   (pallas_mv.py:305);
@@ -78,7 +85,8 @@ __all__ = [
     "block_mv_comp_plain", "split_f64", "make_table_apply", "MAX_SPLIT",
     "pack_splitk", "block_mv_splitk", "block_mv_splitk_plain",
     "block_mv2_splitk", "block_mv2_splitk_plain", "block_mv_comp_splitk",
-    "block_mv_comp_splitk_plain",
+    "block_mv_comp_splitk_plain", "SegmentTable", "pack_segments",
+    "block_mv_segments", "block_mv_segments_plain", "make_segment_apply",
 ]
 
 LAUNCHES = {"block_mv": 0, "block_mv2": 0, "block_mv_comp": 0,
@@ -154,31 +162,37 @@ def build_all(verbose: bool = False) -> dict:
 
 
 def _bind(path):
-    """The library at ``path`` with its entry points' argument types."""
+    """The library at ``path`` with its entry points' argument types.  A
+    library built from an earlier tree (``tools/sweep_redesign.py
+    --parent``) may lack the newer entries; calling one raises
+    AttributeError."""
     lib = ctypes.CDLL(str(path))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.nstt_block_mv_f32.argtypes = [p, p, p, i64, i32, i32, p]
-    lib.nstt_block_mv_bf16.argtypes = [p, p, p, i64, i32, i32, p]
-    lib.nstt_block_mv2_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
-    lib.nstt_block_mv_comp_f32.argtypes = [p, p, p, p, p, p, i64, i32, i32, p]
-    lib.nstt_block_mv_ds_f32.argtypes = [p, p, p, p, p, p, p, i64, i32, i32,
-                                         p]
-    # split-k: (pointer array, k, ..., rows per sub-table, tile, stream)
     pp = ctypes.POINTER(ctypes.c_void_p)
-    lib.nstt_block_mv_splitk_f32.argtypes = [pp, i32, p, p, i64, i32, i32,
-                                             i64, i32, p]
-    lib.nstt_block_mv_splitk_bf16.argtypes = [pp, i32, p, p, i64, i32, i32,
-                                              i64, i32, p]
-    lib.nstt_block_mv2_splitk_f32.argtypes = [pp, pp, i32, p, p, i64, i32,
-                                              i32, i64, i32, p]
-    lib.nstt_block_mv_comp_splitk_f32.argtypes = [pp, pp, i32, p, p, p, p,
-                                                  i64, i32, i32, i64, i32, p]
-    for fn in (lib.nstt_block_mv_f32, lib.nstt_block_mv_bf16,
-               lib.nstt_block_mv2_f32, lib.nstt_block_mv_comp_f32,
-               lib.nstt_block_mv_ds_f32, lib.nstt_block_mv_splitk_f32,
-               lib.nstt_block_mv_splitk_bf16, lib.nstt_block_mv2_splitk_f32,
-               lib.nstt_block_mv_comp_splitk_f32):
-        fn.restype = ctypes.c_int
+    argtypes = {
+        "nstt_block_mv_f32": [p, p, p, i64, i32, i32, p],
+        "nstt_block_mv_bf16": [p, p, p, i64, i32, i32, p],
+        "nstt_block_mv2_f32": [p, p, p, p, i64, i32, i32, p],
+        "nstt_block_mv_comp_f32": [p, p, p, p, p, p, i64, i32, i32, p],
+        "nstt_block_mv_ds_f32": [p, p, p, p, p, p, p, i64, i32, i32, p],
+        # split-k: (pointer array, k, ..., rows per sub-table, tile, stream)
+        "nstt_block_mv_splitk_f32": [pp, i32, p, p, i64, i32, i32, i64, i32,
+                                     p],
+        "nstt_block_mv_splitk_bf16": [pp, i32, p, p, i64, i32, i32, i64, i32,
+                                      p],
+        "nstt_block_mv2_splitk_f32": [pp, pp, i32, p, p, i64, i32, i32, i64,
+                                      i32, p],
+        "nstt_block_mv_comp_splitk_f32": [pp, pp, i32, p, p, p, p, i64, i32,
+                                          i32, i64, i32, p],
+        # segments: (table, entries, host descriptors, device descriptors,
+        # nseg, x, y, nblk, width, stream)
+        "nstt_block_mv_seg_f32": [p, i64, p, p, i32, p, p, i64, i32, p],
+        "nstt_block_mv_seg_bf16": [p, i64, p, p, i32, p, p, i64, i32, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = types, ctypes.c_int
     return lib
 
 
@@ -233,6 +247,15 @@ def _device_kind(A) -> str:
     return kind
 
 
+def _check_aligned(name, *tables):
+    """The bulk copies of the kernels start at each table's base: on the
+    card it must lie on a 16-byte boundary (a fresh allocation does; a view
+    may not)."""
+    for A in tables:
+        if A.device.type == "cuda" and A.data_ptr() % 16:
+            raise ValueError(f"{name}: table not 16-byte aligned")
+
+
 def _launch(fn, *args):
     rc = fn(*args)
     if rc != 0:
@@ -256,11 +279,14 @@ def block_mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y (nblk, m) f32 = A (nblk, m, k) x (nblk, k), A f32 or bf16-stored.
 
     Replaces ``_mv_kernel`` (navier_stokes_tpu/ops/pallas_mv.py:118).  Bound
-    by the table stream: nblk*m*k*itemsize bytes / 3.35 TB/s.  An f64 table
-    with an f64 x is taken on the CPU only (the host-math tests of the
-    preconditioner in f64); the kernel raises on it."""
+    by the table stream: nblk*m*k*itemsize bytes / 3.35 TB/s.  The kernel is
+    :func:`block_mv_splitk`'s at one sub-table, so on the card the table
+    must start on a 16-byte boundary.  An f64 table with an f64 x is taken
+    on the CPU only (the host-math tests of the preconditioner in f64); the
+    kernel raises on it."""
     _check_table(A, "block_mv table",
                  (torch.float32, torch.bfloat16, torch.float64))
+    _check_aligned("block_mv", A)
     _check_vec(x, A, "block_mv x")
     if _device_kind(A) == "cpu":
         return block_mv_plain(A, x)
@@ -279,6 +305,169 @@ def block_mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+# -- kernel 1 on segments: ragged square blocks without their padding ------
+
+SEG_ALIGN = 8  # segment starts, in entries: 16 bytes of bf16, 32 of f32
+
+
+class SegmentTable:
+    """A table of ragged square blocks that stands for the (nblk, width,
+    width) table in which each is zero-padded to ``width`` and the blocks
+    after the last segment are zero -- the GS color-solve tables, whose
+    edge-star inverses the JAX package pads to the color's largest block.
+
+    ``data`` is one 1-D allocation; ``desc`` is (nseg, 4) int64, one row
+    (off, first, count, d) per segment: ``count`` blocks of d x d entries,
+    row-major, from entry ``off`` of ``data``, standing for blocks
+    first .. first+count-1.  The segments cover blocks 0 .. nreal-1 in
+    order, each starts at a multiple of ``SEG_ALIGN`` entries, at or after
+    the end of the one before, and 1 <= d <= width; the constructor raises
+    on any other descriptors.  ``desc_dev`` is the same array on
+    ``data``'s device, which the kernel reads."""
+
+    def __init__(self, data: torch.Tensor, desc, nblk: int, width: int):
+        desc = np.ascontiguousarray(np.asarray(desc, np.int64))
+        if data.dim() != 1 or not data.is_contiguous():
+            raise ValueError("SegmentTable: data must be 1-D and contiguous")
+        if desc.ndim != 2 or desc.shape[1] != 4:
+            raise ValueError(f"SegmentTable: descriptors of shape "
+                             f"{desc.shape}, not (nseg, 4)")
+        if nblk < 0 or width < 1:
+            raise ValueError(f"SegmentTable: nblk={nblk}, width={width}")
+        next_block = next_off = 0
+        for s, (off, first, count, d) in enumerate(desc.tolist()):
+            if (first != next_block or off < next_off or off % SEG_ALIGN
+                    or count < 1 or not 1 <= d <= width
+                    or off + count * d * d > data.numel()):
+                raise ValueError(f"SegmentTable: bad descriptor {s}: "
+                                 f"{(off, first, count, d)}")
+            next_block, next_off = first + count, off + count * d * d
+        if next_block > nblk:
+            raise ValueError(f"SegmentTable: {next_block} blocks in "
+                             f"segments, more than nblk={nblk}")
+        self.data, self.desc, self.nblk, self.width = data, desc, nblk, width
+        self.nreal = next_block
+        self.desc_dev = torch.as_tensor(desc, device=data.device)
+
+    def segments(self):
+        """(first, (count, d, d) view of data) per segment."""
+        return [(first, self.data[off: off + count * d * d].view(count, d, d))
+                for off, first, count, d in self.desc.tolist()]
+
+    @property
+    def real_bytes(self) -> int:
+        """Bytes of the blocks themselves: what an apply streams."""
+        return int((self.desc[:, 2] * self.desc[:, 3] ** 2).sum()
+                   * self.data.element_size())
+
+    def padded(self) -> torch.Tensor:
+        """The (nblk, width, width) table the segments stand for."""
+        out = self.data.new_zeros((self.nblk, self.width, self.width))
+        for first, blocks in self.segments():
+            d = blocks.shape[1]
+            out[first: first + blocks.shape[0], :d, :d] = blocks
+        return out
+
+
+def pack_segments(blocks, nblk: int, width: int, store_dtype=torch.float32,
+                  device=None) -> SegmentTable:
+    """A :class:`SegmentTable` of the segments ``blocks`` ((count, d, d)
+    tensors, in block order from block 0) stored in ``store_dtype``, one
+    after another in one allocation on ``device``, each start rounded up to
+    ``SEG_ALIGN`` entries."""
+    if device is None:
+        device = blocks[0].device if len(blocks) else torch.device("cpu")
+    desc, off, first = [], 0, 0
+    for B in blocks:
+        count, d, _ = B.shape
+        desc.append((off, first, count, d))
+        off = -(-(off + count * d * d) // SEG_ALIGN) * SEG_ALIGN
+        first += count
+    data = torch.zeros(off, dtype=store_dtype, device=device)
+    for (o, _, count, d), B in zip(desc, blocks):
+        data[o: o + count * d * d] = B.to(device=device,
+                                          dtype=store_dtype).reshape(-1)
+    return SegmentTable(data, np.asarray(desc, np.int64).reshape(-1, 4),
+                        nblk, width)
+
+
+def block_mv_segments_plain(T: SegmentTable, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`block_mv_segments`: one einsum per
+    segment on the first d columns of its blocks' rows of x."""
+    y = x.new_zeros((T.nblk, T.width))
+    for first, blocks in T.segments():
+        count, d, _ = blocks.shape
+        y[first: first + count, :d] = block_mv_plain(
+            blocks, x[first: first + count, :d])
+    return y
+
+
+def block_mv_segments(T: SegmentTable, x: torch.Tensor) -> torch.Tensor:
+    """y (nblk, width) f32 = P x for the (nblk, width, width) zero-padded
+    table P that the :class:`SegmentTable` ``T`` stands for, f32 or
+    bf16-stored, in ONE launch that streams only the real blocks.
+
+    :func:`block_mv`'s kernel over the segments (``_mv_kernel``,
+    navier_stokes_tpu/ops/pallas_mv.py:118, on the GS solve tables): equal
+    as values to ``block_mv(T.padded(), x)`` -- it leaves out products with
+    the pad's exact zeros, so a sum of -0 may come out +0.  Bound: the real
+    blocks' bytes (``T.real_bytes``, plus x and y) / 3.35 TB/s.  Counted
+    under ``LAUNCHES["block_mv"]``.  An f64 table with an f64 x is taken
+    on the CPU only, as :func:`block_mv`."""
+    if not isinstance(T, SegmentTable):
+        raise TypeError(f"block_mv_segments: expected a SegmentTable, got "
+                        f"{type(T).__name__}")
+    if T.data.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise TypeError(f"block_mv_segments: dtype {T.data.dtype}")
+    want = torch.float64 if T.data.dtype == torch.float64 else torch.float32
+    if x.dtype != want:
+        raise TypeError(f"block_mv_segments x: expected {want}, got "
+                        f"{x.dtype}")
+    if tuple(x.shape) != (T.nblk, T.width) or not x.is_contiguous():
+        raise ValueError(f"block_mv_segments x: expected contiguous "
+                         f"{(T.nblk, T.width)}, got {tuple(x.shape)}")
+    if x.device != T.data.device:
+        raise ValueError(f"block_mv_segments: x on {x.device}, table on "
+                         f"{T.data.device}")
+    _check_aligned("block_mv_segments", T.data)
+    if _device_kind(x) == "cpu":
+        return block_mv_segments_plain(T, x)
+    if T.data.dtype == torch.float64:
+        raise TypeError("block_mv_segments: the kernel takes f32 or bf16 "
+                        "tables")
+    y = torch.empty((T.nblk, T.width), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = load_library()
+    fn = (lib.nstt_block_mv_seg_f32 if T.data.dtype == torch.float32
+          else lib.nstt_block_mv_seg_bf16)
+    _launch(fn, T.data.data_ptr(), T.data.numel(), T.desc.ctypes.data,
+            T.desc_dev.data_ptr(), T.desc.shape[0], x.data_ptr(),
+            y.data_ptr(), T.nblk, T.width, _stream(x))
+    LAUNCHES["block_mv"] += 1
+    return y
+
+
+def make_segment_apply(blocks, nblk: int, width: int,
+                       store_dtype=torch.float32, device=None,
+                       compute_dtype=torch.float32):
+    """Batched block matvec fn (nblk, width) -> (nblk, width) for ragged
+    square blocks (:func:`pack_segments`), through
+    :func:`block_mv_segments`; ``apply.table`` is the :class:`SegmentTable`.
+    ``compute_dtype=torch.float64`` (CPU only): the blocks rounded to
+    ``store_dtype`` are held exactly in f64 and applied to f64 vectors, as
+    :func:`make_table_apply` does."""
+    T = pack_segments(blocks, nblk, width, store_dtype, device)
+    if compute_dtype == torch.float64:
+        T = SegmentTable(T.data.to(torch.float64), T.desc, nblk, width)
+
+    def apply(x):
+        return block_mv_segments(T, x.contiguous())
+
+    apply.table = T
+    return apply
+
+
 # -- kernel 2: y = (A_hi + A_lo) x ----------------------------------------
 
 
@@ -293,11 +482,14 @@ def block_mv2(A_hi: torch.Tensor, A_lo: torch.Tensor,
     """y = (A_hi x) + (A_lo x) streaming both f32 tables in one pass.
 
     Replaces ``_mv2_kernel`` (navier_stokes_tpu/ops/pallas_mv.py:124).
-    Bound by the two table streams: 2*nblk*m*k*4 bytes / 3.35 TB/s."""
+    Bound by the two table streams: 2*nblk*m*k*4 bytes / 3.35 TB/s.  The
+    kernel is :func:`block_mv2_splitk`'s at one sub-table, so on the card
+    both tables must start on a 16-byte boundary."""
     _check_table(A_hi, "block_mv2 A_hi")
     _check_table(A_lo, "block_mv2 A_lo")
     if A_lo.shape != A_hi.shape or A_lo.device != A_hi.device:
         raise ValueError("block_mv2: A_hi and A_lo differ in shape or device")
+    _check_aligned("block_mv2", A_hi, A_lo)
     _check_vec(x, A_hi, "block_mv2 x")
     if _device_kind(A_hi) == "cpu":
         return block_mv2_plain(A_hi, A_lo, x)
@@ -404,9 +596,7 @@ def block_mv_comp(A_hi, A_lo, x_hi, x_lo):
     _check_table(A_lo, "block_mv_comp A_lo")
     if A_lo.shape != A_hi.shape or A_lo.device != A_hi.device:
         raise ValueError("block_mv_comp: A_hi and A_lo differ")
-    if A_hi.device.type == "cuda" and (A_hi.data_ptr() % 16
-                                       or A_lo.data_ptr() % 16):
-        raise ValueError("block_mv_comp: table not 16-byte aligned")
+    _check_aligned("block_mv_comp", A_hi, A_lo)
     _check_vec(x_hi, A_hi, "block_mv_comp x_hi")
     _check_vec(x_lo, A_hi, "block_mv_comp x_lo")
     if _device_kind(A_hi) == "cpu":
@@ -464,8 +654,7 @@ def _check_subs(subs, name, dtypes=(torch.float32,)):
                                             subs[0].device):
             raise ValueError(f"{name}: sub-tables differ in shape, dtype or "
                              "device")
-        if A.device.type == "cuda" and A.data_ptr() % 16:
-            raise ValueError(f"{name}: sub-table not 16-byte aligned")
+        _check_aligned(f"{name} sub-table", A)
     return subs
 
 

@@ -36,6 +36,7 @@ from .block_mv import (
     block_mv_comp,
     block_mv_comp_splitk,
     block_mv_ds,
+    make_segment_apply,
     make_table_apply,
     pack_splitk,
     split_f64,
@@ -518,10 +519,14 @@ class FaceStarSmoother:
           face, the rows of S_e at the face's slot in each of its <= 2
           adjacent elements, free-masked in rows and columns; one trailing
           zero block;
-        * the merged padded solve table (nblk_c+1, bmax, bmax) in
-          ``inv_dtype``: the color's edge-star inverses zero-padded to the
-          color's largest block (bmax = fsz_max * nfb), one trailing zero
-          block -- one batched stream per color.
+        * the solve table in ``inv_dtype``: the color's edge-star inverses
+          stored by segment, one segment per bucket (its ``nkeep`` blocks of
+          d = fsz * nfb, without padding), standing for the JAX package's
+          merged padded table (nblk_c+1, bmax, bmax) -- each inverse
+          zero-padded to the color's largest block (bmax = fsz_max * nfb),
+          one trailing zero block -- whose layout its input and output keep
+          (:func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv_segments`:
+          one launch per color, streaming only the real blocks).
 
         ``colors``: (nblocks,) in bucket order (``block_faces``); ``S5p``
         and ``invs``: the f64 setup tables (:meth:`skeleton_table`,
@@ -556,15 +561,8 @@ class FaceStarSmoother:
                 "same-color blocks share a face"
             fsz_max, nblk_c, gpos, pos1 = _merged_color_plan(
                 parts_meta, self.faces_np, nface, nsel)
-            bmax = fsz_max * nfb
-            inv_full = torch.zeros((nblk_c + 1, bmax, bmax),
-                                   dtype=torch.float64, device=dev)
-            blk = 0
-            for (_ofs, nkeep, fsz, bi, keep) in parts_meta:
-                bdim = fsz * nfb
-                inv_full[blk: blk + nkeep, :bdim, :bdim] = \
-                    invs[bi][torch.as_tensor(keep, device=dev)]
-                blk += nkeep
+            inv_segs = [invs[bi][torch.as_tensor(keep, device=dev)]
+                        for (_ofs, _nkeep, _fsz, bi, keep) in parts_meta]
             # row panels at faces_c from each adjacent element (pad: the
             # zero element ne), columns then rows free-masked
             p2 = self.pos_np[faces_c]  # (nsel, 2) elem*4+lf, pad ne*4
@@ -589,8 +587,9 @@ class FaceStarSmoother:
                                         compute_dtype=self.compute_dtype),
                 rows=torch.as_tensor(np.concatenate(
                     [gpos, np.full((1, fsz_max), nsel)]), device=dev),
-                solve=make_table_apply(inv_full, store_dtype=inv_dtype,
-                                       compute_dtype=self.compute_dtype),
+                solve=make_segment_apply(inv_segs, nblk_c + 1,
+                                         fsz_max * nfb, inv_dtype, dev,
+                                         self.compute_dtype),
                 slot=torch.as_tensor(np.concatenate(
                     [pos1, [nblk_c * fsz_max]]), device=dev),
             ))
@@ -624,7 +623,9 @@ class ColorGroup:
     * ``panels``: table apply of the row panels (nsel+1, nfb, 2*n_skel);
     * ``rows`` (nblk_c+1, fsz_max): residual rows of each block (pad -> the
       zero row nsel);
-    * ``solve``: table apply of the merged inverses (nblk_c+1, bmax, bmax);
+    * ``solve``: segment apply of the inverses, (nblk_c+1, bmax) in and
+      out (``solve.table``: the
+      :class:`~navier_stokes_tpu_torch.ops.block_mv.SegmentTable`);
     * ``slot`` (nface+1,): face -> row of the solve output (pad -> a row of
       the zero block)."""
 

@@ -9,6 +9,9 @@ with numpy from a seed and handed to both.  Tolerances:
   (f32 arithmetic, sums taken in another order);
 * block_mv_comp: y_hi + y_lo within 1e-12 of sum_j |a_ij x_j| of the f64
   product, as the Pallas kernel is held (test_pallas_mv.py:125-151);
+* the segment apply (the GS solve tables without padding): its plain
+  version within 1e-6 (f32 arithmetic) or 1e-14 (f64) of sum_j |a_ij x_j|
+  of ``block_mv_plain`` on the padded table, the pad entries exactly 0;
 * the split-k versions: the same bounds against the JAX split-k launchers,
   fed through ``_pack_splitk`` (tests/test_pallas_mv.py:196-240), also at
   the edges of the kernels' CTA stretches (``EDGE_SPLITK``); the
@@ -343,6 +346,114 @@ def test_make_table_apply_splitk_equals_unsplit():
     assert f.table[0].shape == (3 * STILE, 6, NB)
     _assert_within(f(x).numpy(), want.numpy(), _row_scale(A, x.numpy()),
                    1e-6)
+
+
+# segments (count, d) of the segment tests: d not a multiple of 8 entries
+# (so neither of 16 bytes of bf16 nor of 32 of f32), a one-block segment,
+# d = 16 (rows of two or four 16-byte vectors), and room for two zero
+# blocks after the last
+SEGMENTS = [(5, 7), (1, 13), (9, 5), (3, 12), (4, 1), (6, 16)]
+SEG_NBLK, SEG_WIDTH = 30, 16
+
+
+def _segment_blocks(seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((c, d, d)))
+            for c, d in SEGMENTS]
+
+
+@pytest.mark.parametrize("store,compute", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float64)])
+def test_block_mv_segments_plain_equals_padded(store, compute):
+    """The segment apply's plain version against ``block_mv_plain`` on the
+    padded table the segments stand for: within 1e-6 (f32 arithmetic) or
+    1e-14 (f64) of sum_j |a_ij x_j| -- einsums over d and over width
+    columns, the extra terms products with zeros -- and its pad entries
+    exactly 0.  The padded table holds the blocks as stored, each start of
+    the packed table is 16-byte aligned, and the stored entries are the
+    real blocks and the alignment gaps."""
+    blocks = _segment_blocks(70)
+    f = bm.make_segment_apply(blocks, SEG_NBLK, SEG_WIDTH, store, "cpu",
+                              compute)
+    T = f.table
+    assert isinstance(T, bm.SegmentTable) and T.nreal == SEG_NBLK - 2
+    assert T.data.dtype == (torch.float64 if compute == torch.float64
+                            else store)
+    assert all(off % 8 == 0 for off in T.desc[:, 0])
+    real = sum(c * d * d for c, d in SEGMENTS)
+    assert real <= T.data.numel() < real + 8 * len(SEGMENTS)
+    assert T.real_bytes == real * T.data.element_size()
+    P = T.padded()
+    assert P.shape == (SEG_NBLK, SEG_WIDTH, SEG_WIDTH)
+    first = 0
+    for B in blocks:
+        c, d, _ = B.shape
+        assert torch.equal(P[first: first + c, :d, :d],
+                           B.to(store).to(P.dtype))
+        first += c
+    rng = np.random.default_rng(71)
+    x = torch.from_numpy(rng.standard_normal((SEG_NBLK, SEG_WIDTH))).to(
+        compute)
+    got = f(x)
+    want = bm.block_mv_plain(P, x)
+    assert got.dtype == compute and got.shape == (SEG_NBLK, SEG_WIDTH)
+    tol = 1e-14 if compute == torch.float64 else 1e-6
+    _assert_within(got.numpy(), want.numpy(),
+                   _row_scale(P.double().numpy(), x.double().numpy()), tol)
+    first = 0
+    for c, d in SEGMENTS:
+        assert not got[first: first + c, d:].any()
+        first += c
+    assert not got[first:].any()
+
+
+@pytest.mark.parametrize("case", [
+    "gap", "overlap", "misaligned", "wide", "empty", "beyond", "too_many",
+    "shape", "not_1d"])
+def test_segment_table_rejects_bad_descriptors(case):
+    """Descriptors that break the layout the kernel reads are refused
+    when the table is made, so no wrapper can be handed them."""
+    data = torch.zeros(200)
+    desc = [[0, 0, 2, 3], [24, 2, 3, 4], [72, 5, 1, 5]]
+    nblk, width = 7, 5
+    if case == "gap":
+        desc[1][1] = 3
+    elif case == "overlap":
+        desc[1][0] = 16
+    elif case == "misaligned":
+        desc[2][0] = 76
+    elif case == "wide":
+        desc[2][3] = 6
+    elif case == "empty":
+        desc[1][2] = 0
+    elif case == "beyond":
+        desc[2][0] = 184
+    elif case == "too_many":
+        nblk = 5
+    elif case == "shape":
+        desc = [row[:3] for row in desc]
+    else:
+        data = torch.zeros((10, 20))
+    bm.SegmentTable(torch.zeros(200), [[0, 0, 2, 3], [24, 2, 3, 4],
+                                       [72, 5, 1, 5]], 7, 5)
+    with pytest.raises(ValueError):
+        bm.SegmentTable(data, desc, nblk, width)
+
+
+def test_block_mv_segments_rejects_bad_inputs():
+    T = bm.pack_segments(_segment_blocks(72), SEG_NBLK, SEG_WIDTH,
+                         device="cpu")
+    x = torch.zeros((SEG_NBLK, SEG_WIDTH))
+    bm.block_mv_segments(T, x)
+    with pytest.raises(TypeError):
+        bm.block_mv_segments(T.padded(), x)
+    with pytest.raises(ValueError):
+        bm.block_mv_segments(T, torch.zeros((SEG_NBLK, SEG_WIDTH + 1)))
+    with pytest.raises(ValueError):
+        bm.block_mv_segments(T, torch.zeros((SEG_WIDTH, SEG_NBLK)).T)
+    with pytest.raises(TypeError):
+        bm.block_mv_segments(T, x.double())
 
 
 @pytest.fixture(scope="module")
@@ -680,3 +791,105 @@ def test_splitk_refuses_misaligned_sub_table_on_card():
         bm._ptrs([view]), 1, x.data_ptr(), y.data_ptr(), nblk, m, kk, nblk,
         nblk, torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+
+
+# (nblk, m, k) edges of kernels 1 and 2 at one sub-table: m * k not a whole
+# number of 16-byte units in either type, odd k in bf16, one block, one
+# row, a CTA's stretch ending mid-block, blocks wider than a CTA's rows,
+# rows of an even number of 16-byte vectors (k = 8, 16, 48, 96)
+EDGE_UNSPLIT = [(1, 1, 1), (1, 54, 54), (37, 6, 7), (301, 4, 54),
+                (45, 54, 4), (5, 3, 7), (19, 5, 3), (203, 7, 9),
+                (7, 132, 132), (1000, 6, 6), (3, 300, 11), (130, 12, 96),
+                (3, 5, 48), (7, 1, 16), (33, 3, 8)]
+
+
+@pytest.mark.cuda
+def test_block_mv_and_block_mv2_edges_on_card():
+    """On the card: kernels 1 (f32 and bf16) and 2 at the edges of their
+    CTA stretches within 1e-5 of sum_j |a_ij x_j| of their plain versions,
+    and BITWISE equal to kernels 5 and 6 at k = 2 and 4 on the same
+    tables."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for nblk, m, kk in EDGE_UNSPLIT:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        x = torch.randn((nblk, kk), generator=gen, device="cuda")
+        scale = torch.einsum("bmk,bk->bm", A64.abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        for A in (hi, hi.to(torch.bfloat16)):
+            y = bm.block_mv(A, x)
+            d = (y - bm.block_mv_plain(A, x)).abs()
+            assert float((d / scale).max()) <= 1e-5, (nblk, m, kk, A.dtype)
+            for k in (2, 4):
+                subs = bm.pack_splitk(A, k, 4)
+                assert torch.equal(y, bm.block_mv_splitk(subs, x, 4))
+        y2 = bm.block_mv2(hi, lo, x)
+        d = (y2 - bm.block_mv2_plain(hi, lo, x)).abs()
+        assert float((d / scale).max()) <= 1e-5, (nblk, m, kk)
+        for k in (2, 4):
+            hs, ls = bm.pack_splitk(hi, k, 4), bm.pack_splitk(lo, k, 4)
+            assert torch.equal(y2, bm.block_mv2_splitk(hs, ls, x, 4))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_mv_segments_equals_block_mv_on_padded_on_card(dtype):
+    """On the card: the segment kernel EQUAL as values (torch.equal) to
+    block_mv on the padded table the segments stand for, on the segments
+    of the CPU test and on GS-like ones (d = 12 nf, nf = 3..11, up to
+    several hundred blocks each), and within 1e-5 of sum_j |a_ij x_j| of
+    its plain version."""
+    _card_or_skip()
+    rng = np.random.default_rng(8)
+    gs = [(int(rng.integers(1, 400)), 12 * nf) for nf in range(3, 12)]
+    for segs, width in ((SEGMENTS, SEG_WIDTH), (gs, 132)):
+        blocks = [torch.from_numpy(rng.standard_normal((c, d, d)))
+                  for c, d in segs]
+        nblk = sum(c for c, _ in segs) + 1
+        T = bm.pack_segments(blocks, nblk, width, dtype, "cuda")
+        x = torch.from_numpy(rng.standard_normal((nblk, width)).astype(
+            np.float32)).cuda()
+        y = bm.block_mv_segments(T, x)
+        P = T.padded()
+        assert torch.equal(y, bm.block_mv(P, x))
+        d = (y - bm.block_mv_segments_plain(T, x)).abs().double()
+        scale = torch.einsum("bmk,bk->bm", P.double().abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        assert float((d / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_unsplit_kernels_refuse_misaligned_table_on_card():
+    """On the card: block_mv, block_mv2 and block_mv_segments refuse a
+    table that does not start on a 16-byte boundary (their bulk copies
+    start there), and so do their C entries."""
+    _card_or_skip()
+    nblk, m, kk = 64, 6, 8
+    flat = torch.zeros(2 + nblk * m * kk, device="cuda")
+    view = flat[1:1 + nblk * m * kk].view(nblk, m, kk)  # 4 bytes off
+    good = torch.zeros((nblk, m, kk), device="cuda")
+    x = torch.zeros((nblk, kk), device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv(view, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv2(good, view, x)
+    T = bm.pack_segments([torch.zeros((2, 3, 3))], 3, 3, device="cuda")
+    Tv = bm.SegmentTable(flat[1:1 + T.data.numel()], T.desc, 3, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_segments(Tv, torch.zeros((3, 3), device="cuda"))
+    y = torch.empty((nblk, m), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = bm.load_library()
+    assert lib.nstt_block_mv_f32(view.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                 nblk, m, kk, stream) != 0
+    xs, ys = torch.zeros((3, 3), device="cuda"), torch.empty((3, 3),
+                                                             device="cuda")
+    assert lib.nstt_block_mv_seg_f32(
+        Tv.data.data_ptr(), Tv.data.numel(), Tv.desc.ctypes.data,
+        Tv.desc_dev.data_ptr(), 1, xs.data_ptr(), ys.data_ptr(), 3, 3,
+        stream) != 0

@@ -13,6 +13,8 @@ Tolerances:
 * curved host tables and condensation: EQUAL (the same numpy operations in
   the same order);
 * edge-star blocks in bucket order and their colors: EQUAL;
+* each color's GS solve segments put back into the padded layout: EQUAL
+  to the merged padded table of the same inverses (the JAX layout);
 * the coarse damping: lambda and theta to 1e-5 relative (an f32 power
   iteration, sums in another order);
 * the row-panel sweep against the recompute sweep (a full S apply before
@@ -202,6 +204,55 @@ def test_row_panel_sweep_matches_recompute_sweep_f64(pair):
         y = y + sm.solve_color_rows(g, xP, y)
     assert float(y[-1].abs().max()) == 0.0  # the pad row stays zero
     assert _rel(y_old.numpy(), y[:-1].numpy()) < 1e-10
+
+
+def _padded_solve_tables(sm, colors, invs):
+    """Per color, the merged padded solve table of the JAX package's layout
+    (navier_stokes_tpu/ops/faceblock.py ``color_row_groups``): the color's
+    edge-star inverses in bucket order, each zero-padded to the color's
+    largest block, and one trailing zero block; f64."""
+    nfb = sm.layout.nfb
+    base = np.cumsum([0] + [len(f) for f in sm.faces_np])
+    out = []
+    for c in range(int(np.max(colors)) + 1):
+        parts = []
+        for bi, faces_b in enumerate(sm.faces_np):
+            keep = np.where(colors[base[bi]: base[bi + 1]] == c)[0]
+            if len(keep):
+                parts.append((bi, keep, faces_b.shape[1] * nfb))
+        bmax = max(d for _, _, d in parts)
+        full = torch.zeros((sum(len(k) for _, k, _ in parts) + 1, bmax, bmax),
+                           dtype=torch.float64)
+        blk = 0
+        for bi, keep, d in parts:
+            full[blk: blk + len(keep), :d, :d] = \
+                invs[bi][torch.as_tensor(keep)]
+            blk += len(keep)
+        out.append(full)
+    return out
+
+
+def test_gs_solve_segments_equal_padded_tables(pair):
+    """color_row_groups stores each color's inverses by segment, without
+    padding: put back into the padded layout they EQUAL the merged padded
+    table (the JAX package's layout) built from the same inverses, in f32
+    and bf16 storage, and the segments hold only the real blocks."""
+    m = pair["mp"]
+    sm = face_star_smoother(m.fb, m.Xv.free_mask)
+    S5p = sm.skeleton_table(_schur_f64(m))
+    invs = sm.bucket_inverses(S5p)
+    colors = pair["solver"].ops32["preA"].parts["colors"]
+    want = _padded_solve_tables(sm, colors, invs)
+    for dt in (torch.float32, torch.bfloat16):
+        groups = sm.color_row_groups(colors, S5p, invs, torch.float32, dt)
+        assert len(groups) == len(want)
+        for g, P in zip(groups, want):
+            T = g.solve.table
+            assert T.data.dtype == dt and (T.nblk, T.width) == P.shape[:2]
+            assert torch.equal(T.padded(), P.to(dt))
+            real = int((P.abs().sum(dim=2) > 0).sum(dim=1).pow(2).sum())
+            assert T.real_bytes == real * T.data.element_size()
+            assert T.data.numel() == real
 
 
 def test_gs_preA32_matches_jax(pair):

@@ -2,6 +2,22 @@
 """Sweep of the launch constants of the redesigned hand-written kernels on
 the card, with an earlier design beside them in the same call.
 
+* Kernel 1 (``block_mv``, kernel 5's kernel at one sub-table), rows per
+  CTA ``kMvRows`` of ``csrc/block_mv.cu`` in {32, 64, 128, 256}, on random
+  tables of the shapes it streams on the GS solve's path at maxh=0.09: S,
+  M_F and M_F^T (f32), ext, ext^T and inner (bf16), one color's GS row
+  panels (f32).  Each variant must be BITWISE equal to the other tree's
+  ``block_mv`` (without ``--parent``: the package's own), which is timed
+  beside it with the f32 ``torch.bmm``.  Then one color's GS solve table
+  (bf16, the segments of color 0 at maxh=0.09, ``GS_SEGMENTS``): each
+  variant's ``block_mv_segments`` must EQUAL ``block_mv`` on the padded
+  table, which, the other tree's ``block_mv`` on it and the f32
+  ``torch.bmm`` of the padded table are timed beside it.
+* Kernel 2 (``block_mv2``, kernel 6's kernel at one sub-table), the same
+  constant, on random hi/lo pairs of the shapes of A32 (7740 x 54 x 54),
+  B32 (7740 x 4 x 54) and BT32 (7740 x 54 x 4), each BITWISE equal to the
+  other tree's ``block_mv2``, timed beside it with the f32 ``torch.bmm``
+  of the stacked pair.
 * Kernel 4 (``block_mv_comp``, kernel 7's kernel at one sub-table), rows
   per CTA ``kCompRows`` of ``csrc/block_mv.cu`` in {32, 64, 128}, on random
   hi/lo pairs of the shapes of the flagship's A_ds (7740 x 54 x 54), B_ds
@@ -27,10 +43,7 @@ the card, with an earlier design beside them in the same call.
   solve's path at maxh=0.09: S, M_F and M_F^T (f32), ext, ext^T and inner
   (bf16).  Each variant must be BITWISE
   equal to the package's own ``block_mv``; it, the f32 ``torch.bmm`` and
-  (f32 tables) ``block_mv_mega`` are timed beside it.  As a data point,
-  the package's kernel 5 at k = 1 (one sub-table, the table itself) is
-  timed beside ``block_mv`` on the bench table and on a bf16 table of the
-  shape of a merged GS solve table (1540 x 132 x 132).
+  (f32 tables) ``block_mv_mega`` are timed beside it.
 * Kernel 8 (``batched_local_matvec``), rows per CTA ``kRows`` of
   ``csrc/local_mv.cu`` in {32, 64, 128}, in float and double, on random
   tables of the shapes of the transient step's M_loc and A_cond (7740 x 54
@@ -44,14 +57,17 @@ the card, with an earlier design beside them in the same call.
   ``block_mv_mega`` (64 rows per CTA, one bulk copy) are timed beside it.
 
 Each variant is the package's ``csrc/`` copied under ``build/sweep/`` with
-that one constant rewritten (kernel 12: copied as it is), compiled with the
+that one constant rewritten (kernel 12: copied as it is; kernels 1 and 2
+share ``kMvRows``, as do 5 and 6 ``kSplitCtaRows``), compiled with the
 package's nvcc flags (all nvcc processes at once), and called through the
 package's own wrappers, whose library is swapped for the variant's.  With
 ``--parent DIR`` the ``csrc/`` of another tree (an earlier commit unpacked
 with ``git archive``) is built and timed too.  Times are medians of 25
 calls with the L2 flushed (``utils.timers.KernelTimer``), taken in the
 order parent, variants, variants, parent; both passes are printed, and at
-the end each variant's sum over the tables of the better pass.  The last
+the end each variant's sum over the tables of the better pass.  An earlier
+tree's library lacks the segment entry: its ``block_mv`` on the padded
+table stands for it.  The last
 lines are the card's name and power limit and a JSON object of every time;
 ``--out`` also writes it to a file.
 
@@ -103,7 +119,17 @@ GS_TABLES = (("S", NBLK, NB - 6, NB - 6, torch.float32),
              ("inner", NBLK, 6, 6, torch.bfloat16),
              ("M_F", NFACE, 12, 9, torch.float32),
              ("M_F^T", NFACE, 9, 12, torch.float32))
-GS_SOLVE = (1540, 132, 132)  # a merged GS solve table, bf16
+# kernel 1 on the main path at maxh=0.09: the tables above, one color's
+# GS row panels (its 7798 faces, 12 rows of 96 entries, f32) and one
+# color's GS solve table (bf16): GS_SEGMENTS is color 0's (faces per
+# block, blocks) -- 1496 blocks, padded to 8 faces = 96 entries
+GS_PANELS = ("GS panels", 7799, 12, 96, torch.float32)
+GS_SEGMENTS = ((2, 13), (3, 69), (4, 392), (5, 158), (6, 840), (7, 17),
+               (8, 6))
+NFB = 12  # face-block width: rows of one face in a GS block
+MV1_ROWS = (32, 64, 128, 256)  # kMvRows
+# kernel 2 on the phase-1 operators at maxh=0.09: A32, B32, BT32
+MV2_TABLES = (("A32", NB, NB), ("B32", NQ, NB), ("BT32", NB, NQ))
 LOCAL_ROWS = (32, 64, 128)  # kRows
 TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 
@@ -249,11 +275,11 @@ def sweep_comp(timer, libs, rng, times):
 
 
 def timed_variants(timer, libs, call, ref, label, times, section, row,
-                   bound, base):
+                   bound, base, what="unsplit"):
     """Every ``block_mv.cu`` library of ``libs`` (the parent first and
-    last, if any) on one call, each BITWISE equal to ``ref``; appends one
-    row per library to ``times[section]`` and prints its line (``base``:
-    the yardstick's ms)."""
+    last, if any) on one call, each BITWISE equal to ``ref`` (the output of
+    ``what``); appends one row per library to ``times[section]`` and prints
+    its line (``base``: the yardstick's ms)."""
     names = list(libs)
     ms = {}
     for key in names + names[::-1]:
@@ -261,15 +287,118 @@ def timed_variants(timer, libs, call, ref, label, times, section, row,
         got = call()
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
-            raise RuntimeError(f"{label} {key}: not bitwise equal to the "
-                               "unsplit kernel")
+            raise RuntimeError(f"{label} {key}: not bitwise equal to {what}")
         ms.setdefault(key, []).append(timer(call))
     for key in names:
         times[section].append({**row, "kernel": key, "ms": ms[key]})
         print(f"  {label} {key:10s} " + " / ".join(f"{t:.4f}" for t in ms[key])
               + f" ms ({min(ms[key]) / base:.3f} x f32 bmm, "
-              f"{bound / min(ms[key]):.3f} of bound), bitwise = unsplit",
+              f"{bound / min(ms[key]):.3f} of bound), bitwise = {what}",
               flush=True)
+
+
+def reference(libs, main, call):
+    """``call``'s output through the parent's library if ``libs`` has one,
+    else through the package's own build ``main``: what every variant must
+    equal."""
+    bm._lib = libs.get("parent", main)
+    out = call()
+    torch.cuda.synchronize()
+    return out
+
+
+def sweep_mv1(timer, libs, rng, times):
+    """Kernel 1 (``kMvRows``) on random tables of the main path's shapes,
+    every variant BITWISE against the parent's ``block_mv`` (the package's
+    own build without ``--parent``); then one color's GS solve table by
+    segment, every variant EQUAL to ``block_mv`` on the padded table,
+    beside the parent's and the package's ``block_mv`` on it."""
+    main = bm.load_library()
+    shapes = [(name, nblk, m, kk, dt) for name, nblk, m, kk, dt in GS_TABLES]
+    for name, nblk, m, kk, dt in shapes + [GS_PANELS]:
+        A = torch.as_tensor(rng.standard_normal((nblk, m, kk)).astype(
+            np.float32), device="cuda").to(dt)
+        x = torch.as_tensor(rng.standard_normal((nblk, kk)).astype(
+            np.float32), device="cuda")
+        Af, xb = A.to(torch.float32), x[:, :, None]
+        bm._lib = main
+        tb = timer(lambda: torch.bmm(Af, xb))
+        bound = (A.numel() * A.element_size() + 4 * x.numel()
+                 + 4 * nblk * m) / 3.35e12 * 1e3
+        times["mv1"].append({"table": name, "kernel": "f32 bmm", "ms": [tb]})
+        print(f"[mv1] {name} {tuple(A.shape)} {str(dt)[6:]}: f32 bmm "
+              f"{tb:.4f} ms, bound {bound:.4f}", flush=True)
+        ref = reference(libs, main, lambda: bm.block_mv(A, x))
+        timed_variants(timer, libs, lambda: bm.block_mv(A, x), ref, name,
+                       times, "mv1", {"table": name}, bound, tb,
+                       "the parent's block_mv" if "parent" in libs
+                       else "block_mv")
+    # one color's GS solve table, padded and by segment
+    blocks = [torch.as_tensor(rng.standard_normal((n, f * NFB, f * NFB)),
+                              device="cuda") for f, n in GS_SEGMENTS]
+    nblk = sum(n for _, n in GS_SEGMENTS) + 1
+    width = max(f for f, _ in GS_SEGMENTS) * NFB
+    T = bm.pack_segments(blocks, nblk, width, torch.bfloat16, "cuda")
+    del blocks
+    P = T.padded()
+    x = torch.as_tensor(rng.standard_normal((nblk, width)).astype(
+        np.float32), device="cuda")
+    Pf, xb = P.to(torch.float32), x[:, :, None]
+    bm._lib = main
+    tb = timer(lambda: torch.bmm(Pf, xb))
+    tp = timer(lambda: bm.block_mv(P, x))
+    want = bm.block_mv(P, x)
+    bound = (T.real_bytes + 8 * x.numel()) / 3.35e12 * 1e3
+    rows = [{"kernel": "f32 bmm padded", "ms": [tb]},
+            {"kernel": "block_mv padded", "ms": [tp]}]
+    line = f"f32 bmm padded {tb:.4f} ms, block_mv padded {tp:.4f}"
+    if "parent" in libs:
+        bm._lib = libs["parent"]
+        got = bm.block_mv(P, x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError("the parent's block_mv on the padded GS "
+                               "solve table differs from this tree's")
+        tq = timer(lambda: bm.block_mv(P, x))
+        rows.append({"kernel": "parent block_mv padded", "ms": [tq]})
+        line += f", the parent's block_mv padded {tq:.4f}"
+    times["mv1_seg"] += rows
+    print(f"[mv1_seg] GS solve {tuple(P.shape)} bf16, {T.real_bytes / 1e6:.2f}"
+          f" MB by segment ({P.numel() * 2 / 1e6:.2f} MB padded): {line}, "
+          f"bound on the segments {bound:.4f}", flush=True)
+    seg_libs = {key: lib for key, lib in libs.items() if key != "parent"}
+    timed_variants(timer, seg_libs, lambda: bm.block_mv_segments(T, x), want,
+                   "segments", times, "mv1_seg", {}, bound, tb,
+                   "block_mv padded (as values)")
+    bm._lib = main
+
+
+def sweep_mv2_unsplit(timer, libs, rng, times):
+    """Kernel 2 (``kMvRows``) on random hi/lo pairs of the shapes of A32,
+    B32 and BT32, every variant BITWISE against the parent's ``block_mv2``
+    (the package's own build without ``--parent``)."""
+    main = bm.load_library()
+    for name, m, kk in MV2_TABLES:
+        A64 = torch.as_tensor(rng.standard_normal((NBLK, m, kk)),
+                              device="cuda")
+        hi, lo = bm.split_f64(A64)
+        del A64
+        x = torch.as_tensor(rng.standard_normal((NBLK, kk)).astype(
+            np.float32), device="cuda")
+        Acat = torch.cat([hi, lo], dim=2)
+        xb = torch.cat([x, x], dim=1)[:, :, None]
+        tb = timer(lambda: torch.bmm(Acat, xb))
+        bound = 4 * (2 * hi.numel() + x.numel() + NBLK * m) / 3.35e12 * 1e3
+        times["mv2_1"].append({"table": name, "kernel": "f32 bmm",
+                               "ms": [tb]})
+        print(f"[mv2_1] {name} {tuple(hi.shape)} hi/lo: f32 bmm {tb:.4f} ms, "
+              f"bound {bound:.4f}", flush=True)
+        ref = reference(libs, main, lambda: bm.block_mv2(hi, lo, x))
+        timed_variants(timer, libs, lambda: bm.block_mv2(hi, lo, x), ref,
+                       name, times, "mv2_1", {"table": name}, bound, tb,
+                       "the parent's block_mv2" if "parent" in libs
+                       else "block_mv2")
+    bm._lib = main
 
 
 def sweep_mv2(timer, libs, rng, times):
@@ -307,8 +436,7 @@ def sweep_mv2(timer, libs, rng, times):
 def sweep_mv(timer, libs, rng, times):
     """Kernel 5 on the bench table (the six variants of kernel 10) and on
     the GS-shaped tables at k = 2, 4, 8, every variant bitwise against the
-    package's own ``block_mv``; then kernel 5 at k = 1 beside
-    ``block_mv``."""
+    package's own ``block_mv``."""
     main = bm.load_library()
 
     def table(nblk, m, kk, dt):
@@ -360,24 +488,6 @@ def sweep_mv(timer, libs, rng, times):
                            f"{name} k={k}", times, "mv_gs",
                            {"table": name, "k": k}, bound, tb)
             del subs
-    # kernel 5 at k = 1 beside block_mv (the package's own build)
-    bm._lib = main
-    for name, shape, dt in (("bench", (NBLK, NB, NB), torch.float32),
-                            ("GS solve", GS_SOLVE, torch.bfloat16)):
-        A, x = table(*shape, dt)
-        ref = bm.block_mv(A, x)
-        tb, bound = yardsticks(name, A, x, "k1", {"table": name})
-        got = bm.block_mv_splitk([A], x, A.shape[0])
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise RuntimeError(f"kernel 5 at k=1 {name}: not bitwise equal "
-                               "to block_mv")
-        t = timer(lambda: bm.block_mv_splitk([A], x, A.shape[0]))
-        times["k1"].append({"table": name, "kernel": "block_mv_splitk k=1",
-                            "ms": [t]})
-        print(f"  {name} block_mv_splitk k=1 {t:.4f} ms ({t / tb:.3f} x f32 "
-              f"bmm, {bound / t:.3f} of bound), bitwise = block_mv",
-              flush=True)
 
 
 def sweep_local(timer, libs, rng, times):
@@ -496,11 +606,13 @@ def main(argv=None):
                  for r in COMP_ROWS})
     jobs.update({("split", f"R={r}"): variant("block_mv", "kSplitCtaRows", r)
                  for r in SPLIT_ROWS})
+    jobs.update({("mv1", f"R={r}"): variant("block_mv", "kMvRows", r)
+                 for r in MV1_ROWS})
     jobs.update({("local", f"R={r}"): variant("local_mv", "kRows", r)
                  for r in LOCAL_ROWS})
     jobs[("ring", "this tree")] = variant("stream_mv")
     sources = {"comp1": "block_mv", "comp": "block_mv", "split": "block_mv",
-               "local": "local_mv", "ring": "stream_mv"}
+               "mv1": "block_mv", "local": "local_mv", "ring": "stream_mv"}
     if args.parent:
         csrc = Path(args.parent).resolve() / "navier_stokes_tpu_torch" / "csrc"
         for name in ("block_mv", "local_mv", "stream_mv"):
@@ -525,8 +637,11 @@ def main(argv=None):
     timer = KernelTimer()
     warm_up()
     rng = np.random.default_rng(0)
-    times = {kind: [] for kind in ("comp1", "comp", "mv2", "mv_bench",
-                                   "mv_gs", "k1", "local", "ring")}
+    times = {kind: [] for kind in ("mv1", "mv1_seg", "mv2_1", "comp1",
+                                   "comp", "mv2", "mv_bench", "mv_gs",
+                                   "local", "ring")}
+    sweep_mv1(timer, libs["mv1"], rng, times)
+    sweep_mv2_unsplit(timer, libs["mv1"], rng, times)
     sweep_comp1(timer, libs["comp1"], rng, times)
     sweep_comp(timer, libs["comp"], rng, times)
     sweep_mv2(timer, libs["split"], rng, times)
