@@ -74,9 +74,12 @@ condensed-operator and pressure-block tables of the transient step),
 ``block_mv_ds`` (on the split A, B, BT tables), every variant of the
 table-stream kernels (``block_mv_rows``, split-k at k = 2, 4, 8,
 ``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the bench table,
-each also bitwise against ``block_mv``, and the edges of the CTA stretches
+each also bitwise against ``block_mv``, the edges of the CTA stretches
 of kernels 1, 2 and 5-8 and of the segment entry (``check_edges``: the
-shapes of the card tests).
+shapes of the card tests), and those of kernels 9 and 13
+(``check_stream_edges``: rows per CTA 1, 5, 864 and odd k; element counts
+4, 260, 7936 and nb 1, 7, 64).  A ``[stream]`` line prints what ``A.sum()``
+on the bench table reaches of the byte bound, for reference only.
 
 It prints the kernels' JSON line and the card's name and power limit on
 lines before the last, and as its last line
@@ -125,7 +128,12 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
               "batched_local_matvec": "bulk copy per CTA",
               "batched_local_matvec_f64": "bulk copy per CTA",
               "block_mv_ring": "producer warp, consumer groups, full and "
-                               "empty mbarriers"}
+                               "empty mbarriers",
+              "block_mv_rows": "each warp stages its own rows by one bulk "
+                               "copy on its own mbarrier and computes when "
+                               "they land",
+              "block_mv_soa": "tensor-map boxes through a producer/consumer "
+                              "ring, u once per element tile"}
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
 # the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
@@ -149,6 +157,15 @@ EDGE_UNSPLIT = ((1, 1, 1), (1, 54, 54), (37, 6, 7), (301, 4, 54),
 # multiple of 8, a one-block segment, d = 16: rows of two or four 16-byte
 # vectors) and the padded width
 EDGE_SEGMENTS = (((5, 7), (1, 13), (9, 5), (3, 12), (4, 1), (6, 16)), 16)
+# kernel 9 (block_mv_rows): (nblk, m, k) -- the bench block, odd k (rows
+# read entry by entry), rows * k not whole 16-byte units -- at rows per CTA
+# 0 (64), 1, 5 and 864, with the table and x views 0 or 1 float past a
+# 16-byte boundary (ragged head floats; odd shifts)
+EDGE_ROWS = ((700, 54, 54), (1001, 7, 13), (301, 4, 53))
+EDGE_ROWS_R = (0, 1, 5, 864)
+# kernel 13 (block_mv_soa): element counts (one partial tile, a partial last
+# tile, the bench's padded count) x nb (one row, odd, the largest)
+EDGE_SOA_NE, EDGE_SOA_NB = (4, 260, 7936), (1, 7, 64)
 
 
 def log(*a):
@@ -1063,6 +1080,69 @@ def check_stream(torch, bm, sm, timer, reports):
         f"{ms:.4f} ms, plain (einsum ije,je->ie) {plain_ms:.4f}, bmm on the "
         f"permuted views {lib_ms:.4f}, bound "
         f"{nb_ / HBM_BYTES_PER_S * 1e3:.4f}")
+
+    # what a plain stream of the bench table reaches here: printed only
+    sum_ms = timer(lambda: A.sum())
+    sum_bound = nbytes(A) / HBM_BYTES_PER_S * 1e3
+    log(f"[stream] A.sum() on the bench table ({nbytes(A) / 1e6:.1f} MB): "
+        f"{sum_ms:.4f} ms, {sum_bound / sum_ms:.3f} of the {sum_bound:.4f} "
+        "ms bound at 3.35 TB/s")
+    check_stream_edges(torch, bm, sm)
+
+
+def check_stream_edges(torch, bm, sm):
+    """The edges of kernels 9 and 13, each BITWISE against ``block_mv`` (on
+    a 16-byte aligned copy of the table; for 13 on the AoS table) and within
+    1e-4 of the plain version; 13's padding columns zero, and its refusal
+    of an element count that is no multiple of 4."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    n = 0
+    for nblk, m, k in EDGE_ROWS:
+        for off in (0, 1):
+            flat = torch.randn(off + nblk * m * k, generator=gen,
+                               device="cuda")
+            xflat = torch.randn(off + nblk * k, generator=gen, device="cuda")
+            A, x = flat[off:].view(nblk, m, k), xflat[off:].view(nblk, k)
+            ref, want = bm.block_mv(A.clone(), x), bm.block_mv_plain(A, x)
+            for rows in EDGE_ROWS_R:
+                y = sm.block_mv_rows(A, x, rows)
+                torch.cuda.synchronize()
+                err = float((y - want).abs().max())
+                check(torch.equal(y, ref) and err <= 1e-4,
+                      f"block_mv_rows {(nblk, m, k)} view +{off} rows={rows}:"
+                      f" not bitwise equal to block_mv, or {err:.2e} > 1e-4")
+                n += 1
+    for nb in EDGE_SOA_NB:
+        for ne in EDGE_SOA_NE:
+            real = ne - 3 if ne > 4 else ne  # the rest: zero padding
+            A2 = torch.zeros((nb, nb, ne), device="cuda")
+            A2[:, :, :real] = torch.randn((nb, nb, real), generator=gen,
+                                          device="cuda")
+            uT = torch.zeros((nb, ne), device="cuda")
+            uT[:, :real] = torch.randn((nb, real), generator=gen,
+                                       device="cuda")
+            y = sm.block_mv_soa(A2, uT)
+            torch.cuda.synchronize()
+            ref = bm.block_mv(A2.permute(2, 0, 1).contiguous(),
+                              uT.T.contiguous())
+            err = float((y - sm.block_mv_soa_plain(A2, uT)).abs().max())
+            check(torch.equal(y.T, ref) and err <= 1e-4,
+                  f"block_mv_soa nb={nb} ne={ne}: not bitwise equal to "
+                  f"block_mv on the AoS table, or {err:.2e} > 1e-4")
+            check(real == ne or float(y[:, real:].abs().max()) == 0.0,
+                  f"block_mv_soa nb={nb} ne={ne}: padding columns non-zero")
+            n += 1
+    try:
+        sm.block_mv_soa(torch.zeros((7, 7, 333), device="cuda"),
+                        torch.zeros((7, 333), device="cuda"))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "block_mv_soa took ne=333: its tensor maps need ne % 4 "
+          "== 0")
+    log(f"[kernels] edges of block_mv_rows and block_mv_soa: {n} cases "
+        "bitwise = block_mv, ne=333 refused")
 
 
 def microbench_phase(bm):

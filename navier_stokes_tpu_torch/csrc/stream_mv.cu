@@ -23,11 +23,31 @@
 // bound by device memory bandwidth: table bytes / 3.35 TB/s on an H100 SXM.
 // What the design of each does about it:
 //
-//   rows   the CTA's row count R is an argument, from a few rows up to what
-//          opt-in shared memory holds (227 KB): small R means many resident
-//          CTAs per SM whose copies and arithmetic overlap by scheduling,
-//          large R means long copies per CTA.  Per-thread 16-byte loads
-//          into an odd-stride tile, as block_mv.
+//   rows   the CTA's row count R is an argument, from 1 up to what opt-in
+//          shared memory holds (227 KB), one thread per row (a warp takes
+//          a longer run of consecutive rows where R passes 1,024 threads).
+//          Each warp stages and waits for its own rows (redesigned): lane
+//          0 of warp w copies the warp's contiguous table stretch -- its
+//          16-byte units by one bulk copy (cp.async.bulk), its at most
+//          3 + 3 ragged head and tail floats by 4-byte cp.async -- onto the
+//          warp's own mbarrier, and lane 0 of warp 0 the x of the touched
+//          blocks the same way onto one more barrier.  Every warp issues
+//          before it waits, and waits only on its own barrier and x's, so
+//          at large R the CTA's arithmetic overlaps its own later copies.
+//          The tile lands at row stride k shifted by (a + r0 k) mod 16
+//          bytes, so that each copy's source and destination are aligned
+//          alike; where k and the shifts are even a row is read in 8-byte
+//          pairs, which at k = 54 (27 pairs: an odd stride) hit distinct
+//          bank pairs across each half-warp.  The earlier design, per-
+//          thread 16-byte loads scattered into an odd-stride tile behind
+//          one __syncthreads, never overlapped a CTA's copy with its
+//          arithmetic.  Measured (tools/sweep_redesign.py, 7740 x 54 x 54;
+//          NVIDIA H100 80GB HBM3, 700 W): rows 64 / 192 / 432 / 864 took
+//          0.0444 / 0.0451 / 0.0446 / 0.0479 ms (0.58-0.63 of the 0.0279
+//          ms bound), the earlier design in the same call 0.0556 / 0.0574
+//          / 0.0602 / 0.0624, torch.bmm 0.0601, mega at 64 rows 0.0447.
+//          At 864 rows (190,548 bytes) one CTA fills an SM, and its tail
+//          idles the SM until the next CTA's first rows land.
 //   mega   one CTA takes its whole stretch with ONE 1-D bulk asynchronous
 //          copy (cp.async.bulk, completing on an mbarrier), started by one
 //          thread: the copy engine computes the addresses, no thread spends
@@ -64,11 +84,31 @@
 //          by plain loads in the producer lane, nbuf 8 at 64 rows (one CTA
 //          per SM) took 0.0595: one load round trip per 14.5 KB stage
 //          held the stream; by cp.async it no longer waits.
-//   soa    one thread per element e: every load of A[i, j, e] and every
-//          store of y[i, e] is coalesced across the warp with no shared
-//          memory; the element's u stays in registers, and the rows i are
-//          cut into chunks over blockIdx.y so that the grid fills the card
-//          in one wave.
+//   soa    tensor-map tiles through a producer/consumer ring (redesigned):
+//          the host encodes A2 as a 3-D tensor (ne, nb, nb) with a box of
+//          kSoaE elements x all nb columns j x kSoaRi rows i, and u as a
+//          2-D tensor (ne, nb) with a box of kSoaE x nb (no swizzle, boxes
+//          past the edges zero-filled; the global strides must be 16-byte
+//          multiples, so ne % 4 == 0).  A persistent grid splits the
+//          (element tile, row chunk) items into one consecutive run per
+//          CTA.  One producer lane keeps kSoaStages table boxes in flight
+//          by cp.async.bulk.tensor (full / empty mbarriers per stage) and
+//          loads each element tile's u box once, into one of two slots
+//          with full / empty barriers of their own.  Consumer threads take
+//          one output (i, e) each, e on the lanes: for each j in order one
+//          fmaf of A[i][j][e] and u[j][e] from shared memory (conflict-
+//          free; u broadcast across i), and a coalesced store masked at
+//          e < ne.  The earlier design, one thread per element with every
+//          entry a 4-byte load and u re-read per row chunk, issued one
+//          128-byte load per warp instruction.  Measured (tools/
+//          sweep_redesign.py, 54 x 54 x 7936; NVIDIA H100 80GB HBM3, 700
+//          W): 0.0468-0.0644 ms over kSoaE 32 / 64 / 128, kSoaRi 1 / 2 / 4
+//          and kSoaStages 2 / 3 / 4, the earlier design in the same call
+//          0.0708, torch.bmm on the permuted views 0.2726.  The smaller a
+//          CTA's shared memory, the more CTAs per SM and the faster: 64 x
+//          1 x 2 (55.5 KB, 4 CTAs per SM) took 0.0470, 128 x 1 x 2 0.0468,
+//          64 x 2 x 3 0.0486; 64 x 1 x 2 is kept, which still fits 3 CTAs
+//          per SM at nb = 64.
 //
 // Every kernel sums a row in column order with one fmaf per entry, the
 // accumulation order of block_mv: on the same table the results are bitwise
@@ -78,6 +118,7 @@
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
 // not take) so that the caller can raise on a refused launch.
 
+#include <cuda.h>  // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,73 +127,22 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kSmemDefault = 48 * 1024;  // dynamic shared memory, no opt-in
-constexpr int kSmemOptIn = 232448;       // 227 KB per CTA after opt-in
-constexpr int kHeader = 128;             // mbarriers ahead of the stages
+constexpr int kSmemOptIn = 232448;  // 227 KB per CTA after opt-in
+constexpr int kHeader = 128;        // mbarriers ahead of the stages
 constexpr int kMaxStages = 8;
-constexpr int kSoaMaxNb = 64;   // u entries one thread holds in registers
-constexpr int kSoaThreads = 128;
-
-// -- per-thread staged copy (rows) ---------------------------------------------
-
-// Copy count contiguous table entries src[0..count) into dst as rows of k
-// entries at row stride ks.  Coalesced 16-byte loads for the aligned middle,
-// single loads for the unaligned head and the tail.
-__device__ void stage_rows(const float* __restrict__ src, int count, int k,
-                           int ks, float* __restrict__ dst) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
-  int head = static_cast<int>(((16 - (addr & 15)) & 15) / 4);
-  if (head > count) head = count;
-  const int nvec = (count - head) / 4;
-  for (int e = threadIdx.x; e < head; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = src[e];
-  const float4* pv = reinterpret_cast<const float4*>(src + head);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const float4 w = __ldg(pv + i);
-    const float v[4] = {w.x, w.y, w.z, w.w};
-    const int e0 = head + i * 4;
-    int row = e0 / k, col = e0 - row * k;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      dst[row * ks + col] = v[q];
-      if (++col == k) {
-        col = 0;
-        ++row;
-      }
-    }
-  }
-  for (int e = head + nvec * 4 + threadIdx.x; e < count; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = src[e];
-}
-
-// y[r] = sum_j a[r, j] * x[r / m, j] for the R rows from blockIdx.x * R:
-// block_mv_kernel's body with R given by the caller.
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv_rows_kernel(const float* __restrict__ a,
-                         const float* __restrict__ x, float* __restrict__ y,
-                         long long nrows_all, int m, int k, int ks, int R) {
-  extern __shared__ float smem[];
-  const long long r0 = static_cast<long long>(blockIdx.x) * R;
-  long long r1 = r0 + R;
-  if (r1 > nrows_all) r1 = nrows_all;
-  const int nrows = static_cast<int>(r1 - r0);
-  const long long b0 = r0 / m;
-  const int nx = static_cast<int>((r1 - 1) / m - b0 + 1) * k;
-  float* tab = smem;
-  float* xs = smem + R * ks;
-  stage_rows(a + r0 * k, nrows * k, k, ks, tab);
-  for (int e = threadIdx.x; e < nx; e += blockDim.x)
-    xs[e] = __ldg(x + b0 * k + e);
-  __syncthreads();
-  for (int rr = threadIdx.x; rr < nrows; rr += blockDim.x) {
-    const long long r = r0 + rr;
-    const float* ar = tab + rr * ks;
-    const float* xb = xs + (r / m - b0) * k;
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j) acc = fmaf(ar[j], xb[j], acc);
-    y[r] = acc;
-  }
-}
+constexpr int kRowsDefault = 64;  // rows = 0: block_mv.cu's kMvRows
+constexpr int kSoaMaxNb = 64;     // the j loop is unrolled to it
+// block_mv_soa's tile: kSoaE elements (a multiple of 32: whole warps, and
+// 128-byte aligned boxes) x all nb columns x kSoaRi rows per stage,
+// kSoaStages stages per CTA
+constexpr int kSoaE = 64;
+constexpr int kSoaRi = 1;
+constexpr int kSoaStages = 2;
+static_assert(kSoaE % 32 == 0 && kSoaE <= 256, "kSoaE: whole warps");
+static_assert(kSoaRi >= 1 && 32 + kSoaE * kSoaRi <= kMaxThreads,
+              "kSoaRi: the CTA's threads");
+static_assert(kSoaStages >= 1 && (2 * kSoaStages + 4) * 8 <= kHeader,
+              "kSoaStages: the header's mbarriers");
 
 // -- bulk asynchronous copies (mega, ring; helpers in bulk_copy.cuh) -------------
 
@@ -370,32 +360,272 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// -- structure of arrays ---------------------------------------------------------
 
-// y[i, e] = sum_j a2[i, j, e] u[j, e] for the rows i of chunk blockIdx.y
-// (ri rows each) and element e = blockIdx.x * blockDim.x + threadIdx.x.  The
-// loops over j are unrolled to kSoaMaxNb with a uniform predicate, so that
-// ur stays in registers for any nb <= kSoaMaxNb.
-__global__ void __launch_bounds__(kSoaThreads, 4)
-    block_mv_soa_kernel(const float* __restrict__ a2,
-                        const float* __restrict__ u, float* __restrict__ y,
-                        int nb, long long ne, int ri) {
-  const long long e =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= ne) return;
-  float ur[kSoaMaxNb];
-#pragma unroll
-  for (int j = 0; j < kSoaMaxNb; ++j)
-    ur[j] = j < nb ? __ldg(u + j * ne + e) : 0.0f;
-  const int i0 = blockIdx.y * ri;
-  const int i1 = i0 + ri < nb ? i0 + ri : nb;
-  for (int i = i0; i < i1; ++i) {
-    const float* ai = a2 + static_cast<long long>(i) * nb * ne + e;
+// -- staged by warp (rows) ---------------------------------------------------------
+
+// Shared memory of one rows CTA, in bytes: the header (one mbarrier per warp
+// and one for x, rounded up to 16 bytes), the tile (R rows at stride k and
+// up to 3 floats of shift, rounded up to 16 bytes) and the x of the blocks
+// the rows touch (up to 3 floats of shift).  ops/stream_mv.py's
+// rows_smem_bytes is the same sum.
+inline __host__ __device__ int rows_warps(int R) {
+  const int w = (R + 31) / 32;
+  return w < kMaxThreads / 32 ? w : kMaxThreads / 32;
+}
+inline __host__ __device__ int rows_header(int R) {
+  return (8 * (rows_warps(R) + 1) + 15) / 16 * 16;
+}
+inline __host__ __device__ long long rows_tile_floats(int R, int k) {
+  return (static_cast<long long>(R) * k + 3 + 3) / 4 * 4;
+}
+inline __host__ __device__ long long rows_cta_smem(int R, int m, int k) {
+  const long long xfloats = static_cast<long long>((R - 1) / m + 2) * k + 3;
+  return rows_header(R) + 4 * (rows_tile_floats(R, k) + xfloats);
+}
+
+// Lane-0 copy of count floats src -> dst (src and dst congruent modulo 16
+// bytes): the whole 16-byte units by one bulk copy announced on bar, the
+// ragged head and tail by 4-byte cp.async, and bar's one arrival when those
+// have landed.  Nothing here waits.
+__device__ __forceinline__ void copy_span(float* dst, const float* src,
+                                          int count, uint64_t* bar) {
+  int head = ring_x_shift(src) ? 4 - ring_x_shift(src) : 0;
+  if (head > count) head = count;
+  const int whole = (count - head) & ~3;
+  if (whole) {
+    mbar_expect_tx(bar, 4u * static_cast<uint32_t>(whole));
+    bulk_copy(dst + head, src + head, 4u * static_cast<uint32_t>(whole), bar);
+  }
+  for (int c = 0; c < head; ++c) cp_async4(dst + c, src + c);
+  for (int c = head + whole; c < count; ++c) cp_async4(dst + c, src + c);
+  cp_async_arrive(bar);
+}
+
+// One row's dot product in column order, one fmaf per entry (block_mv's
+// order); kPairs: ar and xb 8-byte aligned and k even, read as pairs.
+template <bool kPairs>
+__device__ __forceinline__ float row_dot(const float* __restrict__ ar,
+                                         const float* __restrict__ xb,
+                                         int k) {
+  float acc = 0.0f;
+  if (kPairs) {
+    const float2* a2 = reinterpret_cast<const float2*>(ar);
+    const float2* x2 = reinterpret_cast<const float2*>(xb);
+#pragma unroll 3
+    for (int j = 0; j < k / 2; ++j) {
+      const float2 av = a2[j], xv = x2[j];
+      acc = fmaf(av.x, xv.x, acc);
+      acc = fmaf(av.y, xv.y, acc);
+    }
+  } else {
+    for (int j = 0; j < k; ++j) acc = fmaf(ar[j], xb[j], acc);
+  }
+  return acc;
+}
+
+// y[r] = sum_j a[r, j] * x[r / m, j] for the R rows from blockIdx.x * R.
+// Warp w owns the rpw consecutive rows from w * rpw (rpw = 32 up to 1,024
+// rows per CTA), lane l the rows l, l + 32, ... of them.
+__global__ void __launch_bounds__(kMaxThreads)
+    block_mv_rows_kernel(const float* __restrict__ a,
+                         const float* __restrict__ x, float* __restrict__ y,
+                         long long nrows_all, int m, int k, int R) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nw = blockDim.x / 32;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);  // warps, then x
+  float* tile = reinterpret_cast<float*>(smem_raw + rows_header(R));
+  float* xarea = tile + rows_tile_floats(R, k);
+  const Stretch s = stretch_of(blockIdx.x, R, nrows_all, m, k);
+  const float* src = a + s.r0 * k;
+  const float* xsrc = x + s.b0 * k;
+  float* tab = tile + ring_x_shift(src);
+  float* xs = xarea + ring_x_shift(xsrc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rpw = 32 * ((R + 32 * nw - 1) / (32 * nw));
+  const int w0 = warp * rpw;
+  const int w1 = w0 + rpw < s.nrows ? w0 + rpw : s.nrows;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w <= nw; ++w) mbar_init(bars + w, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    if (warp == 0) copy_span(xs, xsrc, s.nx, bars + nw);
+    if (w1 > w0)
+      copy_span(tab + w0 * k, src + static_cast<long long>(w0) * k,
+                (w1 - w0) * k, bars + warp);
+  }
+  if (w1 <= w0) return;
+  mbar_wait(bars + nw, 0);
+  mbar_wait(bars + warp, 0);
+  const bool pairs =
+      !(k & 1) && !(ring_x_shift(src) & 1) && !(ring_x_shift(xsrc) & 1);
+  for (int rr = w0 + lane; rr < w1; rr += 32) {
+    const float* ar = tab + rr * k;
+    const float* xb = xs + ((s.off0 + rr) / m) * k;
+    y[s.r0 + rr] = pairs ? row_dot<true>(ar, xb, k) : row_dot<false>(ar, xb, k);
+  }
+}
+
+// -- structure of arrays: tensor-map tiles through a ring ---------------------------
+
+// cuTensorMapEncodeTiled's type (cuda.h, CUDA 12).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through the runtime, so that the library
+// links without -lcuda; null where it cannot be found.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// One arrival that also announces the bytes the phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Tensor copies global -> shared of one box at the given coordinates
+// (innermost first), completing on the mbarrier.
+__device__ __forceinline__ void tensor_copy_2d(void* dst, const CUtensorMap* map,
+                                               int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tensor_copy_3d(void* dst, const CUtensorMap* map,
+                                               int c0, int c1, int c2,
+                                               uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared memory of one SoA CTA, in bytes: 128 of room to align the start,
+// the header, kSoaStages table boxes and two u boxes.
+inline long long soa_smem(int nb) {
+  return 128 + kHeader + 4LL * kSoaE * nb * (kSoaStages * kSoaRi + 2);
+}
+
+// The items are (element tile, row chunk) pairs, tile-major; CTA b takes
+// the consecutive run [items b / G, items (b + 1) / G) of the G CTAs.
+// Warp 0 is the producer: its lane 0 fills stage q % kSoaStages with item q's
+// table box and, where item q starts a new element tile (the CTA's v-th),
+// u slot v % 2 with the tile's u box first.  Barriers (phases named by
+// parity as in the ring kernel): full[s] / ufull[v] one arrival (the
+// producer's, announcing the box's bytes); empty[s] / uempty[v] one arrival
+// per consumer warp when done with the stage or with the tile's last item.
+__global__ void __launch_bounds__(32 + kSoaE * kSoaRi)
+    block_mv_soa_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_u,
+                        float* __restrict__ y, int nb, long long ne,
+                        long long items) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + kSoaStages;
+  uint64_t* ufull = empty + kSoaStages;
+  uint64_t* uempty = ufull + 2;
+  float* stages = reinterpret_cast<float*>(base + kHeader);
+  const int sfl = kSoaE * nb * kSoaRi;  // floats of one table box
+  const int ufl = kSoaE * nb;           // floats of one u box
+  float* uslots = stages + kSoaStages * sfl;
+  const int nchunks = (nb + kSoaRi - 1) / kSoaRi;
+  const long long q0 = items * blockIdx.x / gridDim.x;
+  const long long q1 = items * (blockIdx.x + 1) / gridDim.x;
+  constexpr int kWarps = kSoaE * kSoaRi / 32;  // consumer warps
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSoaStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWarps);
+    }
+    for (int v = 0; v < 2; ++v) {
+      mbar_init(ufull + v, 1);
+      mbar_init(uempty + v, kWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      int v = -1;
+      for (long long q = q0; q < q1; ++q) {
+        const int tile = static_cast<int>(q / nchunks);
+        const int chunk = static_cast<int>(q % nchunks);
+        if (v < 0 || q % nchunks == 0) {  // a new element tile
+          ++v;
+          if (v >= 2) mbar_wait(uempty + (v & 1), ((v >> 1) - 1) & 1);
+          mbar_arrive_expect_tx(ufull + (v & 1), 4u * ufl);
+          tensor_copy_2d(uslots + (v & 1) * ufl, &tm_u, tile * kSoaE, 0,
+                         ufull + (v & 1));
+        }
+        const long long i = q - q0;
+        const int s = static_cast<int>(i % kSoaStages);
+        const long long f = i / kSoaStages;  // the stage's fill number
+        if (f > 0) mbar_wait(empty + s, static_cast<uint32_t>((f - 1) & 1));
+        mbar_arrive_expect_tx(full + s, 4u * sfl);
+        tensor_copy_3d(stages + s * sfl, &tm_a, tile * kSoaE, 0,
+                       chunk * kSoaRi, full + s);
+      }
+    }
+    return;
+  }
+  const int t = threadIdx.x - 32, lane = threadIdx.x % 32;
+  const int e = t % kSoaE, il = t / kSoaE;
+  int v = -1;
+  for (long long q = q0; q < q1; ++q) {
+    const int tile = static_cast<int>(q / nchunks);
+    const int chunk = static_cast<int>(q % nchunks);
+    if (v < 0 || chunk == 0) {
+      ++v;
+      mbar_wait(ufull + (v & 1), static_cast<uint32_t>((v >> 1) & 1));
+    }
+    const long long i = q - q0;
+    const int s = static_cast<int>(i % kSoaStages);
+    mbar_wait(full + s, static_cast<uint32_t>((i / kSoaStages) & 1));
+    const float* ar = stages + s * sfl + il * nb * kSoaE + e;
+    const float* ur = uslots + (v & 1) * ufl + e;
     float acc = 0.0f;
 #pragma unroll
     for (int j = 0; j < kSoaMaxNb; ++j)
-      if (j < nb) acc = fmaf(__ldg(ai + j * ne), ur[j], acc);
-    y[i * ne + e] = acc;
+      if (j < nb) acc = fmaf(ar[j * kSoaE], ur[j * kSoaE], acc);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(empty + s);
+      if (q + 1 == q1 || chunk + 1 == nchunks) mbar_arrive(uempty + (v & 1));
+    }
+    const int row = chunk * kSoaRi + il;
+    const long long col = static_cast<long long>(tile) * kSoaE + e;
+    if (row < nb && col < ne) y[row * ne + col] = acc;
   }
 }
 
@@ -418,18 +648,32 @@ int sm_count() {
 }
 
 // Shared memory of R table rows at stride ks and the x of the blocks they
-// touch: the rows kernel's tile, or one stage of mega and ring (ks = k).
+// touch: one stage of mega (ks = k).
 inline long long rows_smem(int R, int m, int k, int ks) {
   const long long xblocks = (R - 1) / m + 2;
   return 4LL * (static_cast<long long>(R) * ks + xblocks * k);
+}
+
+// A tiled f32 tensor map of the given rank (dims and box innermost first,
+// strides in bytes of dims 1..rank-1), no swizzle, boxes past the edges
+// zero-filled.
+bool encode_f32(CUtensorMap* map, const float* base, cuuint32_t rank,
+                const cuuint64_t* dims, const cuuint64_t* strides,
+                const cuuint32_t* box) {
+  const EncodeTiledFn enc = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc && enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                    const_cast<float*>(base), dims, strides, box, ones,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows = 0: the largest multiple of 32 (below 32: any count) that fits 48 KB,
-// at most 256 -- block_mv's choice.
+// rows = 0: kRowsDefault, block_mv's choice.  Any a and x (4-byte aligned).
 int nstt_block_mv_rows_f32(const float* a, const float* x, float* y,
                            long long nblk, int m, int k, int rows,
                            void* stream) {
@@ -437,24 +681,17 @@ int nstt_block_mv_rows_f32(const float* a, const float* x, float* y,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long nrows = nblk * m;
   if (nrows == 0) return 0;
-  const int ks = k | 1;
-  int R = rows;
-  if (R == 0) {
-    for (R = 256; R >= 1; R -= (R > 32 ? 32 : 1))
-      if (rows_smem(R, m, k, ks) <= kSmemDefault) break;
-    if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long smem = rows_smem(R, m, k, ks);
+  const int R = rows ? rows : kRowsDefault;
+  const long long smem = rows_cta_smem(R, m, k);
   if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       block_mv_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemOptIn);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const int threads = R < kMaxThreads ? round32(R) : kMaxThreads;
   const unsigned int grid = static_cast<unsigned int>((nrows + R - 1) / R);
-  block_mv_rows_kernel<<<grid, threads, static_cast<size_t>(smem),
+  block_mv_rows_kernel<<<grid, 32 * rows_warps(R), static_cast<size_t>(smem),
                          static_cast<cudaStream_t>(stream)>>>(
-      a, x, y, nrows, m, k, ks, R);
+      a, x, y, nrows, m, k, R);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -527,31 +764,48 @@ int nstt_block_mv_ring_f32(const float* a, const float* x, float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a2 (nb, nb, ne), u (nb, ne) -> y (nb, ne), nb <= kSoaMaxNb.  The rows are
-// cut into as many chunks as keep the whole grid resident at once (one
-// wave: no tail of a second, partly filled wave), at most one chunk per
-// row.
+
+// a2 (nb, nb, ne), u (nb, ne) -> y (nb, ne), nb <= kSoaMaxNb; ne % 4 == 0
+// and a2, u 16-byte aligned (the tensor maps' rule).  As many persistent
+// CTAs per SM as fit, and no more CTAs than items.
 int nstt_block_mv_soa_f32(const float* a2, const float* u, float* y, int nb,
                           long long ne, void* stream) {
-  if (nb <= 0 || nb > kSoaMaxNb || ne < 0)
+  if (nb <= 0 || nb > kSoaMaxNb || ne < 0 || ne % 4 != 0 ||
+      ne > 0x7fffffffLL || reinterpret_cast<uintptr_t>(a2) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(u) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (ne == 0) return 0;
-  static const int per_sm = [] {
-    int n = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, block_mv_soa_kernel,
-                                                  kSoaThreads, 0);
-    return n > 0 ? n : 1;
-  }();
-  const long long eblocks = (ne + kSoaThreads - 1) / kSoaThreads;
-  long long chunks = static_cast<long long>(per_sm) * sm_count() / eblocks;
-  if (chunks > nb) chunks = nb;
-  if (chunks < 1) chunks = 1;
-  const int ri = static_cast<int>((nb + chunks - 1) / chunks);
-  const dim3 grid(static_cast<unsigned int>(eblocks),
-                  static_cast<unsigned int>((nb + ri - 1) / ri));
-  block_mv_soa_kernel<<<grid, kSoaThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a2, u, y, nb, ne,
-                                                             ri);
+  const long long smem = soa_smem(nb);
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_a, tm_u;
+  const cuuint64_t dims_a[3] = {static_cast<cuuint64_t>(ne),
+                                static_cast<cuuint64_t>(nb),
+                                static_cast<cuuint64_t>(nb)};
+  const cuuint64_t strides_a[2] = {4ull * ne, 4ull * nb * ne};
+  const cuuint32_t box_a[3] = {kSoaE, static_cast<cuuint32_t>(nb), kSoaRi};
+  const cuuint32_t box_u[2] = {kSoaE, static_cast<cuuint32_t>(nb)};
+  // u (ne, nb): the first two dims and the first stride of a2's
+  if (!encode_f32(&tm_a, a2, 3, dims_a, strides_a, box_a) ||
+      !encode_f32(&tm_u, u, 2, dims_a, strides_a, box_u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      block_mv_soa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemOptIn);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int threads = 32 + kSoaE * kSoaRi;
+  int per_sm = 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, block_mv_soa_kernel, threads, static_cast<size_t>(smem));
+  if (occ != cudaSuccess) return static_cast<int>(occ);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long items =
+      (ne + kSoaE - 1) / kSoaE * ((nb + kSoaRi - 1) / kSoaRi);
+  long long grid = static_cast<long long>(per_sm) * sm_count();
+  if (grid > items) grid = items;
+  block_mv_soa_kernel<<<static_cast<unsigned int>(grid), threads,
+                        static_cast<size_t>(smem),
+                        static_cast<cudaStream_t>(stream)>>>(tm_a, tm_u, y, nb,
+                                                             ne, items);
   return static_cast<int>(cudaGetLastError());
 }
 

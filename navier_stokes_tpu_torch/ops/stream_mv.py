@@ -6,8 +6,10 @@ of HOW the table bytes of ``block_mv`` are best brought on chip.
 All compute y[b, i] = sum_j A[b, i, j] x[b, j]; what varies is the copy.
 
 * :func:`block_mv_rows` replaces ``_mv_kernel`` via ``make_bmv``
-  (microbench_dma.py:92, call :101): ``block_mv``'s kernel with the CTA's
-  row count given by the caller, up to what opt-in shared memory holds.
+  (microbench_dma.py:92, call :101): the CTA's row count given by the
+  caller, up to what opt-in shared memory holds; each warp brings its own
+  rows on chip by one bulk asynchronous copy (``cp.async.bulk``) onto its
+  own ``mbarrier`` and computes as soon as they have landed.
 * :func:`make_bmv_splitk_seq` replaces ``make_bmv_splitk_seq`` /
   ``_mv_kernel_splitk_seq`` (:119, call :139): the table packed into k
   consecutive-tile sub-tables, streamed by ONE
@@ -23,7 +25,10 @@ All compute y[b, i] = sum_j A[b, i, j] x[b, j]; what varies is the copy.
   ``mbarrier``.
 * :func:`block_mv_soa` replaces ``mv_kernel`` (microbench_apply2.py:123,
   call :129): y[i, e] = sum_j A2[i, j, e] u[j, e] on the structure-of-arrays
-  table with the element on the fastest axis, one thread per element.
+  table with the element on the fastest axis; a persistent grid brings
+  (elements x all j x a few rows i) boxes of it on chip by tensor copies
+  (``cp.async.bulk.tensor`` through tensor maps) in a producer/consumer
+  ring, one consumer thread per output.
 
 The kernels live in ``csrc/stream_mv.cu`` (split-k: ``csrc/block_mv.cu``).
 Each is bound by the table stream: table bytes / 3.35 TB/s.  Each keeps
@@ -104,20 +109,26 @@ def _empty_y(A):
 
 
 def rows_smem_bytes(rows: int, m: int, k: int) -> int:
-    """Shared memory of one :func:`block_mv_rows` CTA: ``rows`` table rows
-    at the odd stride ``k | 1`` and the x of the blocks they touch."""
-    return 4 * (rows * (k | 1) + ((rows - 1) // m + 2) * k)
+    """Shared memory of one :func:`block_mv_rows` CTA (csrc
+    ``rows_cta_smem``): the header of one ``mbarrier`` per warp and one for
+    x, rounded up to 16 bytes; ``rows`` table rows at stride ``k`` and up
+    to 3 floats of shift, rounded up to 16 bytes; the x of the blocks they
+    touch and up to 3 floats of shift."""
+    warps = min(-(-rows // 32), 32)
+    header = -(-8 * (warps + 1) // 16) * 16
+    tile = (rows * k + 6) // 4 * 4
+    return header + 4 * (tile + ((rows - 1) // m + 2) * k + 3)
 
 
 def block_mv_rows(A: torch.Tensor, x: torch.Tensor,
                   rows: int = 0) -> torch.Tensor:
     """y (nblk, m) f32 = A (nblk, m, k) x (nblk, k) with ``rows`` output rows
-    per CTA; ``rows=0`` keeps :func:`block_mv`'s choice (what fits 48 KB).
+    per CTA; ``rows=0`` keeps :func:`block_mv`'s choice (64 rows).
 
     Replaces ``_mv_kernel`` as ``make_bmv`` calls it at a given tile
     (scripts/microbench_dma.py:92-116).  Bound by the table stream:
     nblk*m*k*4 bytes / 3.35 TB/s.  Raises when ``rows`` rows do not fit the
-    227 KB of opt-in shared memory."""
+    227 KB of opt-in shared memory (:func:`rows_smem_bytes`)."""
     _check_f32(A, x, "block_mv_rows")
     nblk, m, k = A.shape
     if rows < 0 or (rows and rows_smem_bytes(rows, m, k) > SMEM_OPT_IN):
@@ -255,7 +266,10 @@ def block_mv_soa(A2: torch.Tensor, uT: torch.Tensor) -> torch.Tensor:
 
     Replaces ``mv_kernel`` (scripts/microbench_apply2.py:123-141).  Bound by
     the table stream: nb*nb*ne_p*4 bytes / 3.35 TB/s.  Padding columns (zero
-    in A2 and uT) come out zero.  The kernel takes nb <= 64."""
+    in A2 and uT) come out zero.  The kernel takes nb <= 64, and its tensor
+    maps need 16-byte strides and bases: ne_p a multiple of 4 (as
+    :func:`pack_soa` pads it) and both operands 16-byte aligned.  On the
+    CPU the plain version takes any shape."""
     if A2.dim() != 3 or A2.shape[0] != A2.shape[1]:
         raise ValueError("block_mv_soa: expected an (nb, nb, ne_p) table, got "
                          f"{tuple(A2.shape)}")
@@ -276,6 +290,13 @@ def block_mv_soa(A2: torch.Tensor, uT: torch.Tensor) -> torch.Tensor:
     if nb > SOA_MAX_NB:
         raise ValueError(f"block_mv_soa: the kernel takes nb <= {SOA_MAX_NB}, "
                          f"got {nb}")
+    if ne_p % 4:
+        raise ValueError(f"block_mv_soa: the kernel's tensor maps need the "
+                         f"element count to be a multiple of 4, got {ne_p}; "
+                         "pad it with pack_soa")
+    if A2.data_ptr() % 16 or uT.data_ptr() % 16:
+        raise ValueError("block_mv_soa: the kernel's tensor maps need "
+                         "16-byte aligned operands")
     y = torch.empty_like(uT)
     if y.numel() == 0:
         return y

@@ -9,11 +9,11 @@ device memory busy:
 
   1. library   -- ``torch.bmm`` and ``torch.einsum`` on the table (the
                   ceiling a library call reaches; outside any kernel)
-  2. rows=R    -- ``block_mv_rows``: the first design of ``block_mv``'s
-                  kernel at four CTA sizes (R output rows per CTA,
-                  per-thread 16-byte loads into shared memory; ``block_mv``
-                  itself is now a bulk copy per CTA, kernel 5 at one
-                  sub-table)
+  2. rows=R    -- ``block_mv_rows`` at four CTA sizes (R output rows per
+                  CTA, one thread per row): each warp brings its own 32
+                  rows on chip by one bulk asynchronous copy onto its own
+                  ``mbarrier`` and computes as soon as they land, so a
+                  large CTA's arithmetic overlaps its later copies
   3. splitK    -- the table pre-split into K consecutive-tile operand
                   arrays, ONE launch, K table streams in flight per CTA
   4. mega      -- K tiles per CTA as one stretch in ONE bulk asynchronous

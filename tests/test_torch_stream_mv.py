@@ -53,6 +53,9 @@ RTOL = 1e-5
 # (nblk, m, k): the bench block, a block count that is no multiple of the
 # tile or of k, and a non-square table
 SHAPES = [(64, 54, 54), (37, 54, 54), (53, 6, 14)]
+# block_mv_rows also on odd k: 259 rows of 13 entries, so that a stretch of
+# 1, 432 or 864 rows ends off a 16-byte boundary
+ROWS_SHAPES = SHAPES + [(37, 7, 13)]
 TILE = 8
 
 
@@ -143,12 +146,32 @@ def _close(got, want, A, x):
     assert (err / scale).max() <= RTOL
 
 
-@pytest.mark.parametrize("rows", [0, 5, 64])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("rows", [0, 1, 5, 64, 432, 864])
+@pytest.mark.parametrize("shape", ROWS_SHAPES)
 def test_block_mv_rows_matches_jax_tiles(shape, rows):
     A, x = _data(*shape)
     got = sm.block_mv_rows(torch.from_numpy(A), torch.from_numpy(x), rows)
     _close(got, _jax_bmv(A, x, TILE), A, x)
+
+
+@pytest.mark.parametrize("rows", microbench_dma.ROWS)
+def test_rows_smem_bytes_fit_at_the_microbenchmark_sizes(rows):
+    """The kernel's layout at k = m = 54 -- the header of one mbarrier per
+    warp and one for x, the tile with its shift, the x blocks with theirs
+    -- fits the 227 KB a CTA may opt in to, 864 rows included, and the
+    wrapper refuses the first row count past it."""
+    warps = min(-(-rows // 32), 32)
+    want = (-(-8 * (warps + 1) // 16) * 16
+            + 4 * ((rows * 54 + 6) // 4 * 4)
+            + 4 * (((rows - 1) // 54 + 2) * 54 + 3))
+    assert sm.rows_smem_bytes(rows, 54, 54) == want <= sm.SMEM_OPT_IN
+    assert sm.rows_smem_bytes(864, 54, 54) == 190548
+    most = max(r for r in range(864, 1200)
+               if sm.rows_smem_bytes(r, 54, 54) <= sm.SMEM_OPT_IN)
+    A, x = torch.zeros((40, 54, 54)), torch.zeros((40, 54))
+    assert sm.block_mv_rows(A, x, most).shape == (40, 54)
+    with pytest.raises(ValueError):
+        sm.block_mv_rows(A, x, most + 1)
 
 
 @pytest.mark.parametrize("k", [2, 4, 8])
@@ -193,6 +216,24 @@ def test_block_mv_soa_matches_jax_kernel_body(nb, ne, ne_p):
         err = np.abs(got.numpy().astype(np.float64) - want)
         assert (err / np.maximum(scale, 1e-300)).max() <= RTOL
         assert float(got[:, ne:].abs().max() if ne_p > ne else 0.0) == 0.0
+
+
+def test_block_mv_soa_takes_any_element_count_on_the_cpu():
+    """The card's kernel refuses an element count that is no multiple of 4
+    (its tensor maps need 16-byte strides); a CPU table of any count still
+    goes to the plain version, here against the JAX kernel body."""
+    rng = np.random.default_rng(5)
+    A2 = rng.standard_normal((7, 7, 333)).astype(np.float32)
+    uT = rng.standard_normal((7, 333)).astype(np.float32)
+    want = np.asarray(jnp.sum(jnp.asarray(A2) * jnp.asarray(uT)[None], axis=1))
+    flat = torch.zeros(1 + A2.size)
+    flat[1:] = torch.from_numpy(A2.ravel())
+    A2t = flat[1:].view(7, 7, 333)  # 4 bytes past the allocation's start
+    got = sm.block_mv_soa(A2t, torch.from_numpy(uT))
+    assert torch.equal(got, sm.block_mv_soa_plain(A2t, torch.from_numpy(uT)))
+    scale = np.einsum("ije,je->ie", np.abs(A2).astype(np.float64),
+                      np.abs(uT).astype(np.float64))
+    assert (np.abs(got.numpy() - want) / scale).max() <= RTOL
 
 
 def test_face_apply_soa_matches_jax_face_apply():
@@ -282,11 +323,12 @@ def test_stream_mv_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (333, 54, 12)):
+    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (333, 54, 12),
+                       (301, 4, 53)):
         A = torch.randn((nblk, m, k), generator=gen, device="cuda")
         x = torch.randn((nblk, k), generator=gen, device="cuda")
         ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
-        got = [sm.block_mv_rows(A, x, r) for r in (0, 1, 64, 432)]
+        got = [sm.block_mv_rows(A, x, r) for r in (0, 1, 5, 64, 432, 864)]
         got += [sm.make_bmv_splitk_seq(A, ns, 128)(x) for ns in (2, 8)]
         got += [sm.block_mv_mega(A, x, kt, 4 * r)
                 for kt, r in ((1, 1), (2, 8), (4, 32))]
@@ -296,12 +338,21 @@ def test_stream_mv_kernels_match_plain_on_card():
         for y in got:
             assert torch.equal(y, ref)
             assert float((y - want).abs().max()) <= 1e-4
-    for nb, ne in ((54, 7936), (7, 1000), (64, 333)):
+    # block_mv_soa: one partial element tile, nb = 1 and 64; bitwise equal
+    # to block_mv on the AoS table.  The tensor maps need 16-byte strides,
+    # so ne % 4 == 0 (pack_soa pads to 256): 333 is refused
+    for nb, ne in ((54, 7936), (7, 1000), (64, 336), (7, 4), (1, 260),
+                   (64, 7936)):
         A2 = torch.randn((nb, nb, ne), generator=gen, device="cuda")
         uT = torch.randn((nb, ne), generator=gen, device="cuda")
         y = sm.block_mv_soa(A2, uT)
         torch.cuda.synchronize()
         assert float((y - sm.block_mv_soa_plain(A2, uT)).abs().max()) <= 1e-4
+        ref = bm.block_mv(A2.permute(2, 0, 1).contiguous(), uT.T.contiguous())
+        assert torch.equal(y.T, ref), (nb, ne)
+    with pytest.raises(ValueError):
+        sm.block_mv_soa(torch.zeros((64, 64, 333), device="cuda"),
+                        torch.zeros((64, 333), device="cuda"))
 
 
 @pytest.mark.cuda

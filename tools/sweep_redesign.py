@@ -55,10 +55,24 @@ the card, with an earlier design beside them in the same call.
   on a random 7740 x 54 x 54 f32 table.  Each must be BITWISE equal to
   ``block_mv`` and within 1e-4 of the plain version; ``torch.bmm`` and one
   ``block_mv_mega`` (64 rows per CTA, one bulk copy) are timed beside it.
+* Kernel 9 (``block_mv_rows``), the package's ``csrc/stream_mv.cu`` at the
+  four variants of the ported microbenchmark (rows 64, 192, 432, 864 per
+  CTA) on a random 7740 x 54 x 54 f32 table.  Each must be BITWISE equal
+  to ``block_mv`` and within 1e-4 of the plain version; ``torch.bmm`` and
+  ``block_mv_mega`` at k = 1 (64 rows per CTA) are timed beside it.
+* Kernel 13 (``block_mv_soa``), its tile constants ``kSoaE`` in {32, 64,
+  128} elements, ``kSoaRi`` in {1, 2, 4} rows and ``kSoaStages`` in {2, 3,
+  4} stages of ``csrc/stream_mv.cu``, where they fit, on the same random
+  table packed as the microbenchmark packs it (54 x 54 x 7936, the element
+  count zero-padded to 256).  Each must be BITWISE equal to ``block_mv``
+  on the AoS table, come out zero in the padding columns and stay within
+  1e-4 of the plain version; ``torch.bmm`` on the permuted views is timed
+  beside it.
 
 Each variant is the package's ``csrc/`` copied under ``build/sweep/`` with
-that one constant rewritten (kernel 12: copied as it is; kernels 1 and 2
-share ``kMvRows``, as do 5 and 6 ``kSplitCtaRows``), compiled with the
+that one constant rewritten (kernel 13: its three; kernels 9 and 12:
+copied as it is; kernels 1 and 2 share ``kMvRows``, as do 5 and 6
+``kSplitCtaRows``), compiled with the
 package's nvcc flags (all nvcc processes at once), and called through the
 package's own wrappers, whose library is swapped for the variant's.  With
 ``--parent DIR`` the ``csrc/`` of another tree (an earlier commit unpacked
@@ -67,13 +81,15 @@ calls with the L2 flushed (``utils.timers.KernelTimer``), taken in the
 order parent, variants, variants, parent; both passes are printed, and at
 the end each variant's sum over the tables of the better pass.  An earlier
 tree's library lacks the segment entry: its ``block_mv`` on the padded
-table stands for it.  The last
-lines are the card's name and power limit and a JSON object of every time;
-``--out`` also writes it to a file.
+table stands for it.  ``--only`` runs the named sections alone (and
+builds only their libraries).  The last lines are the card's name and
+power limit and a JSON object of every time; ``--out`` also writes it to a
+file.
 
 Run from the repository root, on the card::
 
     python3 tools/sweep_redesign.py [--parent build/parent] [--out FILE]
+        [--only rows,soa]
 """
 
 from __future__ import annotations
@@ -131,6 +147,9 @@ MV1_ROWS = (32, 64, 128, 256)  # kMvRows
 # kernel 2 on the phase-1 operators at maxh=0.09: A32, B32, BT32
 MV2_TABLES = (("A32", NB, NB), ("B32", NQ, NB), ("BT32", NB, NQ))
 LOCAL_ROWS = (32, 64, 128)  # kRows
+# kernel 13's tile constants: elements, rows i and stages per CTA
+SOA_E, SOA_RI, SOA_STAGES = (32, 64, 128), (1, 2, 4), (2, 3, 4)
+SECTIONS = ("mv1", "comp1", "comp", "split", "local", "ring", "rows", "soa")
 TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 
 
@@ -141,21 +160,31 @@ def card_line() -> str:
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def variant(name: str, const: str | None = None, value: int = 0) -> Path:
-    """``csrc/<name>.cu`` with ``constexpr int <const> = <value>;`` (as it
-    is without ``const``), in a copy of ``csrc/`` of its own; returns the
-    source's path."""
-    dst = OUT / (f"{name}_{const}_{value}" if const else name)
+def variant(name: str, consts: dict | None = None, tag: str = "") -> Path:
+    """``csrc/<name>.cu`` with ``constexpr int <const> = <value>;`` for each
+    of ``consts`` (as it is without), in a copy of ``csrc/`` of its own
+    (named after ``tag`` as well); returns the source's path."""
+    consts = consts or {}
+    dst = OUT / "_".join([name, *([tag] if tag else [])]
+                         + [f"{c}_{v}" for c, v in consts.items()])
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(CSRC, dst)
     src = dst / f"{name}.cu"
-    if const:
+    text = src.read_text()
+    for const, value in consts.items():
         text, n = re.subn(rf"(constexpr int {const} = )\d+;",
-                          rf"\g<1>{value};", src.read_text())
+                          rf"\g<1>{value};", text)
         if n != 1:
             raise RuntimeError(f"{const} is defined {n} times in {name}.cu")
-        src.write_text(text)
+    src.write_text(text)
     return src
+
+
+def soa_fits(e: int, ri: int, stages: int, nb: int = NB) -> bool:
+    """Whether kernel 13's CTA at these tile constants fits (csrc
+    ``soa_smem`` and the thread limit)."""
+    smem = 128 + 128 + 4 * e * nb * (stages * ri + 2)
+    return smem <= sm.SMEM_OPT_IN and 32 + e * ri <= 1024
 
 
 def compile_all(jobs: dict) -> dict:
@@ -532,15 +561,44 @@ def sweep_local(timer, libs, rng, times):
     lm._lib = None
 
 
-def sweep_ring(timer, libs, rng, times):
-    """Kernel 12: the six variants of the ported microbenchmark, this
-    tree's kernel and the parent's, bitwise against ``block_mv``."""
+def stream_variants(timer, libs, own, call, check, label, times, section,
+                    row, bound, base):
+    """Every ``stream_mv.cu`` library of ``libs`` (the parent first and
+    last, if any) on one call, each passing ``check(out)`` (which raises);
+    appends one row per library to ``times[section]`` and prints its line
+    (``base``: the ``torch.bmm`` ms).  ``own``: the package's own build, left
+    in place."""
     names = list(libs)
-    order = names + names[::-1]
+    ms = {}
+    for key in names + names[::-1]:
+        sm._lib = libs[key]
+        out = call()
+        torch.cuda.synchronize()
+        check(key, out)
+        ms.setdefault(key, []).append(timer(call))
+    sm._lib = own
+    for key in names:
+        times[section].append({**row, "kernel": key, "ms": ms[key]})
+        print(f"  {label} {key:22s} "
+              + " / ".join(f"{t:.4f}" for t in ms[key])
+              + f" ms ({min(ms[key]) / base:.3f} x bmm, "
+              f"{bound / min(ms[key]):.3f} of bound)", flush=True)
+
+
+def bench_table(rng):
+    """The microbenchmarks' random f32 table (7740 x 54 x 54) and x."""
     A = torch.as_tensor(rng.standard_normal((NBLK, NB, NB)).astype(
         np.float32), device="cuda")
     x = torch.as_tensor(rng.standard_normal((NBLK, NB)).astype(np.float32),
                         device="cuda")
+    return A, x
+
+
+def sweep_ring(timer, libs, rng, times):
+    """Kernel 12: the six variants of the ported microbenchmark, this
+    tree's kernel and the parent's, bitwise against ``block_mv``."""
+    own = sm.load_library()
+    A, x = bench_table(rng)
     ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
     xb = x[:, :, None]
     tb = timer(lambda: torch.bmm(A, xb))
@@ -552,27 +610,77 @@ def sweep_ring(timer, libs, rng, times):
           f"rows=32 {tm:.4f}, bound {bound:.4f}", flush=True)
     for nbuf in microbench_dma.RING_NBUF:
         for rows in microbench_dma.RING_ROWS:
-            ms = {}
-            for key in order:
-                sm._lib = libs[key]
-                y = sm.block_mv_ring(A, x, nbuf, rows)
-                torch.cuda.synchronize()
+            def check(key, y):
                 err = float((y - want).abs().max())
                 if not (torch.equal(y, ref) and err <= 1e-4):
                     raise RuntimeError(f"kernel 12 {key} nbuf={nbuf} rows="
                                        f"{rows}: not bitwise equal to "
                                        f"block_mv, or {err:.2e} > 1e-4")
-                ms.setdefault(key, []).append(timer(
-                    lambda: sm.block_mv_ring(A, x, nbuf, rows)))
-            for key in names:
-                times["ring"].append({"table": f"nbuf={nbuf} rows={rows}",
-                                      "kernel": key, "ms": ms[key]})
-                print(f"  nbuf={nbuf} rows={rows:3d} {key:10s} "
-                      + " / ".join(f"{t:.4f}" for t in ms[key])
-                      + f" ms ({min(ms[key]) / tb:.3f} x bmm, "
-                      f"{bound / min(ms[key]):.3f} of bound), bitwise = "
-                      "block_mv", flush=True)
-    sm._lib = None
+
+            stream_variants(timer, libs, own,
+                            lambda: sm.block_mv_ring(A, x, nbuf, rows), check,
+                            f"nbuf={nbuf} rows={rows:3d}", times, "ring",
+                            {"table": f"nbuf={nbuf} rows={rows}"}, bound, tb)
+
+
+def sweep_rows(timer, libs, rng, times):
+    """Kernel 9: the four rows variants of the ported microbenchmark, this
+    tree's kernel and the parent's, bitwise against ``block_mv``."""
+    own = sm.load_library()
+    A, x = bench_table(rng)
+    ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
+    xb = x[:, :, None]
+    tb = timer(lambda: torch.bmm(A, xb))
+    tm = timer(lambda: sm.block_mv_mega(A, x, 1, 64))
+    bound = 4 * (A.numel() + 2 * x.numel()) / 3.35e12 * 1e3
+    times["rows"] += [{"kernel": "bmm", "ms": [tb]},
+                      {"kernel": "block_mv_mega k=1 rows=64", "ms": [tm]}]
+    print(f"[rows] {tuple(A.shape)} f32: bmm {tb:.4f} ms, block_mv_mega k=1 "
+          f"rows=64 {tm:.4f}, bound {bound:.4f}", flush=True)
+    for rows in microbench_dma.ROWS:
+        def check(key, y):
+            err = float((y - want).abs().max())
+            if not (torch.equal(y, ref) and err <= 1e-4):
+                raise RuntimeError(f"kernel 9 {key} rows={rows}: not bitwise "
+                                   f"equal to block_mv, or {err:.2e} > 1e-4")
+
+        stream_variants(timer, libs, own,
+                        lambda: sm.block_mv_rows(A, x, rows), check,
+                        f"rows={rows:3d}", times, "rows",
+                        {"table": f"rows={rows}"}, bound, tb)
+
+
+def sweep_soa(timer, libs, rng, times):
+    """Kernel 13: every fitting tile variant and the parent's kernel on the
+    bench table in structure-of-arrays layout, bitwise against ``block_mv``
+    on the AoS table."""
+    own = sm.load_library()
+    A, x = bench_table(rng)
+    ref = bm.block_mv(A, x)
+    ne_p = -(-NBLK // 256) * 256
+    A2 = torch.zeros((NB, NB, ne_p), device="cuda")
+    A2[:, :, :NBLK] = A.permute(1, 2, 0)
+    uT = torch.zeros((NB, ne_p), device="cuda")
+    uT[:, :NBLK] = x.T
+    del A
+    want = sm.block_mv_soa_plain(A2, uT)
+    A2b, uTb = A2.permute(2, 0, 1), uT.T[:, :, None]  # views: same inputs
+    tb = timer(lambda: torch.bmm(A2b, uTb))
+    bound = 4 * (A2.numel() + 2 * uT.numel()) / 3.35e12 * 1e3
+    times["soa"].append({"kernel": "bmm", "ms": [tb]})
+    print(f"[soa] {tuple(A2.shape)} f32: bmm on the permuted views {tb:.4f} "
+          f"ms, bound {bound:.4f}", flush=True)
+
+    def check(key, y):
+        err = float((y - want).abs().max())
+        if not (torch.equal(y[:, :NBLK].T, ref) and err <= 1e-4
+                and float(y[:, NBLK:].abs().max()) == 0.0):
+            raise RuntimeError(f"kernel 13 {key}: not bitwise equal to "
+                               f"block_mv, padding not zero, or {err:.2e} > "
+                               "1e-4")
+
+    stream_variants(timer, libs, own, lambda: sm.block_mv_soa(A2, uT), check,
+                    "soa", times, "soa", {}, bound, tb)
 
 
 def summary(times):
@@ -596,26 +704,38 @@ def main(argv=None):
     ap.add_argument("--parent", help="another tree whose csrc/ is timed "
                     "beside the variants")
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--only", help="comma-separated sections to run (of "
+                    + ", ".join(SECTIONS) + "; default all)")
     args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else list(SECTIONS)
+    if not set(only) <= set(SECTIONS):
+        ap.error(f"--only: sections are {', '.join(SECTIONS)}")
     if not torch.cuda.is_available():
         print("sweep_redesign: no CUDA device available", file=sys.stderr)
         return 2
-    jobs = {("comp1", f"R={r}"): variant("block_mv", "kCompRows", r)
-            for r in COMP1_ROWS}
-    jobs.update({("comp", f"R={r}"): variant("block_mv", "kCompSplitRows", r)
-                 for r in COMP_ROWS})
-    jobs.update({("split", f"R={r}"): variant("block_mv", "kSplitCtaRows", r)
-                 for r in SPLIT_ROWS})
-    jobs.update({("mv1", f"R={r}"): variant("block_mv", "kMvRows", r)
-                 for r in MV1_ROWS})
-    jobs.update({("local", f"R={r}"): variant("local_mv", "kRows", r)
-                 for r in LOCAL_ROWS})
-    jobs[("ring", "this tree")] = variant("stream_mv")
+    consts = {"comp1": ("block_mv", "kCompRows", COMP1_ROWS),
+              "comp": ("block_mv", "kCompSplitRows", COMP_ROWS),
+              "split": ("block_mv", "kSplitCtaRows", SPLIT_ROWS),
+              "mv1": ("block_mv", "kMvRows", MV1_ROWS),
+              "local": ("local_mv", "kRows", LOCAL_ROWS)}
+    jobs = {(kind, f"R={r}"): variant(name, {const: r})
+            for kind, (name, const, values) in consts.items() if kind in only
+            for r in values}
+    for kind in ("ring", "rows"):
+        if kind in only:
+            jobs[(kind, "this tree")] = variant("stream_mv", tag=kind)
+    if "soa" in only:
+        jobs.update({("soa", f"E={e} ri={ri} nbuf={st}"): variant(
+            "stream_mv", {"kSoaE": e, "kSoaRi": ri, "kSoaStages": st})
+            for e in SOA_E for ri in SOA_RI for st in SOA_STAGES
+            if soa_fits(e, ri, st)})
     sources = {"comp1": "block_mv", "comp": "block_mv", "split": "block_mv",
-               "mv1": "block_mv", "local": "local_mv", "ring": "stream_mv"}
+               "mv1": "block_mv", "local": "local_mv", "ring": "stream_mv",
+               "rows": "stream_mv", "soa": "stream_mv"}
+    sources = {kind: name for kind, name in sources.items() if kind in only}
     if args.parent:
         csrc = Path(args.parent).resolve() / "navier_stokes_tpu_torch" / "csrc"
-        for name in ("block_mv", "local_mv", "stream_mv"):
+        for name in set(sources.values()):
             dst = OUT / f"parent_{name}"
             shutil.rmtree(dst, ignore_errors=True)
             shutil.copytree(csrc, dst)
@@ -639,15 +759,15 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     times = {kind: [] for kind in ("mv1", "mv1_seg", "mv2_1", "comp1",
                                    "comp", "mv2", "mv_bench", "mv_gs",
-                                   "local", "ring")}
-    sweep_mv1(timer, libs["mv1"], rng, times)
-    sweep_mv2_unsplit(timer, libs["mv1"], rng, times)
-    sweep_comp1(timer, libs["comp1"], rng, times)
-    sweep_comp(timer, libs["comp"], rng, times)
-    sweep_mv2(timer, libs["split"], rng, times)
-    sweep_mv(timer, libs["split"], rng, times)
-    sweep_local(timer, libs["local"], rng, times)
-    sweep_ring(timer, libs["ring"], rng, times)
+                                   "local", "ring", "rows", "soa")}
+    runs = {"mv1": (sweep_mv1, sweep_mv2_unsplit), "comp1": (sweep_comp1,),
+            "comp": (sweep_comp,), "split": (sweep_mv2, sweep_mv),
+            "local": (sweep_local,), "ring": (sweep_ring,),
+            "rows": (sweep_rows,), "soa": (sweep_soa,)}
+    for kind in SECTIONS:
+        if kind in only:
+            for fn in runs[kind]:
+                fn(timer, libs[kind], rng, times)
     summary(times)
     card = card_line()
     times["card"] = card
