@@ -44,8 +44,9 @@ phases; any failed phase ends the run with a non-zero exit:
    configuration and the kernels that take most of it;
 9. ds: the residual of the converged solution through the plain 3 x f32
    double-single applies (``elem_apply_ds`` / ``rect_apply_ds``, one
-   ``block_mv_ds`` launch each) beside the compensated one, both against
-   the true f64 residual;
+   ``block_mv_ds`` launch each: kernel 3, the split-k kernel at one
+   sub-table with three fmaf chains per row) beside the compensated one,
+   both against the true f64 residual;
 10. transient: the float32 twin of the curved model (same host tables),
     ``make_step_fn(project_tol=1e-5)`` from ``u = u_bc`` as bench.py's
     ``measure_transient``: one cold step with the launch counters set to 0
@@ -71,11 +72,12 @@ phases; any failed phase ends the run with a non-zero exit:
 The kernel checks of phase 3 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
 condensed-operator and pressure-block tables of the transient step),
-``block_mv_ds`` (on the split A, B, BT tables), every variant of the
+``block_mv_ds`` (on the split A, B, BT tables, each output also BITWISE
+against ``block_mv`` on its (table, vector) pair), every variant of the
 table-stream kernels (``block_mv_rows``, split-k at k = 2, 4, 8,
 ``block_mv_mega``, ``block_mv_ring``, ``block_mv_soa``) on the bench table,
 each also bitwise against ``block_mv``, the edges of the CTA stretches
-of kernels 1, 2 and 5-8 and of the segment entry (``check_edges``: the
+of kernels 1, 2, 3 and 5-8 and of the segment entry (``check_edges``: the
 shapes of the card tests), and those of kernels 9 and 13
 (``check_stream_edges``: rows per CTA 1, 5, 864 and odd k; element counts
 4, 260, 7936 and nb 1, 7, 64).  A ``[stream]`` line prints what ``A.sum()``
@@ -118,6 +120,7 @@ PALLAS_LOCAL = "navier_stokes_tpu/ops/pallas_kernels.py"
 REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
                           "segment, without padding",
               "block_mv2": "kernel 6 at one sub-table",
+              "block_mv_ds": "kernel 4's staging, three fmaf chains per row",
               "block_mv_comp_splitk": "bulk copies, x in shared memory",
               "block_mv_comp": "kernel 7 at one sub-table",
               "block_mv_splitk": "kernel 7's staging, bf16 copied as "
@@ -473,7 +476,9 @@ def check_edges(torch, bm, lm):
 
     * kernels 1 (f32 and bf16) and 2 on ``EDGE_UNSPLIT``, within 1e-5 of
       sum_j |a_ij x_j| of their plain versions and BITWISE against kernels
-      5 and 6 at k = 2 and 4; a table off a 16-byte boundary refused;
+      5 and 6 at k = 2 and 4; kernel 3 there, each output BITWISE equal to
+      kernel 1 on its (table, vector) pair and within 2e-6 of sum_j |a_ij
+      x_j| of its plain version; a table off a 16-byte boundary refused;
     * the segment entry on ``EDGE_SEGMENTS`` (f32 and bf16), EQUAL to
       ``block_mv`` on the padded table and within 1e-5 of its plain
       version;
@@ -492,7 +497,8 @@ def check_edges(torch, bm, lm):
                             x.double().abs()).clamp_min(1e-300)
 
     rng = np.random.default_rng(5)
-    n1 = n2 = 0
+    rng_ds = np.random.default_rng(6)  # x of kernel 3, apart from the rest
+    n1 = n2 = n3 = 0
     for nblk, m, kk in EDGE_UNSPLIT:
         A64 = torch.as_tensor(rng.standard_normal((nblk, m, kk)),
                               device="cuda")
@@ -521,11 +527,25 @@ def check_edges(torch, bm, lm):
                 bm.pack_splitk(hi, k, 4), bm.pack_splitk(lo, k, 4), x, 4)),
                 f"{label}: not bitwise equal to block_mv2_splitk k={k}")
         n2 += 1
+        xs = bm.split_f64(torch.as_tensor(rng_ds.standard_normal((nblk, kk)),
+                                          device="cuda"))
+        got = bm.block_mv_ds(hi, lo, *xs)
+        ref = bm.block_mv_ds_plain(hi, lo, *xs)
+        label = f"block_mv_ds {(nblk, m, kk)}"
+        scale = row_scale(A64, xs[0])
+        for y, (A, xv), r in zip(got, ((hi, xs[0]), (hi, xs[1]), (lo, xs[0])),
+                                 ref):
+            check(torch.equal(y, bm.block_mv(A, xv)),
+                  f"{label}: not bitwise equal to block_mv on its pair")
+            worst = float(((y - r).abs().double() / scale).max())
+            check(worst <= 2e-6, f"{label}: {worst:.2e} > 2e-6 of sum|a x|")
+        n3 += 1
     flat = torch.zeros(1 + 6 * 8 * 8, device="cuda")
     view = flat[1:].view(6, 8, 8)  # 4 bytes past a 16-byte boundary
     x = torch.zeros((6, 8), device="cuda")
     for call in (lambda: bm.block_mv(view, x),
-                 lambda: bm.block_mv2(view, view, x)):
+                 lambda: bm.block_mv2(view, view, x),
+                 lambda: bm.block_mv_ds(view, view, x, x)):
         try:
             call()
         except ValueError:
@@ -616,7 +636,8 @@ def check_edges(torch, bm, lm):
             n8 += 1
     log(f"[kernels] edges: block_mv on {n1} tables (f32 and bf16) and "
         f"block_mv2 on {n2} within tolerance and bitwise = split-k at k=2, "
-        "4, misaligned tables refused; block_mv_segments (f32 and bf16) = "
+        f"4; block_mv_ds on {n3} bitwise = block_mv on each pair; "
+        "misaligned tables refused; block_mv_segments (f32 and bf16) = "
         "block_mv on the padded table; "
         f"block_mv_splitk on {n5} split tables (f32 and "
         f"bf16) bitwise = block_mv; block_mv2_splitk on {n6} bitwise = "
@@ -626,7 +647,8 @@ def check_edges(torch, bm, lm):
 
 def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
     """``block_mv_ds`` against its plain version, each of the three
-    products within 2e-6 of sum_j |a_ij x_j|, and their f64 sum against the
+    products within 2e-6 of sum_j |a_ij x_j| and BITWISE equal to
+    ``block_mv`` on its (table, vector) pair, and their f64 sum against the
     f64 product of the same operands (printed: plain f32 accumulation).
     The yardstick is one f32 ``torch.bmm`` of the stacked tables with
     [x_hi, x_lo] (it also computes A_lo x_lo)."""
@@ -646,6 +668,10 @@ def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
           f"block_mv_ds {label}: non-finite")
     check(worst <= 2e-6, f"block_mv_ds {label}: {worst:.2e} > 2e-6 of "
           "sum|a x|")
+    for g, (A, x), what in zip(got, ((A_hi, x_hi), (A_hi, x_lo),
+                                     (A_lo, x_hi)), ("hh", "hl", "lh")):
+        check(torch.equal(g, bm.block_mv(A, x)), f"block_mv_ds {label}: "
+              f"{what} not bitwise equal to block_mv on its pair")
     ds = sum(g.double() for g in got)
     ds_rel = float(((ds - torch.einsum("bmk,bk->bm", A64, x64)).abs()
                     / scale).max())
@@ -657,8 +683,9 @@ def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
     nb = nbytes(A_hi, A_lo, x_hi, x_lo, *got)
     add(rep, ms, plain_ms, lib_ms, nb, 6 * A_hi.numel(), err)
     log(f"  block_mv_ds {label} {tuple(A_hi.shape)}: max|d plain|={err:.3e} "
-        f"rel={worst:.2e}, f64 sum vs f64 product row-rel {ds_rel:.2e} | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
+        f"rel={worst:.2e}, each = block_mv on its pair, f64 sum vs f64 "
+        f"product row-rel {ds_rel:.2e} | kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, bmm {lib_ms:.4f}, bound "
         f"{nb / HBM_BYTES_PER_S * 1e3:.4f}")
 
 

@@ -14,30 +14,16 @@
 // not the TPU's tile-packed (ntile, m, k, TILE) lane layout.
 //
 // Bound: every kernel reads its table(s) once and does 2 flops per table
-// element (about 15 for the compensated kernel), far below the card's f32
-// rate for the bytes moved, so each is bound by device memory bandwidth:
-// table bytes / 3.35 TB/s on an H100 SXM.
+// element (3 for kernel 3's three chains, about 15 for the compensated
+// kernel), far below the card's f32 rate for the bytes moved, so each is
+// bound by device memory bandwidth: table bytes / 3.35 TB/s on an H100 SXM.
 //
-// Kernels 1 and 2, and kernel 4, are the split-k kernel (section below) at
-// one sub-table: each CTA's table stretch reaches shared memory by a bulk
-// asynchronous copy (bulk_copy.cuh), bf16 as stored, x is staged beside it,
-// and one thread computes one output row in column order.  The segment
+// Kernels 1 to 4 are the split-k kernel (section below) at one sub-table:
+// each CTA's table stretches reach shared memory by bulk asynchronous copies
+// (bulk_copy.cuh), bf16 as stored, x is staged beside them, and one thread
+// computes one output row in column order, f32 accumulation.  The segment
 // entry is kernel 1 over the ragged blocks of a GS solve table (its section
 // below).
-//
-// Design of kernel 3, the one left of the first design.  Viewed as nblk * m
-// output rows, the table rows of any run of consecutive output rows are one
-// contiguous stretch of memory, whatever the block boundaries.  A CTA owns R
-// consecutive rows (R chosen on the host so that its tiles fit 48 KB of
-// shared memory):
-//   1. the CTA copies its rows' table stretch into shared memory with
-//      coalesced 16-byte loads, one row per ks = k | 1 floats -- an odd row
-//      stride, so that the threads of a warp, each reading its own row, hit
-//      distinct banks;
-//   2. it copies the x rows of the blocks those rows belong to;
-//   3. each thread computes one output row from shared memory, in column
-//      order, and writes it (coalesced).
-// Accumulation is f32.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
@@ -55,9 +41,8 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kSmemBudget = 48 * 1024;  // dynamic shared memory, no opt-in
-constexpr int kSmemOptIn = 232448;      // 227 KB per CTA after opt-in
-constexpr int kHeader = 128;            // the mbarrier ahead of the stretches
+constexpr int kSmemOptIn = 232448;  // 227 KB per CTA after opt-in
+constexpr int kHeader = 128;        // the mbarrier ahead of the stretches
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -79,113 +64,18 @@ __device__ __forceinline__ void unpack(uint4 w, float* out) {
   }
 }
 
-// Copy count contiguous f32 table entries src[0..count) into dst as rows of
-// k entries at row stride ks.  Coalesced 16-byte loads for the aligned
-// middle, single loads for the unaligned head and the tail.
-__device__ void stage_rows(const float* __restrict__ src, int count, int k,
-                           int ks, float* __restrict__ dst) {
-  constexpr int V = 4;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
-  int head = static_cast<int>(((16 - (addr & 15)) & 15) / sizeof(float));
-  if (head > count) head = count;
-  const int nvec = (count - head) / V;
-  for (int e = threadIdx.x; e < head; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = src[e];
-  const uint4* pv = reinterpret_cast<const uint4*>(src + head);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float v[V];
-    unpack<float>(__ldg(pv + i), v);
-    const int e0 = head + i * V;
-    int row = e0 / k, col = e0 - row * k;
-#pragma unroll
-    for (int q = 0; q < V; ++q) {
-      dst[row * ks + col] = v[q];
-      if (++col == k) {
-        col = 0;
-        ++row;
-      }
-    }
-  }
-  for (int e = head + nvec * V + threadIdx.x; e < count; e += blockDim.x)
-    dst[(e / k) * ks + e % k] = src[e];
-}
-
-__device__ __forceinline__ void stage_x(const float* __restrict__ src,
-                                        int count, float* __restrict__ dst) {
-  for (int e = threadIdx.x; e < count; e += blockDim.x) dst[e] = __ldg(src + e);
-}
-
-struct Tile {
-  long long r0;  // first output row of this CTA
-  int nrows;     // rows in this tile
-  long long b0;  // first block touched
-  int nx;        // x entries staged (whole blocks)
-};
-
-__device__ __forceinline__ Tile tile_of(long long nrows_all, int R, int m,
-                                        int k) {
-  Tile t;
-  t.r0 = static_cast<long long>(blockIdx.x) * R;
-  long long r1 = t.r0 + R;
-  if (r1 > nrows_all) r1 = nrows_all;
-  t.nrows = static_cast<int>(r1 - t.r0);
-  t.b0 = t.r0 / m;
-  t.nx = static_cast<int>((r1 - 1) / m - t.b0 + 1) * k;
-  return t;
-}
-
-// The three f32 products of the plain double-single apply, A_hi x_hi,
-// A_hi x_lo and A_lo x_hi, from ONE pass over both tables (the caller sums
-// them in f64; A_lo x_lo is below f64 roundoff of the result).  Each is a
-// plain f32 fmaf chain, as _mv_ds_kernel's three _bmv reductions.
-__global__ void __launch_bounds__(kMaxThreads)
-    block_mv_ds_kernel(const float* __restrict__ a_hi,
-                       const float* __restrict__ a_lo,
-                       const float* __restrict__ x_hi,
-                       const float* __restrict__ x_lo,
-                       float* __restrict__ y_hh, float* __restrict__ y_hl,
-                       float* __restrict__ y_lh, long long nrows_all, int m,
-                       int k, int ks, int R) {
-  extern __shared__ float smem[];
-  const Tile t = tile_of(nrows_all, R, m, k);
-  float* th = smem;
-  float* tl = smem + R * ks;
-  float* xh = smem + 2 * R * ks;
-  float* xl = xh + t.nx;
-  stage_rows(a_hi + t.r0 * k, t.nrows * k, k, ks, th);
-  stage_rows(a_lo + t.r0 * k, t.nrows * k, k, ks, tl);
-  stage_x(x_hi + t.b0 * k, t.nx, xh);
-  stage_x(x_lo + t.b0 * k, t.nx, xl);
-  __syncthreads();
-  for (int rr = threadIdx.x; rr < t.nrows; rr += blockDim.x) {
-    const long long r = t.r0 + rr;
-    const float* hr = th + rr * ks;
-    const float* lr = tl + rr * ks;
-    const long long xo = (r / m - t.b0) * k;
-    float hh = 0.0f, hl = 0.0f, lh = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      const float ah = hr[j], xhj = xh[xo + j];
-      hh = fmaf(ah, xhj, hh);
-      hl = fmaf(ah, xl[xo + j], hl);
-      lh = fmaf(lr[j], xhj, lh);
-    }
-    y_hh[r] = hh;
-    y_hl[r] = hl;
-    y_lh[r] = lh;
-  }
-}
-
 // -- split-k kernels ----------------------------------------------------------
 //
 //   nstt_block_mv_splitk_{f32,bf16}  <- _mv_kernel_splitk      (:305)
 //   nstt_block_mv2_splitk_f32        <- _mv2_kernel_splitk     (:358)
 //   nstt_block_mv_comp_splitk_f32    <- _mv_comp_kernel_splitk (:397)
 //
-// and, as the same kernels at ONE sub-table (the table itself, one tile of
+// and, as the same kernel at ONE sub-table (the table itself, one tile of
 // nblk blocks, every row real),
 //
 //   nstt_block_mv_{f32,bf16}         <- _mv_kernel             (:118)
 //   nstt_block_mv2_f32               <- _mv2_kernel            (:124)
+//   nstt_block_mv_ds_f32             <- _mv_ds_kernel          (:129)
 //   nstt_block_mv_comp_f32           <- _mv_comp_kernel        (:166)
 //
 // The table arrives as ns <= kMaxSplit consecutive-tile sub-tables (global
@@ -196,13 +86,16 @@ __global__ void __launch_bounds__(kMaxThreads)
 // Bound: the bytes of the nblk real blocks (and x, y) / 3.35 TB/s, as for
 // the unsplit kernels.
 //
-// Design.  One kernel, splitk_kernel<OP, T, NS>, with three row bodies:
+// Design.  One kernel, splitk_kernel<OP, T, NS>, with four row bodies:
 //   kMv   (kernel 5; kernel 1 at NS = 1): one table, f32 or bf16, and x;
 //         one fmaf chain per row, each bf16 entry widened where it is used;
 //   kMv2  (kernel 6; kernel 2 at NS = 1): the f32 pair (hi, lo) and x; two
 //         fmaf chains per row, added once at the end;
 //   kComp (kernel 7; kernel 4 at NS = 1): the f32 pair, x_hi and x_lo; the
-//         two_prod / two_sum chain.
+//         two_prod / two_sum chain;
+//   kDs   (kernel 3, NS = 1 only: the JAX package has no split-k ds kernel):
+//         the f32 pair, x_hi and x_lo; three fmaf chains per row, A_hi x_hi,
+//         A_hi x_lo and A_lo x_hi, each kernel 1's chain on its pair.
 // A CTA owns the same stretch of R sub-table rows [r0, r0 + R) in EVERY
 // sub-table.  Each thread computes output rows in the unsplit kernel's
 // column order, so a split-k result is bitwise equal to the unsplit
@@ -222,9 +115,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 // entries are a whole number of 16-byte units for any k.
 //
 // Rows per sub-table (split_rows): kernels 4 and 7 take kCompRows and
-// kCompSplitRows; kernels 5 and 6 share kSplitCtaRows rows among their NS
-// sub-tables, so that the CTA stays the same size at every k; at NS = 1
-// (kernels 1 and 2, and the segment entry) they take kMvRows.
+// kCompSplitRows, kernel 3 kCompRows (the same tables, the same staging);
+// kernels 5 and 6 share kSplitCtaRows rows among their NS sub-tables, so
+// that the CTA stays the same size at every k; at NS = 1 (kernels 1 and 2,
+// and the segment entry) they take kMvRows.
 //   Sweep of kMvRows (the same tool and card; random tables of the main
 //   path's shapes at maxh=0.09, sums of the better of two passes): kernel
 //   1 on S, ext, ext^T, inner, M_F, M_F^T and one color's GS row panels
@@ -249,6 +143,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 //   earlier kernel 4 (one thread per row after a copy loop into
 //   odd-stride tiles, 48 KB CTAs) 0.1873, the f64 torch.bmm 0.1437.
 //   Fixed: R = 64.  Kernel 4 is bitwise equal to the earlier one.
+//   Kernel 3 at kCompRows (the same tool and card; random hi/lo pairs and
+//   x_hi/x_lo of the shapes of A_ds, B_ds and BT_ds, summed): R = 32 / 64
+//   / 128 took 0.1081 / 0.1075 / 0.1093 ms; in the same call the earlier
+//   kernel 3 (per-thread loads into odd-stride tiles, 48 KB CTAs) 0.1809,
+//   the f32 torch.bmm of the stacked pair 0.2644, the byte bound 0.0671.
+//   Kept: R = 64, the best; every variant bitwise equal to kernel 1 on each
+//   (table, vector) pair, as the earlier kernel 3 is.
 //   Sweep of kSplitCtaRows (the same tool and card; random tables): on the
 //   A32-shaped pair (7740 x 54 x 54, kernel 6, tile 256) 32 / 64 / 128 /
 //   256 rows took 0.0748 / 0.0744 / 0.0745 / 0.0750 ms at k = 2, 0.0824 /
@@ -263,33 +164,34 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 constexpr int kMaxSplit = 8;
 constexpr int kXLoads = 4;  // x loads in flight per thread
-// rows per CTA of kernel 4 (one sub-table) and per sub-table of one kernel-7
-// CTA; rows per kernel-5/6 CTA, summed over its sub-tables; rows per CTA of
-// kernels 1 and 2 and the segment entry (tools/sweep_redesign.py)
+// rows per CTA of kernels 3 and 4 (one sub-table) and per sub-table of one
+// kernel-7 CTA; rows per kernel-5/6 CTA, summed over its sub-tables; rows
+// per CTA of kernels 1 and 2 and the segment entry
+// (tools/sweep_redesign.py)
 constexpr int kCompRows = 64;
 constexpr int kCompSplitRows = 32;
 constexpr int kSplitCtaRows = 128;
 constexpr int kMvRows = 64;
 static_assert(kCompRows % 4 == 0 && kCompSplitRows % 4 == 0,
-              "the compensated kernel's f32 stretches start on 16-byte "
-              "boundaries");
+              "kernel 3's and the compensated kernel's f32 stretches start "
+              "on 16-byte boundaries");
 static_assert(kMvRows % 8 == 0,
               "kernel 1's and 2's stretches start on 16-byte boundaries");
 
-enum SplitOp { kMv, kMv2, kComp };
+enum SplitOp { kMv, kMv2, kComp, kDs };
 
 // tables and x vectors each row body stages
 __host__ __device__ constexpr int split_tables(int op) {
   return op == kMv ? 1 : 2;
 }
 __host__ __device__ constexpr int split_xs(int op) {
-  return op == kComp ? 2 : 1;
+  return op == kComp || op == kDs ? 2 : 1;
 }
 
 // Rows per sub-table of row body op at ns sub-tables of es-byte entries:
 // a multiple of 16 / es entries (see above).
 constexpr int split_rows(int op, int ns, int es) {
-  return op == kComp ? (ns == 1 ? kCompRows : kCompSplitRows)
+  return op == kComp || op == kDs ? (ns == 1 ? kCompRows : kCompSplitRows)
          : ns == 1                 ? kMvRows
          : kSplitCtaRows / ns >= 16 / es
              ? kSplitCtaRows / ns / (16 / es) * (16 / es)
@@ -325,7 +227,7 @@ struct SplitTile {
   int nrows;     // sub-table rows in this tile (in each sub-table)
 };
 
-__device__ __forceinline__ SplitTile split_tile_of(long long nsub_rows,
+__device__ __forceinline__ SplitTile cta_tile(long long nsub_rows,
                                                    int R) {
   SplitTile t;
   t.r0 = static_cast<long long>(blockIdx.x) * R;
@@ -483,17 +385,18 @@ __device__ __forceinline__ void walk_row(T* const (&tab)[NT], int ao, int k,
 // pallas_mv.py:146-154, 191-200).  Build without --use_fast_math.
 //
 // Parameters: a0 (and a1: lo) the sub-tables, x0 (and x1: x_lo) the
-// vectors, y0 (and y1: y_lo) the outputs; unused ones are never read.
+// vectors, y0 (and y1: y_lo; kDs: y0, y1, y2 = hh, hl, lh) the outputs;
+// unused ones are never read.
 template <int OP, typename T, int NS>
 __global__ void __launch_bounds__(kMaxThreads)
     splitk_kernel(SubTables a0, SubTables a1, SplitReal real,
                   const float* __restrict__ x0, const float* __restrict__ x1,
                   float* __restrict__ y0, float* __restrict__ y1,
-                  long long nsub_rows, long long nblk, int m, int k, int R,
-                  int xb, int tile) {
+                  float* __restrict__ y2, long long nsub_rows,
+                  long long nblk, int m, int k, int R, int xb, int tile) {
   constexpr int NT = split_tables(OP), NX = split_xs(OP);
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const SplitTile t = split_tile_of(nsub_rows, R);
+  const SplitTile t = cta_tile(nsub_rows, R);
   const SplitSmem<T, NT, NX> s = stage_split<T, NT, NX, NS>(
       smem_raw, a0, a1, real, x0, x1, t, nblk, m, k, R, xb, tile, k);
   const long long sb0 = t.r0 / m;
@@ -518,6 +421,21 @@ __global__ void __launch_bounds__(kMaxThreads)
         acc_lo = fmaf(l, xc, acc_lo);
       });
       y0[g] = acc_hi + acc_lo;
+    } else if constexpr (OP == kDs) {
+      // the three f32 products of the plain double-single apply (the caller
+      // sums them in f64; A_lo x_lo is below f64 roundoff of the result),
+      // each the chain of kernel 1 on its (table, vector) pair
+      const float* xl = s.x[1] + xo;
+      float hh = 0.0f, hl = 0.0f, lh = 0.0f;
+      walk_row(s.tab, ao, k, [&](int c, float ah, float al) {
+        const float xhc = xr[c];
+        hh = fmaf(ah, xhc, hh);
+        hl = fmaf(ah, xl[c], hl);
+        lh = fmaf(al, xhc, lh);
+      });
+      y0[g] = hh;
+      y1[g] = hl;
+      y2[g] = lh;
     } else {
       const float* xl = s.x[NX - 1] + xo;
       // two_prod, then two_sum(sh, p), the small terms summed beside
@@ -718,10 +636,10 @@ cudaError_t split_opt_in() {
   return err;
 }
 
-inline bool bad_split(int ns, long long nblk, long long nsub, int m, int k,
-                      int tile) {
-  return ns < 1 || ns > kMaxSplit || nblk < 0 || m <= 0 || k <= 0 ||
-         tile <= 0 || nsub % tile != 0 || nblk > ns * nsub;
+inline bool bad_split(int op, int ns, long long nblk, long long nsub, int m,
+                      int k, int tile) {
+  return ns < 1 || ns > (op == kDs ? 1 : kMaxSplit) || nblk < 0 || m <= 0 ||
+         k <= 0 || tile <= 0 || nsub % tile != 0 || nblk > ns * nsub;
 }
 
 // Any of the ns sub-table bases off a 16-byte boundary (the bulk copies
@@ -773,29 +691,33 @@ SplitReal split_real(int ns, long long nblk, int m, int k, int tile) {
 
 // One split-k launch of row body OP: a0 (and a1) point at ns sub-table
 // pointers (host memory), each 16-byte aligned; unused operands may be
-// null.
+// null.  kDs is instantiated at ns = 1 only.
 template <int OP, typename T>
 int launch_split(const void* const* a0, const void* const* a1, int ns,
                  const float* x0, const float* x1, float* y0, float* y1,
-                 long long nblk, int m, int k, long long nsub, int tile,
-                 void* stream) {
-  if (bad_split(ns, nblk, nsub, m, k, tile) || misaligned(a0, ns) ||
+                 float* y2, long long nblk, int m, int k, long long nsub,
+                 int tile, void* stream) {
+  if (bad_split(OP, ns, nblk, nsub, m, k, tile) || misaligned(a0, ns) ||
       misaligned(a1, ns))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblk == 0) return 0;
   const Launch L = plan_split<OP, T>(nsub * m, m, k, ns);
   if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
-  with_split(ns, [&](auto c) {
+  auto go = [&](auto c) {
     constexpr int NS = decltype(c)::value;
     err = split_opt_in<OP, T, NS>();
     if (err != cudaSuccess) return;
     splitk_kernel<OP, T, NS>
         <<<L.grid, L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
             sub_tables(a0, ns), sub_tables(a1, ns),
-            split_real(ns, nblk, m, k, tile), x0, x1, y0, y1, nsub * m, nblk,
-            m, k, L.R, (L.R - 1) / m + 2, tile);
-  });
+            split_real(ns, nblk, m, k, tile), x0, x1, y0, y1, y2, nsub * m,
+            nblk, m, k, L.R, (L.R - 1) / m + 2, tile);
+  };
+  if constexpr (OP == kDs)
+    go(std::integral_constant<int, 1>());
+  else
+    with_split(ns, go);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -884,25 +806,6 @@ int launch_segments(const void* tab, long long entries,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Largest row tile whose ntab table tiles (row stride ks) and nxv x stages
-// fit the shared-memory budget.
-Launch plan(long long nrows_all, int m, int k, int ks, int ntab, int nxv) {
-  Launch L;
-  for (int R = kMaxThreads; R >= 1; R -= (R > 32 ? 32 : 1)) {
-    const long long xblocks = (R - 1) / m + 2;
-    const long long bytes =
-        4LL * (static_cast<long long>(ntab) * R * ks + nxv * xblocks * k);
-    if (bytes <= kSmemBudget) {
-      L.R = R;
-      L.threads = R < 32 ? 32 : ((R + 31) / 32) * 32;
-      L.smem = static_cast<size_t>(bytes);
-      L.grid = static_cast<unsigned int>((nrows_all + R - 1) / R);
-      return L;
-    }
-  }
-  return L;
-}
-
 __global__ void spin_kernel(long long cycles) {
   const long long t0 = clock64();
   while (clock64() - t0 < cycles) {
@@ -913,21 +816,19 @@ inline bool bad_shape(long long nblk, int m, int k) {
   return nblk < 0 || m <= 0 || k <= 0;
 }
 
-inline int row_stride(int k) { return k | 1; }
-
 // Row body OP at one sub-table: the table itself, one tile of nblk blocks,
-// every row real (kernels 1, 2 and 4).  launch_split refuses tables off a
+// every row real (kernels 1 to 4).  launch_split refuses tables off a
 // 16-byte boundary.
 template <int OP, typename T>
 int launch_unsplit(const void* a0, const void* a1, const float* x0,
-                   const float* x1, float* y0, float* y1, long long nblk,
-                   int m, int k, void* stream) {
+                   const float* x1, float* y0, float* y1, float* y2,
+                   long long nblk, int m, int k, void* stream) {
   if (bad_shape(nblk, m, k) || nblk > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblk == 0) return 0;
   const void* p0[1] = {a0};
   const void* p1[1] = {a1};
-  return launch_split<OP, T>(p0, p1, 1, x0, x1, y0, y1, nblk, m, k, nblk,
+  return launch_split<OP, T>(p0, p1, 1, x0, x1, y0, y1, y2, nblk, m, k, nblk,
                              static_cast<int>(nblk), stream);
 }
 
@@ -935,25 +836,33 @@ int launch_unsplit(const void* a0, const void* a1, const float* x0,
 
 extern "C" {
 
-// Kernels 1 and 2: the split-k kernel at one sub-table (launch_unsplit).
+// Kernels 1 to 3: the split-k kernel at one sub-table (launch_unsplit).
 // Tables 16-byte aligned: the bulk copies start there.
 
 int nstt_block_mv_f32(const float* a, const float* x, float* y,
                       long long nblk, int m, int k, void* stream) {
-  return launch_unsplit<kMv, float>(a, a, x, nullptr, y, nullptr, nblk, m, k,
-                                    stream);
+  return launch_unsplit<kMv, float>(a, a, x, nullptr, y, nullptr, nullptr,
+                                    nblk, m, k, stream);
 }
 
 int nstt_block_mv_bf16(const void* a, const float* x, float* y,
                        long long nblk, int m, int k, void* stream) {
   return launch_unsplit<kMv, __nv_bfloat16>(a, a, x, nullptr, y, nullptr,
-                                            nblk, m, k, stream);
+                                            nullptr, nblk, m, k, stream);
 }
 
 int nstt_block_mv2_f32(const float* a_hi, const float* a_lo, const float* x,
                        float* y, long long nblk, int m, int k, void* stream) {
   return launch_unsplit<kMv2, float>(a_hi, a_lo, x, nullptr, y, nullptr,
-                                     nblk, m, k, stream);
+                                     nullptr, nblk, m, k, stream);
+}
+
+int nstt_block_mv_ds_f32(const float* a_hi, const float* a_lo,
+                         const float* x_hi, const float* x_lo, float* y_hh,
+                         float* y_hl, float* y_lh, long long nblk, int m,
+                         int k, void* stream) {
+  return launch_unsplit<kDs, float>(a_hi, a_lo, x_hi, x_lo, y_hh, y_hl, y_lh,
+                                    nblk, m, k, stream);
 }
 
 // Kernel 1 on a segmented table (the section above): tab holds `entries`
@@ -978,22 +887,6 @@ int nstt_block_mv_seg_bf16(const void* tab, long long entries,
                                         nseg, x, y, nblk, width, stream);
 }
 
-int nstt_block_mv_ds_f32(const float* a_hi, const float* a_lo,
-                         const float* x_hi, const float* x_lo, float* y_hh,
-                         float* y_hl, float* y_lh, long long nblk, int m,
-                         int k, void* stream) {
-  if (bad_shape(nblk, m, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nrows = nblk * m;
-  if (nrows == 0) return 0;
-  const int ks = row_stride(k);
-  const Launch L = plan(nrows, m, k, ks, 2, 2);
-  if (L.R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_mv_ds_kernel<<<L.grid, L.threads, L.smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      a_hi, a_lo, x_hi, x_lo, y_hh, y_hl, y_lh, nrows, m, k, ks, L.R);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Split-k entry points: subs (his, los) point at ns sub-table pointers
 // (host memory), each 16-byte aligned; nblk is the real block count (rows
 // of x and y), nsub the blocks of each sub-table (a multiple of tile).
@@ -1002,15 +895,15 @@ int nstt_block_mv_splitk_f32(const void* const* subs, int ns, const float* x,
                              float* y, long long nblk, int m, int k,
                              long long nsub, int tile, void* stream) {
   return launch_split<kMv, float>(subs, subs, ns, x, nullptr, y, nullptr,
-                                  nblk, m, k, nsub, tile, stream);
+                                  nullptr, nblk, m, k, nsub, tile, stream);
 }
 
 int nstt_block_mv_splitk_bf16(const void* const* subs, int ns, const float* x,
                               float* y, long long nblk, int m, int k,
                               long long nsub, int tile, void* stream) {
   return launch_split<kMv, __nv_bfloat16>(subs, subs, ns, x, nullptr, y,
-                                          nullptr, nblk, m, k, nsub, tile,
-                                          stream);
+                                          nullptr, nullptr, nblk, m, k, nsub,
+                                          tile, stream);
 }
 
 int nstt_block_mv2_splitk_f32(const void* const* his, const void* const* los,
@@ -1018,7 +911,7 @@ int nstt_block_mv2_splitk_f32(const void* const* his, const void* const* los,
                               long long nblk, int m, int k, long long nsub,
                               int tile, void* stream) {
   return launch_split<kMv2, float>(his, los, ns, x, nullptr, y, nullptr,
-                                   nblk, m, k, nsub, tile, stream);
+                                   nullptr, nblk, m, k, nsub, tile, stream);
 }
 
 int nstt_block_mv_comp_splitk_f32(const void* const* his,
@@ -1028,7 +921,7 @@ int nstt_block_mv_comp_splitk_f32(const void* const* his,
                                   int m, int k, long long nsub, int tile,
                                   void* stream) {
   return launch_split<kComp, float>(his, los, ns, x_hi, x_lo, y_hi, y_lo,
-                                    nblk, m, k, nsub, tile, stream);
+                                    nullptr, nblk, m, k, nsub, tile, stream);
 }
 
 // Kernel 4: the compensated kernel at one sub-table (launch_unsplit).  Both
@@ -1038,7 +931,7 @@ int nstt_block_mv_comp_f32(const float* a_hi, const float* a_lo,
                            float* y_lo, long long nblk, int m, int k,
                            void* stream) {
   return launch_unsplit<kComp, float>(a_hi, a_lo, x_hi, x_lo, y_hi, y_lo,
-                                      nblk, m, k, stream);
+                                      nullptr, nblk, m, k, stream);
 }
 
 // One thread spinning on the SM clock for `cycles` cycles: work that keeps

@@ -1,8 +1,12 @@
 """Hand-written CUDA block matvecs of the flagship solve, with their plain
 PyTorch versions.  Counterpart of ``navier_stokes_tpu/ops/pallas_mv.py``.
 
-Four kernels live in ``csrc/block_mv.cu``, all of the form
-y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
+``csrc/block_mv.cu`` holds one CUDA kernel template, the split-k kernel,
+with four row bodies (one, two, three or the compensated fmaf chain per
+output row), all of the form y[b, i] = sum_j A[b, i, j] x[b, j] over
+(nblk, m, k) row-major tables; beside it the segment entry (the same
+kernel over ragged blocks) and :func:`device_spin`.  At one sub-table the
+template is the four unsplit kernels:
 
 * :func:`block_mv` replaces ``_mv_kernel`` (pallas_mv.py:118): f32 or
   bf16-STORED tables, f32 arithmetic, any m x k.  Every preconditioner table
@@ -19,7 +23,9 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 * :func:`block_mv_ds` replaces ``_mv_ds_kernel`` (pallas_mv.py:129): the
   three f32 products A_hi x_hi, A_hi x_lo, A_lo x_hi of the plain
   double-single apply from one pass over both tables
-  (``FaceBlockLayout.elem_apply_ds`` / ``rect_apply_ds``).
+  (``FaceBlockLayout.elem_apply_ds`` / ``rect_apply_ds``), each bitwise
+  equal to :func:`block_mv` on its (table, vector) pair.  It has no
+  split-k version, as the JAX package has none.
 * :func:`block_mv_comp` replaces ``_mv_comp_kernel`` (pallas_mv.py:166):
   the compensated double-single product (two_prod / two_sum), whose
   y_hi + y_lo carries ~2^-45 of sum_j |a_ij x_j| — the phase-2 operators
@@ -28,13 +34,12 @@ y[b, i] = sum_j A[b, i, j] x[b, j] over (nblk, m, k) row-major tables:
 
 Three more run the same functions over a table cut into k
 consecutive-tile sub-tables (:func:`pack_splitk`), all k given to ONE
-launch as separate operands.  They are one CUDA kernel with three row
-bodies: each CTA brings its stretch of every (table, sub-table) on chip by
-one bulk asynchronous copy, all started before any wait, and stages x in
-shared memory beside them; every sub-table must start on a 16-byte
-boundary (a fresh allocation does; a view may not, and raises).  So must
-the tables of :func:`block_mv`, :func:`block_mv2` and
-:func:`block_mv_comp`, which are those kernels at one sub-table:
+launch as separate operands.  Each CTA brings its stretch of every (table,
+sub-table) on chip by one bulk asynchronous copy, all started before any
+wait, and stages x in shared memory beside them; every sub-table must
+start on a 16-byte boundary (a fresh allocation does; a view may not, and
+raises).  So must the tables of the four unsplit kernels, which are the
+template at one sub-table:
 
 * :func:`block_mv_splitk` replaces ``_mv_kernel_splitk``
   (pallas_mv.py:305);
@@ -47,9 +52,10 @@ They keep their unsplit kernel's per-row accumulation order, so on the
 same table a split-k result is bitwise equal to the unsplit one.
 
 Each is bound by device memory bandwidth: it reads its table bytes once
-(plus the small x and y), against 2 (about 15 for the compensated kernel)
-flops per table element.  At the maxh=0.09 shapes the phase-1 A32 split
-table is 2 x 7740 x 54 x 54 x 4 B = 181 MB, i.e. 54 us at 3.35 TB/s.
+(plus the small x and y), against 2 (3 for :func:`block_mv_ds`, about 15
+for the compensated kernel) flops per table element.  At the maxh=0.09
+shapes the phase-1 A32 split table is 2 x 7740 x 54 x 54 x 4 B = 181 MB,
+i.e. 54 us at 3.35 TB/s.
 
 Wrappers check device, dtype, shape and contiguity.  A wrapper takes its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
@@ -519,7 +525,13 @@ def block_mv_ds(A_hi, A_lo, x_hi, x_lo):
 
     Replaces ``_mv_ds_kernel`` (navier_stokes_tpu/ops/pallas_mv.py:129,
     ``tiled_bmv_ds``).  Bound by the two table streams: 2*nblk*m*k*4
-    bytes / 3.35 TB/s.  Summed in f64 the three approximate
+    bytes / 3.35 TB/s.  The kernel is the split-k kernel at one sub-table
+    with a row body of three fmaf chains, each :func:`block_mv`'s on its
+    (table, vector) pair, so each output is bitwise equal to
+    :func:`block_mv` on that pair; its two table stretches come by bulk
+    asynchronous copies, so on the card both tables must start on a
+    16-byte boundary (a fresh allocation does; a view may not, and
+    raises).  Summed in f64 the three approximate
     (A_hi + A_lo)(x_hi + x_lo) with plain f32 accumulation error: row
     cancellation floors the apply near 1e-6, which is why the solve's
     phase 2 runs on :func:`block_mv_comp` instead."""
@@ -527,6 +539,7 @@ def block_mv_ds(A_hi, A_lo, x_hi, x_lo):
     _check_table(A_lo, "block_mv_ds A_lo")
     if A_lo.shape != A_hi.shape or A_lo.device != A_hi.device:
         raise ValueError("block_mv_ds: A_hi and A_lo differ")
+    _check_aligned("block_mv_ds", A_hi, A_lo)
     _check_vec(x_hi, A_hi, "block_mv_ds x_hi")
     _check_vec(x_lo, A_hi, "block_mv_ds x_lo")
     if _device_kind(A_hi) == "cpu":

@@ -835,6 +835,39 @@ def test_block_mv_and_block_mv2_edges_on_card():
     torch.cuda.synchronize()
 
 
+# the three tables kernel 3 streams in the [ds] phase at maxh=0.09: A_ds,
+# B_ds and BT_ds (nblk, m, k)
+DS_BENCH = [(7740, 54, 54), (7740, 4, 54), (7740, 54, 4)]
+
+
+@pytest.mark.cuda
+def test_block_mv_ds_equals_block_mv_on_card():
+    """On the card: each of kernel 3's three outputs BITWISE equal to
+    block_mv on its (table, vector) pair -- A_hi x_hi, A_hi x_lo, A_lo x_hi
+    -- at the edges of the CTA stretches (``EDGE_UNSPLIT``) and on the
+    shapes of the [ds] phase's tables, and within 2e-6 of sum_j |a_ij x_j|
+    of its plain version."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for nblk, m, kk in EDGE_UNSPLIT + DS_BENCH:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        x64 = torch.randn((nblk, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        got = bm.block_mv_ds(hi, lo, xh, xl)
+        ref = bm.block_mv_ds_plain(hi, lo, xh, xl)
+        scale = torch.einsum("bmk,bk->bm", A64.abs(),
+                             x64.abs()).clamp_min(1e-300)
+        for y, (A, x), r in zip(got, ((hi, xh), (hi, xl), (lo, xh)), ref):
+            assert torch.equal(y, bm.block_mv(A, x)), (nblk, m, kk)
+            d = (y - r).abs().double()
+            assert float((d / scale).max()) <= 2e-6, (nblk, m, kk)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_mv_segments_equals_block_mv_on_padded_on_card(dtype):
@@ -865,9 +898,9 @@ def test_block_mv_segments_equals_block_mv_on_padded_on_card(dtype):
 
 @pytest.mark.cuda
 def test_unsplit_kernels_refuse_misaligned_table_on_card():
-    """On the card: block_mv, block_mv2 and block_mv_segments refuse a
-    table that does not start on a 16-byte boundary (their bulk copies
-    start there), and so do their C entries."""
+    """On the card: block_mv, block_mv2, block_mv_ds and block_mv_segments
+    refuse a table that does not start on a 16-byte boundary (their bulk
+    copies start there), and so do their C entries."""
     _card_or_skip()
     nblk, m, kk = 64, 6, 8
     flat = torch.zeros(2 + nblk * m * kk, device="cuda")
@@ -878,6 +911,10 @@ def test_unsplit_kernels_refuse_misaligned_table_on_card():
         bm.block_mv(view, x)
     with pytest.raises(ValueError, match="16-byte"):
         bm.block_mv2(good, view, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_ds(good, view, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_ds(view, good, x, x)
     T = bm.pack_segments([torch.zeros((2, 3, 3))], 3, 3, device="cuda")
     Tv = bm.SegmentTable(flat[1:1 + T.data.numel()], T.desc, 3, 3)
     with pytest.raises(ValueError, match="16-byte"):
@@ -887,6 +924,12 @@ def test_unsplit_kernels_refuse_misaligned_table_on_card():
     lib = bm.load_library()
     assert lib.nstt_block_mv_f32(view.data_ptr(), x.data_ptr(), y.data_ptr(),
                                  nblk, m, kk, stream) != 0
+    y2, y3 = torch.empty_like(y), torch.empty_like(y)
+    for a_hi, a_lo in ((view, good), (good, view)):
+        assert lib.nstt_block_mv_ds_f32(
+            a_hi.data_ptr(), a_lo.data_ptr(), x.data_ptr(), x.data_ptr(),
+            y.data_ptr(), y2.data_ptr(), y3.data_ptr(), nblk, m, kk,
+            stream) != 0
     xs, ys = torch.zeros((3, 3), device="cuda"), torch.empty((3, 3),
                                                              device="cuda")
     assert lib.nstt_block_mv_seg_f32(

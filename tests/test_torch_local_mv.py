@@ -8,8 +8,9 @@ products with the JAX package's Pallas kernels.
   in another order), float64 to 1e-13 of it.
 * ``block_mv_ds`` (kernel 3; on the CPU its plain version) against
   ``tiled_bmv_ds(interpret=True)`` on the data of
-  tests/test_pallas_mv.py:93-122, square and rectangular: rtol 2e-6,
-  atol 1e-5 as there, and the f64 sum of the three against the f64 product.
+  tests/test_pallas_mv.py:93-122, square, rectangular, odd k and the
+  shapes of B (m = 4) and BT (k = 4): rtol 2e-6, atol 1e-5 as there, and
+  the f64 sum of the three against the f64 product.
 
 The comparison of each CUDA kernel with its plain version on the card
 carries the ``cuda`` marker and skips without a GPU.
@@ -136,12 +137,13 @@ def _pad_soa(x):
     return jnp.asarray(out)
 
 
-@pytest.mark.parametrize("m", [NB, 6])
-def test_block_mv_ds_matches_tiled_bmv_ds(m):
-    A64 = np.random.default_rng(5).standard_normal((NE, m, NB))
+@pytest.mark.parametrize("m,k", [(NB, NB), (6, NB), (NB, 9), (4, NB),
+                                 (NB, 4)])
+def test_block_mv_ds_matches_tiled_bmv_ds(m, k):
+    A64 = np.random.default_rng(5).standard_normal((NE, m, k))
     A_hi = A64.astype(np.float32)
     A_lo = (A64 - A_hi.astype(np.float64)).astype(np.float32)
-    x64 = np.random.default_rng(6).standard_normal((NB, NE))
+    x64 = np.random.default_rng(6).standard_normal((k, NE))
     x_hi = x64.astype(np.float32)
     x_lo = (x64 - x_hi.astype(np.float64)).astype(np.float32)
     want = tiled_bmv_ds(

@@ -25,6 +25,15 @@ the card, with an earlier design beside them in the same call.
   must be BITWISE equal to the plain version, as must the other tree's
   kernel 4, when one is given; the f64 ``torch.bmm`` of hi + lo (the
   yardstick of ``chip_smoke.py``) is timed beside it.
+* Kernel 3 (``block_mv_ds``, the split-k kernel at one sub-table with
+  three fmaf chains per row), its rows per CTA ``kCompRows`` in {32, 64,
+  128} (the libraries of kernel 4's sweep), on random hi/lo pairs and
+  x_hi/x_lo of the same three shapes.  Each of its three outputs must be
+  BITWISE equal to the package's ``block_mv`` on its (table, vector) pair,
+  A_hi x_hi, A_hi x_lo and A_lo x_hi, and, with ``--parent``, to the
+  other tree's ``block_mv_ds``, which is timed beside it with the f32
+  ``torch.bmm`` of the stacked pair with [x_hi, x_lo] (the yardstick of
+  ``chip_smoke.py``).
 * Kernel 7 (``block_mv_comp_splitk``), rows per sub-table
   ``kCompSplitRows`` in {16, 32, 64}, at k = 2 and 4, on the same shapes
   (tiles 256, 128, 128).  Each variant must be BITWISE equal to the
@@ -71,8 +80,8 @@ the card, with an earlier design beside them in the same call.
 
 Each variant is the package's ``csrc/`` copied under ``build/sweep/`` with
 that one constant rewritten (kernel 13: its three; kernels 9 and 12:
-copied as it is; kernels 1 and 2 share ``kMvRows``, as do 5 and 6
-``kSplitCtaRows``), compiled with the
+copied as it is; kernels 1 and 2 share ``kMvRows``, 3 and 4 ``kCompRows``
+(one build each), 5 and 6 ``kSplitCtaRows``), compiled with the
 package's nvcc flags (all nvcc processes at once), and called through the
 package's own wrappers, whose library is swapped for the variant's.  With
 ``--parent DIR`` the ``csrc/`` of another tree (an earlier commit unpacked
@@ -89,7 +98,7 @@ file.
 Run from the repository root, on the card::
 
     python3 tools/sweep_redesign.py [--parent build/parent] [--out FILE]
-        [--only rows,soa]
+        [--only ds,comp1]
 """
 
 from __future__ import annotations
@@ -149,7 +158,8 @@ MV2_TABLES = (("A32", NB, NB), ("B32", NQ, NB), ("BT32", NB, NQ))
 LOCAL_ROWS = (32, 64, 128)  # kRows
 # kernel 13's tile constants: elements, rows i and stages per CTA
 SOA_E, SOA_RI, SOA_STAGES = (32, 64, 128), (1, 2, 4), (2, 3, 4)
-SECTIONS = ("mv1", "comp1", "comp", "split", "local", "ring", "rows", "soa")
+SECTIONS = ("mv1", "comp1", "ds", "comp", "split", "local", "ring", "rows",
+            "soa")
 TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 
 
@@ -188,7 +198,8 @@ def soa_fits(e: int, ri: int, stages: int, nb: int = NB) -> bool:
 
 
 def compile_all(jobs: dict) -> dict:
-    """{key: library path} for {key: source path}, all nvcc at once."""
+    """{key: library path} for {key: source path}, all nvcc at once, one
+    per distinct source."""
     def one(src):
         out = src.parent / f"lib{src.stem}.so"
         proc = subprocess.run([bm._nvcc(), *bm._NVCC_FLAGS, "-o", str(out),
@@ -197,9 +208,10 @@ def compile_all(jobs: dict) -> dict:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
         return out
 
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        futs = {key: pool.submit(one, src) for key, src in jobs.items()}
-        return {key: fut.result() for key, fut in futs.items()}
+    srcs = set(jobs.values())
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        futs = {src: pool.submit(one, src) for src in srcs}
+        return {key: futs[src].result() for key, src in jobs.items()}
 
 
 def warm_up(seconds=1.0):
@@ -257,6 +269,31 @@ def sweep_comp1(timer, libs, rng, times):
     bm._lib = None
 
 
+def sweep_ds(timer, libs, rng, times):
+    """Kernel 3 (``kCompRows``) on random hi/lo pairs of the shapes of A_ds,
+    B_ds and BT_ds, every variant BITWISE against the package's
+    ``block_mv`` on each (table, vector) pair, and the parent's
+    ``block_mv_ds`` (with ``--parent``) bitwise against the same."""
+    main = bm.load_library()
+    for tname, m, kk, _ in COMP_TABLES:
+        _, _, (hi, lo), (xh, xl) = comp_pair(rng, m, kk)
+        bm._lib = main
+        ref = (bm.block_mv(hi, xh), bm.block_mv(hi, xl), bm.block_mv(lo, xh))
+        Acat = torch.cat([hi, lo], dim=1)
+        xcat = torch.stack([xh, xl], dim=2)
+        tb = timer(lambda: torch.bmm(Acat, xcat))
+        bound = 4 * (2 * hi.numel() + 2 * xh.numel() + 3 * NBLK * m) \
+            / 3.35e12 * 1e3
+        times["ds"].append({"table": tname, "kernel": "f32 bmm", "ms": [tb]})
+        print(f"[ds] {tname} {tuple(hi.shape)} hi/lo: f32 bmm of the stacked "
+              f"pair {tb:.4f} ms, bound {bound:.4f}", flush=True)
+        timed_variants(timer, libs, lambda: bm.block_mv_ds(hi, lo, xh, xl),
+                       ref, tname, times, "ds", {"table": tname}, bound, tb,
+                       "block_mv on each pair")
+        del Acat, xcat
+    bm._lib = main
+
+
 def sweep_comp(timer, libs, rng, times):
     """Kernel 7: every variant on every table at every k, bitwise against
     kernel 4 of the package's own build; the parent (if any) first and
@@ -303,19 +340,27 @@ def sweep_comp(timer, libs, rng, times):
     bm._lib = main
 
 
+def same(got, ref) -> bool:
+    """Bitwise equality of two outputs, tensors or tuples of tensors."""
+    if isinstance(ref, tuple):
+        return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+    return torch.equal(got, ref)
+
+
 def timed_variants(timer, libs, call, ref, label, times, section, row,
                    bound, base, what="unsplit"):
     """Every ``block_mv.cu`` library of ``libs`` (the parent first and
     last, if any) on one call, each BITWISE equal to ``ref`` (the output of
-    ``what``); appends one row per library to ``times[section]`` and prints
-    its line (``base``: the yardstick's ms)."""
+    ``what``: a tensor or a tuple of them); appends one row per library to
+    ``times[section]`` and prints its line (``base``: the yardstick's
+    ms)."""
     names = list(libs)
     ms = {}
     for key in names + names[::-1]:
         bm._lib = libs[key]
         got = call()
         torch.cuda.synchronize()
-        if not torch.equal(got, ref):
+        if not same(got, ref):
             raise RuntimeError(f"{label} {key}: not bitwise equal to {what}")
         ms.setdefault(key, []).append(timer(call))
     for key in names:
@@ -714,6 +759,7 @@ def main(argv=None):
         print("sweep_redesign: no CUDA device available", file=sys.stderr)
         return 2
     consts = {"comp1": ("block_mv", "kCompRows", COMP1_ROWS),
+              "ds": ("block_mv", "kCompRows", COMP1_ROWS),
               "comp": ("block_mv", "kCompSplitRows", COMP_ROWS),
               "split": ("block_mv", "kSplitCtaRows", SPLIT_ROWS),
               "mv1": ("block_mv", "kMvRows", MV1_ROWS),
@@ -729,9 +775,9 @@ def main(argv=None):
             "stream_mv", {"kSoaE": e, "kSoaRi": ri, "kSoaStages": st})
             for e in SOA_E for ri in SOA_RI for st in SOA_STAGES
             if soa_fits(e, ri, st)})
-    sources = {"comp1": "block_mv", "comp": "block_mv", "split": "block_mv",
-               "mv1": "block_mv", "local": "local_mv", "ring": "stream_mv",
-               "rows": "stream_mv", "soa": "stream_mv"}
+    sources = {"comp1": "block_mv", "ds": "block_mv", "comp": "block_mv",
+               "split": "block_mv", "mv1": "block_mv", "local": "local_mv",
+               "ring": "stream_mv", "rows": "stream_mv", "soa": "stream_mv"}
     sources = {kind: name for kind, name in sources.items() if kind in only}
     if args.parent:
         csrc = Path(args.parent).resolve() / "navier_stokes_tpu_torch" / "csrc"
@@ -744,7 +790,8 @@ def main(argv=None):
         own = pool.submit(bm.build_all)
         paths = compile_all(jobs)
         own.result()
-    print(f"[build] {len(jobs)} libraries and the package's own", flush=True)
+    print(f"[build] {len(set(jobs.values()))} libraries and the package's "
+          "own", flush=True)
     binders = {"block_mv": bm._bind, "local_mv": lm._bind,
                "stream_mv": sm._bind}
     libs = {kind: {} for kind in sources}
@@ -757,10 +804,11 @@ def main(argv=None):
     timer = KernelTimer()
     warm_up()
     rng = np.random.default_rng(0)
-    times = {kind: [] for kind in ("mv1", "mv1_seg", "mv2_1", "comp1",
+    times = {kind: [] for kind in ("mv1", "mv1_seg", "mv2_1", "comp1", "ds",
                                    "comp", "mv2", "mv_bench", "mv_gs",
                                    "local", "ring", "rows", "soa")}
     runs = {"mv1": (sweep_mv1, sweep_mv2_unsplit), "comp1": (sweep_comp1,),
+            "ds": (sweep_ds,),
             "comp": (sweep_comp,), "split": (sweep_mv2, sweep_mv),
             "local": (sweep_local,), "ring": (sweep_ring,),
             "rows": (sweep_rows,), "soa": (sweep_soa,)}
