@@ -9,12 +9,15 @@ phases; any failed phase ends the run with a non-zero exit:
 1. build: compile ``navier_stokes_tpu_torch/csrc/block_mv.cu``,
    ``local_mv.cu`` and ``stream_mv.cu`` with nvcc (sm_90a), all at once,
    and print the build seconds and the card;
-2. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
+2. cuda-tests: ``python -m pytest --noconftest -m cuda
+   tests/test_torch_cuda.py`` from the repository root -- the card-only
+   tests, which import no JAX -- must pass all 24 cases, none skipped;
+3. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
    coarse damping target 1.6 -- and slice 1's straight additive
    configuration, seconds per phase and the GS color count;
-3. kernel checks: every kernel wrapper on the main path's own device tables
+4. kernel checks: every kernel wrapper on the main path's own device tables
    (and on an engineered cancellation case) against its plain PyTorch
    version on the same inputs, within the stated bounds, with its median
    time, its byte bound, the plain version's time and one PyTorch library
@@ -27,27 +30,42 @@ phases; any failed phase ends the run with a non-zero exit:
    counts the bytes the function needs: the split-k kernels' on the
    unsplit tables (their zero pad is not loaded), the GS solve tables' on
    their real inverse blocks;
-4. main path: launch counters set to 0, ``FlagshipSolve.full_solve`` of the
+5. main path: launch counters set to 0, ``FlagshipSolve.full_solve`` of the
    curved GS configuration cold, counters read; every unsplit kernel must
    have launched; then a warm solve; the true-f64 residual of each must be
    <= 1.01e-8 in at most 460 inner iterations;
-5. slice 1's path: the straight additive solve cold and warm, and phase 2
+6. slice 1's path: the straight additive solve cold and warm, and phase 2
    alone polishing the warm solution to 1e-10;
-6. split-k path: ``FlagshipSolve(m, split_k=2)`` on the curved model, one
+7. split-k path: ``FlagshipSolve(m, split_k=2)`` on the curved model, one
    warm solve with the counters set to 0 just before it; each split-k
    kernel must launch, the residual must meet 1.01e-8 and the inner count
    must equal the split_k=1 solve's;
-7. per-apply milliseconds (bench.py's probe_ops, CUDA events) of both
+8. per-apply milliseconds (bench.py's probe_ops, CUDA events) of both
    configurations, with the GS parts: S_faces, one color step, coarse_gs;
-8. profile: the device busy share of 100 phase-1 MINRES iterations
+9. profile: the device busy share of 100 phase-1 MINRES iterations
    (torch.profiler kernel time over unprofiled wall time) of each
    configuration and the kernels that take most of it;
-9. ds: the residual of the converged solution through the plain 3 x f32
+10. ds: the residual of the converged solution through the plain 3 x f32
    double-single applies (``elem_apply_ds`` / ``rect_apply_ds``, one
    ``block_mv_ds`` launch each: kernel 3, the split-k kernel at one
    sub-table with three fmaf chains per row) beside the compensated one,
    both against the true f64 residual;
-10. transient: the float32 twin of the curved model (same host tables),
+11. bpcg: the 3D model's own initial solve on the curved f64 model,
+    ``SolveInitial(iterative=True, GS=True, tol=1e-8, maxsteps=20000)``
+    with the default auxspace preconditioner (the skeleton preconditioner
+    in f64 with the JAX model's settings, its tables applied by plain
+    batched products: no kernel lies on this path): iterations (band
+    165-190), setup and solve seconds, ``stokes_bpcg_time``, the true f64
+    relative residual of the saddle system (bound 5e-8) and the relative
+    velocity difference from the flagship solution (bound 2e-7), two f32
+    controls that must break those bounds, and the device busy share of
+    50 iterations; then the two faceblock variants, additive and
+    multicolor GS, on the shortened channel of
+    tests/test_navier_stokes_mcs3d.py at maxh=0.35: kernel 8 on their f64
+    block inverses against its plain version, and a solve with their own
+    Bramble-Pasciak k and one with the JAX package's, held to its count;
+    the model's state is put back;
+12. transient: the float32 twin of the curved model (same host tables),
     ``make_step_fn(project_tol=1e-5)`` from ``u = u_bc`` as bench.py's
     ``measure_transient``: one cold step with the launch counters set to 0
     just before it, then n warm steps (n calibrated to about 10 s, 3..200):
@@ -56,20 +74,25 @@ phases; any failed phase ends the run with a non-zero exit:
     repeatable, per-piece milliseconds and the device busy share; then 3
     float64 steps (project_tol=1e-9) from the flagship solution, the
     counters read after the first;
-11. microbench: the two ported microbenchmark scripts
+13. bench: the port's bench line (``navier_stokes_tpu_torch.bench.measure``
+    on the models already built and the main path's cold and warm flagship
+    solves, checked within 460 inner iterations, then calibrated warm f32
+    steps), its keys checked;
+    printed on a line before the kernels' line;
+14. microbench: the two ported microbenchmark scripts
     (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
     7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
     launch counters set to 0 just before; each of the five table-stream
     wrappers must have launched, and the split-k variants must be bitwise
     equal to ``block_mv``;
-12. amg: at maxh=0.04 (5,859 free velocity-P1 vertices, above the dense
+15. amg: at maxh=0.04 (5,859 free velocity-P1 vertices, above the dense
     limit of 5,000, so both coarse solves are SA-AMG V-cycles):
     AMG-preconditioned CG on the P1 stiffness to 1e-8 in under 40
     iterations with the V-cycle symmetric to 1e-10, the curved GS flagship
     solve cold and warm to a true f64 residual <= 1.01e-8, and one cold and
     three warm float32 transient steps.
 
-The kernel checks of phase 3 also cover ``batched_local_matvec`` (float32
+The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
 condensed-operator and pressure-block tables of the transient step),
 ``block_mv_ds`` (on the split A, B, BT tables, each output also BITWISE
@@ -83,8 +106,8 @@ shapes of the card tests), and those of kernels 9 and 13
 4, 260, 7936 and nb 1, 7, 64).  A ``[stream]`` line prints what ``A.sum()``
 on the bench table reaches of the byte bound, for reference only.
 
-It prints the kernels' JSON line and the card's name and power limit on
-lines before the last, and as its last line
+It prints the bench line, the kernels' JSON line and the card's name and
+power limit on lines before the last, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -99,6 +122,8 @@ import subprocess
 import sys
 import time
 import traceback
+
+T_START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -138,6 +163,41 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
               "block_mv_soa": "tensor-map boxes through a producer/consumer "
                               "ring, u once per element tile"}
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
+# [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
+CUDA_TESTS = "tests/test_torch_cuda.py"
+CUDA_TEST_CASES = 24  # 15 tests, 24 cases with their parameters
+# [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
+# curved model at maxh=0.09, and the two faceblock variants on the shortened
+# channel of tests/test_navier_stokes_mcs3d.py:_channel3d
+BPCG_TOL, BPCG_MAXSTEPS = 1e-8, 20000
+# the curved GS count at maxh=0.09: 177 in every run on an NVIDIA H100
+# 80GB HBM3 (700 W).  It falls as the mesh is refined, with the
+# Bramble-Pasciak k (the preconditioned spectrum): 255 / 205 / 201 / 177
+# at maxh 0.2 / 0.15 / 0.12 / 0.09 on the H100, 272 at 0.6 on the CPU
+# (tools/bpcg_study.py).  The band allows a few percent of roundoff drift
+# (reduction order) and fails a preconditioner that loses or gains
+# strength
+BPCG_COUNTS = (165, 190)
+# the bounds sit between the sound reading on the H100 (true residual
+# 6.918e-9, velocity 5.038e-8 off the flagship solution) and those of two
+# f32 controls, the same iteration with outputs rounded to float32
+# (tools/bpcg_study.py; the phase runs both): with preA's and preM's
+# rounded the residual reads 3.452e-7 (the velocity 8.255e-8, which no
+# bound can tell from 5.0e-8), with A's, B's and B^T's rounded the
+# iteration diverges (residual 1.1e-1, velocity 1.9e-2).  The residual
+# bound is the geometric middle of 6.9e-9 and 3.5e-7; the velocity bound
+# four times the sound reading.  The phase fails unless each control
+# breaks the bounds it can break.
+BPCG_RES_BOUND = 5e-8  # true f64 relative residual of the saddle system
+BPCG_DIFF_BOUND = 2e-7  # relative velocity difference from FlagshipSolve
+BPCG_SMALL_MAXH = 0.35
+# the JAX package's count and Bramble-Pasciak scaling k for each faceblock
+# variant there, GS -> (iterations, k), on the CPU in f64
+# (tools/jax_bpcg_reference.py); the port solves with that k and is held to
+# the count within BPCG_SMALL_BAND (the GPU's reduction order differs)
+BPCG_SMALL_JAX = {False: (931, 213.54712387600733),
+                  True: (806, 664.0271504968791)}
+BPCG_SMALL_BAND = 0.02
 # the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
 # the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
 # * k not a multiple of 4 floats or 8 bf16 entries (ragged tails of up to 7
@@ -182,15 +242,6 @@ class Fail(Exception):
 def check(cond, msg):
     if not cond:
         raise Fail(msg)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
-        f"nvidia-smi failed: {out.stderr.strip()}"
 
 
 # -- kernel checks --------------------------------------------------------------
@@ -868,6 +919,209 @@ def ds_phase(torch, bm, solver, res):
     return launches
 
 
+def cuda_tests_phase(here):
+    """[cuda-tests]: ``python -m pytest --noconftest -m cuda`` on the
+    JAX-free card-test file, from the repository root; every case must
+    pass (none skipped)."""
+    import re
+
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           CUDA_TESTS, "-q", "-p", "no:cacheprovider"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                         timeout=900)
+    secs = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    log(f"[cuda-tests] python -m pytest --noconftest -m cuda {CUDA_TESTS}: "
+        f"rc {out.returncode}, {tail} ({secs:.1f} s)")
+    passed = re.search(r"(\d+) passed", tail)
+    ok = (out.returncode == 0 and passed is not None
+          and int(passed.group(1)) == CUDA_TEST_CASES
+          and not re.search(r"failed|error|skipped|xfail|xpass", tail))
+    if not ok:
+        for line in (lines + out.stderr.strip().splitlines())[-60:]:
+            log(f"  [cuda-tests] {line}")
+    check(ok, f"[cuda-tests] expected {CUDA_TEST_CASES} passed, got: {tail}")
+    return secs
+
+
+def rounded_f32(torch, op):
+    """``op`` with its output rounded to float32 and widened back."""
+    return lambda x: op(x).to(torch.float32).to(torch.float64)
+
+
+def bpcg_phase(torch, bm, lm, timer, gen, m, solver, warm):
+    """[bpcg]: the model's own initial solve, ``SolveInitial(iterative=True,
+    GS=True, tol=1e-8)`` with the default auxspace preconditioner (the
+    skeleton preconditioner in f64, JAX model settings), on the curved f64
+    model ``m`` of the main path; its iterations (held to ``BPCG_COUNTS``),
+    seconds, the true f64 relative residual of the saddle system through
+    the plain operators, and the relative velocity difference from the
+    flagship solution ``warm``, each held to its bound.  Two f32 controls,
+    the same iteration with the outputs of preA and preM, or of A, B and
+    B^T, rounded to float32: the first must break the residual bound, the
+    second both.  Then the two faceblock variants (additive, multicolor GS)
+    on the shortened channel at maxh=0.35: kernel 8 on each of their f64
+    block-inverse tables against its plain version, a solve with the
+    port's own scaling k and one with the JAX package's, whose count is
+    held to JAX's.  ``m.u`` and ``m.p`` are put back."""
+    from navier_stokes_tpu_torch.flagship import uin
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh_3d,
+    )
+    from navier_stokes_tpu_torch.models import NavierStokesMCS
+    from navier_stokes_tpu_torch.solvers.bpcg import bramble_pasciak_cg_opt
+
+    def norm(v):
+        return float(torch.linalg.norm(v))
+
+    t_phase = time.perf_counter()
+    u0, p0 = m.u, m.p
+    t0 = time.perf_counter()
+    pre = m._preA_for(True)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    parts = pre.parts
+    log(f"[bpcg] curved GS auxspace f64 preconditioner: setup {t_setup:.1f} "
+        f"s ({len(parts['groups'])} colors, coarse lambda "
+        f"{parts['coarse_lambda']:.4f}, theta {parts['coarse_theta']:.4f})")
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = m.SolveInitial(iterative=True, GS=True, tol=BPCG_TOL,
+                         maxsteps=BPCG_MAXSTEPS)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    du, p = res.x
+    true_rel = solver.true_rel(*solver.residual64(du, p))
+    u_flag = m.u_bc + warm.x[0]
+    d_u = norm(m.u - u_flag) / norm(u_flag)
+    d_p = norm(p - warm.x[1]) / norm(warm.x[1])
+    log(f"[bpcg] curved GS (maxh={MAXH}): {res.iterations} iterations to "
+        f"{BPCG_TOL} (converged {res.converged}; band {BPCG_COUNTS}), solve "
+        f"{t_solve:.3f} s, stokes_bpcg_time {m.stokes_bpcg_time:.3f} s, "
+        f"scale_k {m.stokes_bpcg_scale_k:.6g}, "
+        f"{res.iterations / t_solve:.1f} its/s; true f64 rel residual "
+        f"{true_rel:.3e} (bound {BPCG_RES_BOUND:g}); velocity vs "
+        f"FlagshipSolve rel {d_u:.3e} (bound {BPCG_DIFF_BOUND:g}), pressure "
+        f"rel {d_p:.3e}; launches {launches}")
+    finite = bool(torch.isfinite(m.u).all() and torch.isfinite(p).all())
+    m.u, m.p = u0, p0
+
+    controls = {}
+    ops = (m.A, m.B, m.BT, pre, m.preM)
+    for name, rounded in (("preA and preM", (3, 4)),
+                          ("A, B and B^T", (0, 1, 2))):
+        t0 = time.perf_counter()
+        ctl = bramble_pasciak_cg_opt(
+            *(rounded_f32(torch, op) if i in rounded else op
+              for i, op in enumerate(ops)), solver.f_mod, solver.g_mod,
+            tol=BPCG_TOL, maxsteps=2 * res.iterations + 50,
+            scale_k=m.stokes_bpcg_scale_k)
+        torch.cuda.synchronize()
+        cu, cp = ctl.x
+        controls[name] = (solver.true_rel(*solver.residual64(cu, cp)),
+                          norm(m.u_bc + cu - u_flag) / norm(u_flag))
+        log(f"[bpcg] f32 control ({name} outputs rounded to float32): "
+            f"{ctl.iterations} iterations (converged {ctl.converged}), "
+            f"{time.perf_counter() - t0:.3f} s; true f64 rel residual "
+            f"{controls[name][0]:.3e}, velocity vs FlagshipSolve rel "
+            f"{controls[name][1]:.3e}")
+
+    def run():
+        bramble_pasciak_cg_opt(m.A, m.B, m.BT, pre, m.preM, solver.f_mod,
+                               solver.g_mod, tol=1e-30, maxsteps=50,
+                               scale_k=m.stokes_bpcg_scale_k)
+        torch.cuda.synchronize()
+
+    profile_device(torch, run, "bpcg curved GS", "50 BPCG iterations")
+    check(res.converged, f"[bpcg] did not converge in {BPCG_MAXSTEPS}")
+    check(finite, "[bpcg] the solution is not finite")
+    check(BPCG_COUNTS[0] <= res.iterations <= BPCG_COUNTS[1],
+          f"[bpcg] {res.iterations} iterations, outside {BPCG_COUNTS}")
+    check(true_rel <= BPCG_RES_BOUND,
+          f"[bpcg] true residual {true_rel:.3e} > {BPCG_RES_BOUND:g}")
+    check(d_u <= BPCG_DIFF_BOUND,
+          f"[bpcg] velocity differs from FlagshipSolve's by {d_u:.3e}")
+    # "not <=": a control that overflows to NaN breaks the bound too
+    ctl_res, _ = controls["preA and preM"]
+    check(not ctl_res <= BPCG_RES_BOUND,
+          f"[bpcg] the f32-preconditioner control passes the residual bound "
+          f"({ctl_res:.3e}): it cannot tell f32 preconditioners from f64")
+    ctl_res, ctl_u = controls["A, B and B^T"]
+    check(not ctl_res <= BPCG_RES_BOUND and not ctl_u <= BPCG_DIFF_BOUND,
+          f"[bpcg] the f32-operator control passes a bound (residual "
+          f"{ctl_res:.3e}, velocity {ctl_u:.3e})")
+
+    t0 = time.perf_counter()
+    mesh = channel_with_cylinder_mesh_3d(BPCG_SMALL_MAXH, length=1.2,
+                                         circle_resolution=8)
+    ms = NavierStokesMCS(mesh, nu=NU, inflow="inlet", outflow="outlet",
+                         wall="wall|cyl", uin=uin, timestep=2e-3,
+                         order=ORDER, preconditioner="faceblock",
+                         device="cuda")
+    log(f"[bpcg] shortened channel maxh={BPCG_SMALL_MAXH}: {mesh.ne} tets, "
+        f"ndof={ms.n}+{ms.Q.ndof}, model {time.perf_counter() - t0:.1f} s")
+    for gs in (False, True):
+        name = "GS" if gs else "additive"
+        t0 = time.perf_counter()
+        pre_s = ms._preA_for(gs)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        tables = ([g[2] for g in pre_s.gs.groups] if gs else [pre_s.table])
+        for i, A in enumerate(tables):
+            check_local_mv(torch, lm, timer, None,
+                           f"faceblock {name} inverses {i}", A, gen)
+        jax_n, jax_k = BPCG_SMALL_JAX[gs]
+        counts = {}
+        for which, k in (("own k", None), ("JAX k", jax_k)):
+            bm.reset_launches()
+            t0 = time.perf_counter()
+            r = ms.SolveInitial(GS=gs, tol=BPCG_TOL, maxsteps=BPCG_MAXSTEPS,
+                                scale_k=k)
+            torch.cuda.synchronize()
+            t_s = time.perf_counter() - t0
+            counts[which] = r.iterations
+            log(f"[bpcg] faceblock {name} (maxh={BPCG_SMALL_MAXH}), {which} "
+                f"{ms.stokes_bpcg_scale_k:.6g}: {r.iterations} iterations "
+                f"(JAX package on the CPU: {jax_n} with k {jax_k:.6g}), "
+                f"setup {t_pre:.1f} s, solve {t_s:.3f} s, launches "
+                f"{dict(bm.LAUNCHES)}")
+            check(r.converged and bool(torch.isfinite(ms.u).all()),
+                  f"[bpcg] faceblock {name} did not converge ({which})")
+            check(bm.LAUNCHES["batched_local_matvec_f64"] > 0,
+                  f"[bpcg] faceblock {name}: kernel 8 never launched")
+        off = abs(counts["JAX k"] - jax_n) / jax_n
+        check(off <= BPCG_SMALL_BAND,
+              f"[bpcg] faceblock {name} with the JAX k: {counts['JAX k']} "
+              f"iterations, JAX {jax_n} (off {off:.1%})")
+    secs = time.perf_counter() - t_phase
+    log(f"[bpcg] phase {secs:.1f} s")
+    return secs
+
+
+def bench_phase(bench, m, m32, cold, warm, card):
+    """[bench]: the port's bench line (``navier_stokes_tpu_torch.bench.
+    measure``) on the models already built and the main path's cold and
+    warm solves; returns the line."""
+    t0 = time.perf_counter()
+    line, info = bench.measure(m, m32, cold=cold, warm=warm, card=card)
+    secs = time.perf_counter() - t0
+    log(f"[bench] cold {info['cold'].inner} / warm {info['warm'].inner} "
+        f"inner iterations (budget {bench.MAX_INNER}), warm "
+        f"{info['warm'].seconds:.3f} s; {info['n_steps']} warm steps in "
+        f"{info['step_seconds']:.3f} s; phase {secs:.1f} s")
+    check(tuple(line) == bench.KEYS, f"[bench] keys {tuple(line)}")
+    check(info["warm"].inner <= MAX_INNER,
+          f"[bench] {info['warm'].inner} inner iterations > {MAX_INNER}")
+    check(all(isinstance(line[k], float) and line[k] > 0
+              for k in bench.KEYS if k not in ("metric", "unit")),
+          f"[bench] a number is not positive: {line}")
+    return line, secs
+
+
 def host_ms(torch, fn, reps=3):
     """Median host-clock milliseconds of ``fn()`` ending in a synchronize
     (pieces with their own host reads, as the CG solves)."""
@@ -1365,6 +1619,7 @@ def run():
               "chip_smoke.py", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    from navier_stokes_tpu_torch import bench
     from navier_stokes_tpu_torch.flagship import (
         FlagshipSolve,
         build_model,
@@ -1393,10 +1648,13 @@ def run():
     log("[build] " + ", ".join(f"{path.name}: nvcc {secs:.1f} s"
                                for path, secs in built.values())
         + f" (all at once, with load {time.perf_counter() - t0:.1f} s)")
-    card = card_line()
+    card = bench.card_name()
     log(f"[card] {card}")
 
-    # 2. setup: the main path (curved, GS) and slice 1's (straight, additive)
+    # 2. the card-only tests, from the repository alone (no JAX)
+    t_cuda_tests = cuda_tests_phase(here)
+
+    # 3. setup: the main path (curved, GS) and slice 1's (straight, additive)
     t0 = time.perf_counter()
     mesh = channel_with_cylinder_mesh_3d(MAXH)
     t_mesh = time.perf_counter() - t0
@@ -1461,7 +1719,7 @@ def run():
           "the stepping model is not float32")
     check(m32.n == m.n and m32.Q.ndof == m.Q.ndof, "the twin differs in size")
 
-    # 3. kernel checks on the main path's tables (and slice 1's)
+    # 4. kernel checks on the main path's tables (and slice 1's)
     timer = KernelTimer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1570,7 +1828,7 @@ def run():
 
     check_stream(torch, bm, sm, timer, reports)
 
-    # 4. main path: the curved GS solve, cold then warm
+    # 5. main path: the curved GS solve, cold then warm
     cold, launches = solve_and_check(torch, bm, solver, "curved GS cold",
                                      MAX_INNER)
     for name in ("block_mv", "block_mv2", "block_mv_comp"):
@@ -1578,7 +1836,7 @@ def run():
               "main path")
     warm, _ = solve_and_check(torch, bm, solver, "curved GS warm", MAX_INNER)
 
-    # 5. slice 1's path: straight additive, cold, warm, phase-2 polish
+    # 6. slice 1's path: straight additive, cold, warm, phase-2 polish
     _, launches_s = solve_and_check(torch, bm, solver_s,
                                     "straight additive cold")
     for name in ("block_mv", "block_mv2", "block_mv_comp"):
@@ -1605,7 +1863,7 @@ def run():
           "phase 2 did not run")
     check(true2 <= warm_s.true_rel, f"phase 2 raised the residual to {true2}")
 
-    # 6. split-k path on the curved model
+    # 7. split-k path on the curved model
     t0 = time.perf_counter()
     solver_k = FlagshipSolve(m, tol=TOL, split_k=SPLIT_K)
     log(f"[setup] split_k={SPLIT_K} GS ops {time.perf_counter() - t0:.1f} s")
@@ -1620,26 +1878,32 @@ def run():
           f"split_k={SPLIT_K} took {split.inner} inner iterations, "
           f"split_k=1 {warm.inner}")
 
-    # 7. per-apply milliseconds (bench.py probe_ops)
+    # 8. per-apply milliseconds (bench.py probe_ops)
     apply_probes(torch, "curved GS", solver)
     apply_probes(torch, f"split_k={SPLIT_K}", solver_k)
     apply_probes(torch, "straight additive", solver_s)
 
-    # 8. where a phase-1 iteration's time goes
+    # 9. where a phase-1 iteration's time goes
     profile_minres(torch, solver, "curved GS")
     profile_minres(torch, solver_s, "straight additive")
 
-    # 9. the plain double-single residual of the converged solution
+    # 10. the plain double-single residual of the converged solution
     launches_ds = ds_phase(torch, bm, solver, warm)
 
-    # 10. the transient step: f32 as bench.py, then f64 from the solution
+    # 11. the model's own BPCG initial solve (no kernel on its path)
+    t_bpcg = bpcg_phase(torch, bm, lm, timer, gen, m, solver, warm)
+
+    # 12. the transient step: f32 as bench.py, then f64 from the solution
     launches_t, launches_t64 = transient_phase(torch, bm, m32, step32, m,
                                                m.u_bc + warm.x[0])
 
-    # 11. this slice's path: the two ported microbenchmark scripts
+    # 13. the port's bench line on the models already built
+    bench_line, t_bench = bench_phase(bench, m, m32, cold, warm, card)
+
+    # 14. this slice's path: the two ported microbenchmark scripts
     launches_mb = microbench_phase(bm)
 
-    # 12. the SA-AMG coarse solve on a mesh above the dense limit
+    # 15. the SA-AMG coarse solve on a mesh above the dense limit
     amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry)
 
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
@@ -1658,6 +1922,10 @@ def run():
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
+    log(f"[time] new phases: cuda-tests {t_cuda_tests:.1f} s, bpcg "
+        f"{t_bpcg:.1f} s, bench {t_bench:.1f} s; whole run "
+        f"{time.perf_counter() - T_START:.1f} s")
+    print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ M_F^T, S, edge-star inverses, GS panels and color solves) is a
 :func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv` launch, or with
 ``split_k`` > 1 a :func:`~navier_stokes_tpu_torch.ops.block_mv.
 block_mv_splitk` launch for the tables the JAX package splits (all but the
-GS panels and color solves).
+GS panels and color solves).  Built in f64 (``dtype`` and every storage
+group float64, the 3D model's own preconditioner), every table apply is a
+plain batched f64 product instead, as the JAX package's einsum route.
 
 The interior Schur complement and the edge-star inverses are computed in
 f64 (host numpy, resp. torch f64 on the device) and cast to the storage
@@ -94,10 +96,10 @@ def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
     ).reshape(nface, 2 * nss, 9)
 
     MF_apply = make_table_apply(M_F, store_dtype=dtype, device=dev,
-                                split_k=split_k)
+                                split_k=split_k, compute_dtype=dtype)
     MFt_apply = make_table_apply(
         np.ascontiguousarray(M_F.transpose(0, 2, 1)), store_dtype=dtype,
-        device=dev, split_k=split_k)
+        device=dev, split_k=split_k, compute_dtype=dtype)
 
     # vertex accumulation plan for the transpose: (face, slot) pairs per
     # vertex, padded to the max valence (pad index -> appended zero row)
@@ -148,9 +150,13 @@ def build_skeleton_preconditioner_3d(
     bench.py's "ext,inv"): ``ext_dtype`` the extension and interior tables,
     ``inv_dtype`` the GS color-solve inverses, ``panel_dtype`` the GS row
     panels, ``sweep_dtype`` the skeleton table S and the additive edge-star
-    inverses.  Arithmetic, and the coarse transfer, are ``dtype`` (f32).
+    inverses.  Arithmetic, and the coarse transfer, are ``dtype``: f32 for
+    the flagship solve; f64 with all four groups f64 for the 3D model's own
+    preconditioner (``NavierStokesMCS._preA_for``), whose f64 tables take
+    the plain batched products of ``make_table_apply``'s f64 route.
     ``coarse_target``: the damping target of the multiplicative coarse
-    correction (``NSTPU_COARSE_TARGET``; bench.py's 1.6).  ``split_k``
+    correction (``NSTPU_COARSE_TARGET``; bench.py's 1.6, the JAX
+    package's default 0.9).  ``split_k``
     (``NSTPU_SPLITK``): sub-tables of the split-k table applies.
 
     ``symmetrize`` (a departure from the JAX package, which stores its f64

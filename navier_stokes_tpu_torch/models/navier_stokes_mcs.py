@@ -26,10 +26,16 @@ flagship's true-residual check is independent of every kernel).  The mass
 table, the Chebyshev bounds, the projection preconditioner and the
 convection tables are built lazily: the steady solve never touches them.
 
-Not carried over (each raises NotImplementedError naming its ROADMAP item):
-the BPCG ``SolveInitial`` (Queue 1 item 13; the port's initial solve is
-``flagship.FlagshipSolve``), enclosed flow (no outflow boundary), the 2D
-model, ``reconstruct_stress`` and ``AddForce``.
+The model's own initial Stokes solve, ``SolveInitial()``: Bramble-Pasciak
+CG (solvers/bpcg.py, the optimized v2) in the model's precision with one of
+the JAX model's three 3D A-preconditioners (``preconditioner=`` and
+``GS=``): the skeleton preconditioner (models/auxspace3d.py) at f64, its
+additive or multicolor-GS variant, or the face blocks of the hybrid space,
+additive (``build_faceblock_preconditioner_3d``) or multicolor block-GS
+(precond/multicolor.MulticolorGS).  The bench's flagship solve is
+``flagship.FlagshipSolve``.  Enclosed flow (``outflow=""``) demeans the
+pressure; ``AddForce`` / ``volumeforce`` load the right-hand side, and
+``reconstruct_stress`` recovers the eliminated fields per element.
 """
 
 from __future__ import annotations
@@ -51,11 +57,22 @@ from ..ops.faceblock import FaceBlockLayout
 from ..ops.facets3d import facet_geometry_3d
 from ..ops.local_mv import batched_local_matvec
 from ..precond.chebyshev import chebyshev_preconditioner
+from ..precond.jacobi import extract_blocks_from_local
+from ..precond.multicolor import (
+    MulticolorGS,
+    color_blocks,
+    symmetric_gs_preconditioner,
+)
 from ..precond.twolevel import coarse_p1_solver
+from ..solvers.bpcg import bp_scale_factor, bramble_pasciak_cg_opt
 from ..solvers.cg import cg
+from ..utils.timers import Timer
+from .auxspace3d import build_skeleton_preconditioner_3d
 from .stokes_hybrid3d import (
     HybridVelocitySpace3D,
     VectorFacet3D,
+    build_faceblock_preconditioner_3d,
+    free_blocks,
     interpolate_hybrid_boundary_3d,
 )
 
@@ -458,23 +475,33 @@ class NavierStokesMCS:
     ``tabs3d`` / ``cond`` entries (``tabs3d_curved`` / ``cond_curved`` with
     a geometry) replace host assembly and condensation; filled in when they
     are missing, so that a second model of the same mesh, order and nu
-    (the f32 stepping twin of an f64 model) skips both."""
+    (the f32 stepping twin of an f64 model) skips both.
+    ``preconditioner``: the A-preconditioner of ``SolveInitial`` and
+    ``preA``, ``"auxspace"`` (the skeleton preconditioner) or
+    ``"faceblock"``.  ``volumeforce``: a callable (points (N, 3) -> (N, 3))
+    loaded into ``f`` by :meth:`AddForce`.  ``outflow=""``: enclosed flow,
+    the constant pressure deflated from B, B^T and preM."""
 
     def __init__(self, mesh, nu: float, inflow: str, outflow: str,
                  wall: str, uin, timestep: float, order: int = 2,
-                 assembly_cache: dict | None = None, device=None,
-                 geometry=None, dtype=torch.float64):
+                 volumeforce=None, dtype=torch.float64,
+                 preconditioner: str = "auxspace", geometry=None,
+                 assembly_cache: dict | None = None, device=None):
         if mesh.dim != 3:
             raise NotImplementedError(
                 "the port carries the 3D model only (2D: ROADMAP Queue 1 "
                 "item 13)")
         if dtype not in (torch.float64, torch.float32):
             raise TypeError(f"dtype {dtype} is neither float64 nor float32")
+        if preconditioner not in ("auxspace", "faceblock"):
+            raise ValueError(f"unknown preconditioner {preconditioner!r}: "
+                             "'auxspace' or 'faceblock'")
         self.device = dev = resolve_device(device)
         self.dtype = dtype
         self.nu, self.timestep, self.uin = nu, timestep, uin
         self.inflow, self.outflow, self.wall = inflow, outflow, wall
         self.mesh, self.order = mesh, order
+        self.preconditioner = preconditioner
 
         dirich = inflow + "|" + wall
         self._dirich = dirich
@@ -517,6 +544,7 @@ class NavierStokesMCS:
                 assembly_cache[ckey] = (self._Acc_inv, self.A_cond_np)
         self.B_loc_np = np.asarray(B_loc_np)
         self._M_loc_np = np.asarray(M_full_np)
+        self._A_rc = A_rc  # for stress reconstruction
 
         n = self.Xv.ndof
         self.n = n
@@ -575,11 +603,16 @@ class NavierStokesMCS:
         self._diag_Mp = mass_diagonal(self.Q)
         diag_Mp = ship(self._diag_Mp)
         if not outflow:
-            raise NotImplementedError(
-                "enclosed flow (pressure demeaning, the block-only "
-                "projection preconditioner) is not ported: ROADMAP Queue 1 "
-                "item 13")
-        self.preM = lambda p: nu * p / diag_Mp
+            # enclosed flow: deflate the constant-pressure nullspace
+            def demean(p):
+                return p - torch.mean(p)
+
+            self.B = lambda u: demean(B(u))
+            self.B_raw = lambda u: demean(B_raw(u))
+            self.BT = lambda p: BT(demean(p))
+            self.preM = lambda p: nu * demean(demean(p) / diag_Mp)
+        else:
+            self.preM = lambda p: nu * p / diag_Mp
         diag_Mv_np = np.zeros(n)
         np.add.at(diag_Mv_np, eld,
                   np.einsum("eii->ei", self._M_loc_np).ravel())
@@ -604,13 +637,19 @@ class NavierStokesMCS:
         self._pre_proj2 = None
         self.setup_seconds = {}  # lazy transient setup, seconds per piece
         self.last_iterations = {}  # CG counts of the last mstar / project
+        self._preA_cache = {}
 
         # rhs + state
         self.f = torch.zeros(n, dtype=dtype, device=dev)
+        if volumeforce is not None:
+            self.AddForce(volumeforce)
         u_bc = interpolate_hybrid_boundary_3d(self.Xv, self._uin_np, inflow)
         self.u_bc = ship(u_bc)
         self.u = self.u_bc
         self.p = torch.zeros(self.Q.ndof, dtype=dtype, device=dev)
+        self.stokes_bpcg_iterations = None
+        self.stokes_bpcg_time = None
+        self.stokes_bpcg_scale_k = None
         if assembly_cache is not None and "state" in assembly_cache:
             self.load_state(**assembly_cache["state"])
 
@@ -690,28 +729,119 @@ class NavierStokesMCS:
         return -self.p.cpu().numpy()
 
     def AddForce(self, force):
-        raise NotImplementedError(
-            "volume forces are not ported: ROADMAP Queue 1 item 13")
+        """Add the load of the volume force ``force`` (a callable, points
+        (N, 3) -> values (N, 3)) to the right-hand side ``f``."""
+        self.f = self.f + torch.as_tensor(
+            self._force_local(force), device=self.device).to(self.dtype)
 
-    def reconstruct_stress(self, u=None):
-        raise NotImplementedError(
-            "stress reconstruction is not ported: ROADMAP Queue 1 item 13")
+    def _force_local(self, force) -> np.ndarray:
+        """int f . v dx over the H(div) basis, assembled on the host."""
+        mesh = self.mesh
+        J, detJ, _ = mesh.element_jacobians
+        vol = tetrahedron_rule(2 * self.V.order + 2)
+        v_val, _ = self.V.tabulate_elements(vol.points)
+        v_p = np.einsum("ecA,eqiA->eqic", J, v_val,
+                        optimize=True) / detJ[:, None, None, None]
+        nbv = self.V.n_basis
+        qpts = mesh.points[mesh.elements[:, 0]][:, None, :] + np.einsum(
+            "eab,qb->eqa", J, vol.points, optimize=True)
+        fq = np.asarray(force(qpts.reshape(-1, 3))).reshape(mesh.ne, -1, 3)
+        fe_v = np.einsum("q,eqc,eqic,e->ei", vol.weights, fq, v_p, detJ,
+                         optimize=True)
+        fe = np.zeros((mesh.ne, self.A_cond_np.shape[1]))
+        fe[:, :nbv] = fe_v
+        out = np.zeros(self.n)
+        np.add.at(out, self.Xv.element_dofs.ravel(), fe.ravel())
+        return out
 
-    def SolveInitial(self, timesteps=None):
-        """``timesteps`` pseudo-time Stokes steps from the current state,
-        each projected (the JAX package's ``SolveInitial(timesteps=n)``).
-        The iterative BPCG initial solve is not ported; the port's initial
-        Stokes solve is :class:`~navier_stokes_tpu_torch.flagship.FlagshipSolve`."""
-        if not timesteps:
-            raise NotImplementedError(
-                "the BPCG SolveInitial (solvers/bpcg.py) is not ported: "
-                "ROADMAP Queue 1 item 13; use flagship.FlagshipSolve")
-        self.Project()
-        for _ in range(timesteps):
-            temp = torch.where(self.free, -self._A_raw_step(self.u), 0.0)
-            temp2, _ = self._project_velocity(self._inv_mstar(temp))
-            self.u = self.u + self.timestep * temp2
+    def reconstruct_stress(self, u=None) -> np.ndarray:
+        """The eliminated (sigma, W) fields per element, (ne, n_el) numpy:
+        (sigma, W) = -Acc^{-1} A_rc^T u_loc (homogeneous local rhs)."""
+        u = self.u if u is None else u
+        if isinstance(u, torch.Tensor):
+            u = u.detach().cpu().numpy()
+        ue = np.asarray(u)[self.Xv.element_dofs]
+        rhs = -np.einsum("eic,ei->ec", self._A_rc, ue, optimize=True)
+        return np.einsum("ecd,ed->ec", self._Acc_inv, rhs, optimize=True)
+
+    @property
+    def preA(self):
+        return self._preA_for(GS=False)
+
+    def _preA_for(self, GS: bool):
+        """The A-preconditioner, additive (``GS=False``) or symmetric
+        multicolor block-GS (``GS=True``), built once per variant in the
+        model's precision.  ``auxspace``: the skeleton preconditioner with
+        the JAX model's settings -- every table stored in the model's
+        dtype, coarse damping target 0.9 and the tables as computed
+        (``symmetrize=False``); ``faceblock``: the face and cell blocks of
+        the hybrid space (:func:`~.stokes_hybrid3d.hybrid_blocks_3d`),
+        additive or swept by :class:`~navier_stokes_tpu_torch.precond.
+        multicolor.MulticolorGS` around no coarse correction."""
+        if GS not in self._preA_cache:
+            dt, dev = self.dtype, self.device
+            if self.preconditioner == "auxspace":
+                pre = build_skeleton_preconditioner_3d(
+                    self.Xv, self.A_cond_np, self._dirich, dev, dt,
+                    coarse_coefficient=self.nu, gs=GS, ext_dtype=dt,
+                    inv_dtype=dt, panel_dtype=dt, sweep_dtype=dt,
+                    coarse_target=0.9, symmetrize=False)
+            elif GS:
+                blks = free_blocks(self.Xv, "face")
+                dofs, mats = extract_blocks_from_local(
+                    self.A_cond_np, self.Xv.element_dofs, blks, self.n)
+                colors = color_blocks(blks, self.n, self.Xv.element_dofs)
+                mgs = MulticolorGS(dofs, mats, colors, self.n, dt, dev)
+                pre = symmetric_gs_preconditioner(mgs, self.A, None,
+                                                  self.free)
+            else:
+                pre = build_faceblock_preconditioner_3d(
+                    self.Xv, self.A_cond_np, dt, device=dev)
+            self._preA_cache[GS] = pre
+        return self._preA_cache[GS]
+
+    def SolveInitial(self, timesteps=None, iterative: bool = True,
+                     GS: bool = True, tol: float = 1e-10,
+                     maxsteps: int = 100000, scale_k=None):
+        """The initial Stokes solve from the boundary data, as the JAX
+        model's: Bramble-Pasciak CG (v2) on the homogeneous system
+        A du + B^T p = f - A u_bc, B du = -B u_bc with ``_preA_for(GS)``
+        and ``preM``, to ``tol`` relative.  Sets ``u``, ``p``,
+        ``stokes_bpcg_iterations``, ``stokes_bpcg_time`` (the named timer
+        ``stokes-bpcg`` over the right-hand side, the Lanczos scaling and
+        the iteration; the preconditioner is built before it) and
+        ``stokes_bpcg_scale_k``, and returns the solver's result.
+        ``scale_k``: the Bramble-Pasciak scaling, from Lanczos when None.
+        ``iterative`` is the reference's flag; the solve is always BPCG, as
+        in the JAX model.
+
+        ``timesteps`` = n instead: n pseudo-time Stokes steps from the
+        current state, each projected; returns None."""
+        if timesteps:
             self.Project()
+            for _ in range(timesteps):
+                temp = torch.where(self.free, -self._A_raw_step(self.u), 0.0)
+                temp2, _ = self._project_velocity(self._inv_mstar(temp))
+                self.u = self.u + self.timestep * temp2
+                self.Project()
+            return None
+
+        preA = self._preA_for(GS)
+        timer = Timer("stokes-bpcg").Start()
+        f_mod = torch.where(self.free, self.f - self.A_raw(self.u_bc), 0.0)
+        g_mod = -self.B_raw(self.u_bc)
+        if scale_k is None:
+            scale_k, _ = bp_scale_factor(self.A, preA, f_mod)
+        res = bramble_pasciak_cg_opt(
+            self.A, self.B, self.BT, preA, self.preM, f_mod, g_mod, tol=tol,
+            maxsteps=maxsteps, rel_err=True, scale_k=scale_k)
+        timer.Stop(res.x)
+        self.u = self.u_bc + res.x[0]
+        self.p = res.x[1]
+        self.stokes_bpcg_iterations = int(res.iterations)
+        self.stokes_bpcg_time = timer.time
+        self.stokes_bpcg_scale_k = float(scale_k)
+        return res
 
     def _inv_mstar(self, rhs, precision: float = 1e-4, maxsteps: int = 2000):
         res = cg(self.mstar, rhs, pre=self.preMstar, tol=precision,
@@ -766,6 +896,17 @@ class NavierStokesMCS:
         def block(p):
             pe = p.reshape(ne, mQ).contiguous()
             return batched_local_matvec(S_inv, pe).reshape(-1)
+
+        if not self.outflow:
+            # enclosed flow: block + demean (the pure-Neumann coarse
+            # Laplacian is singular)
+            def pre_enc(p):
+                y = block(p - torch.mean(p))
+                return y - torch.mean(y)
+
+            pre_enc.block, pre_enc.S_inv = block, S_inv
+            pre_enc.coarse_amg_levels = 0
+            return pre_enc
 
         mesh = self.mesh
         qb = self.Q.basis

@@ -3,7 +3,8 @@
 The port's own copy of the pieces of
 ``navier_stokes_tpu/models/stokes_hybrid3d.py`` that the MCS model uses:
 the tangential facet space in each face's global frame, the hybrid velocity
-space, and the Dirichlet boundary interpolation.  Pure numpy.
+space, the Dirichlet boundary interpolation (pure numpy), and the smoother
+blocks with the additive face-block preconditioner of the 3D model.
 
 Facet space: per global face, 2 * nfd dofs — coefficients of
 phi_j(s,t) * E_c where phi is the orthonormal Dubiner basis in the face's
@@ -18,10 +19,13 @@ from dataclasses import dataclass
 from functools import cached_property
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..fem.hdiv3d import HDivSpace3D
 from ..fem.quadrature import triangle_rule
 from ..fem.reference import triangle_modal
+from ..precond.jacobi import block_jacobi, extract_blocks_from_local
 
 
 @dataclass
@@ -139,3 +143,72 @@ def interpolate_hybrid_boundary_3d(
             u[V.hdiv.ndof + f * nfd_f + 2 * j] = c[0]
             u[V.hdiv.ndof + f * nfd_f + 2 * j + 1] = c[1]
     return u
+
+
+def hybrid_blocks_3d(V: HybridVelocitySpace3D, kind: str) -> list:
+    """Smoother block index sets for a 3D [H(div) | facet] space.
+
+    ``face``: disjoint per-face blocks (hdiv + facet dofs) and per-cell
+    interior blocks.  ``vertexstar``: overlapping vertex patches -- all
+    face/facet dofs of the faces containing the vertex and the interior
+    dofs of the incident tets."""
+    mesh = V.mesh
+    nfd_v, nfd_f = V.hdiv.n_face_dofs, V.facet.n_face
+    nc_d = V.hdiv.bases[0].n_cell
+    off_c = mesh.nface * nfd_v
+    if kind == "face":
+        blocks = []
+        for f in range(mesh.nface):
+            blocks.append(
+                list(range(f * nfd_v, (f + 1) * nfd_v))
+                + list(range(V.hdiv.ndof + f * nfd_f,
+                             V.hdiv.ndof + (f + 1) * nfd_f)))
+        for e in range(mesh.ne):
+            blocks.append(list(range(off_c + e * nc_d,
+                                     off_c + (e + 1) * nc_d)))
+        return blocks
+    if kind != "vertexstar":
+        raise ValueError(f"unknown block kind {kind!r}")
+    vblocks: list[list[int]] = [[] for _ in range(mesh.nv)]
+    for f, verts in enumerate(mesh.faces.tolist()):
+        dofs_f = (list(range(f * nfd_v, (f + 1) * nfd_v))
+                  + list(range(V.hdiv.ndof + f * nfd_f,
+                               V.hdiv.ndof + (f + 1) * nfd_f)))
+        for v in verts:
+            vblocks[v].extend(dofs_f)
+    for e, verts in enumerate(mesh.elements.tolist()):
+        dofs_e = list(range(off_c + e * nc_d, off_c + (e + 1) * nc_d))
+        for v in verts:
+            vblocks[v].extend(dofs_e)
+    return vblocks
+
+
+def free_blocks(V: HybridVelocitySpace3D, kind: str) -> list[np.ndarray]:
+    """The free dofs of each :func:`hybrid_blocks_3d` block; empty blocks
+    dropped."""
+    fmask = V.free_mask
+    blks = [np.asarray([d for d in blk if fmask[d]], np.int32)
+            for blk in hybrid_blocks_3d(V, kind)]
+    return [b for b in blks if len(b)]
+
+
+def build_faceblock_preconditioner_3d(V: HybridVelocitySpace3D,
+                                      A_np: np.ndarray, dtype=torch.float64,
+                                      blocks: str = "face", device=None):
+    """Additive block smoother over the free dofs of the
+    :func:`hybrid_blocks_3d` patches: batched dense inverses of the
+    assembled operator's blocks (precond/jacobi.block_jacobi);
+    ``preA.table`` is their stored inverses."""
+    device = resolve_device(device)
+    nV = V.ndof
+    dofs, mats = extract_blocks_from_local(A_np, V.element_dofs,
+                                           free_blocks(V, blocks), nV)
+    smooth = block_jacobi(dofs, mats, nV, dtype, device)
+    free = torch.as_tensor(V.free_mask, device=device)
+
+    def preA(u):
+        uf = torch.where(free, u, 0.0)
+        return torch.where(free, smooth(uf), u)
+
+    preA.table = smooth.table
+    return preA

@@ -288,8 +288,8 @@ def block_mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     by the table stream: nblk*m*k*itemsize bytes / 3.35 TB/s.  The kernel is
     :func:`block_mv_splitk`'s at one sub-table, so on the card the table
     must start on a 16-byte boundary.  An f64 table with an f64 x is taken
-    on the CPU only (the host-math tests of the preconditioner in f64); the
-    kernel raises on it."""
+    on the CPU only; the kernel raises on it (f64 tables go through
+    :func:`make_table_apply`'s plain route instead)."""
     _check_table(A, "block_mv table",
                  (torch.float32, torch.bfloat16, torch.float64))
     _check_aligned("block_mv", A)
@@ -460,12 +460,18 @@ def make_segment_apply(blocks, nblk: int, width: int,
     """Batched block matvec fn (nblk, width) -> (nblk, width) for ragged
     square blocks (:func:`pack_segments`), through
     :func:`block_mv_segments`; ``apply.table`` is the :class:`SegmentTable`.
-    ``compute_dtype=torch.float64`` (CPU only): the blocks rounded to
-    ``store_dtype`` are held exactly in f64 and applied to f64 vectors, as
-    :func:`make_table_apply` does."""
+    ``compute_dtype=torch.float64``: the blocks rounded to ``store_dtype``
+    are held exactly in f64 and applied to f64 vectors by the plain
+    per-segment product on any device, as :func:`make_table_apply` does."""
     T = pack_segments(blocks, nblk, width, store_dtype, device)
     if compute_dtype == torch.float64:
         T = SegmentTable(T.data.to(torch.float64), T.desc, nblk, width)
+
+        def apply(x):
+            return block_mv_segments_plain(T, x)
+
+        apply.table = T
+        return apply
 
     def apply(x):
         return block_mv_segments(T, x.contiguous())
@@ -844,9 +850,12 @@ def make_table_apply(A, store_dtype=torch.float32, device=None,
     sub-tables of ``tile``-block tiles.  ``apply.table`` is the stored
     table: one tensor, or the list of sub-tables.
 
-    ``compute_dtype=torch.float64`` (CPU only, as the JAX package's f64
-    model preconditioner): the table rounded to ``store_dtype`` is held
-    exactly in f64 and applied to f64 vectors."""
+    ``compute_dtype=torch.float64`` (the 3D model's own f64
+    preconditioners): the table rounded to ``store_dtype`` (f32, bf16 or
+    f64) is held exactly in f64 and applied to f64 vectors by a plain
+    batched product on any device -- the JAX package's einsum route, which
+    keeps f64 arithmetic off its Pallas kernel (pallas_mv.py:525-528).  The
+    route is chosen here, by dtype; the kernels never see an f64 table."""
     if isinstance(A, np.ndarray):
         A = torch.from_numpy(np.ascontiguousarray(A))
     if device is None:
@@ -856,6 +865,12 @@ def make_table_apply(A, store_dtype=torch.float32, device=None,
         if split_k > 1:
             raise ValueError("split-k tables are applied in f32")
         table = table.to(torch.float64)
+
+        def apply(x):
+            return block_mv_plain(table, x)
+
+        apply.table = table
+        return apply
     if split_k > 1:
         subs = pack_splitk(table, split_k, tile)
         del table

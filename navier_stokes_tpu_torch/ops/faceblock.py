@@ -413,8 +413,9 @@ class FaceStarSmoother:
     (:meth:`skeleton_table`) and the bucket inverses
     (:meth:`bucket_inverses`) -- are passed to the mode's build method and not
     kept: the smoother holds only the tables its applies stream.
-    ``compute_dtype`` is the arithmetic of every table apply (f64 on the
-    CPU only)."""
+    ``compute_dtype`` is the arithmetic of every table apply (f64: the plain
+    batched products of :func:`~navier_stokes_tpu_torch.ops.block_mv.
+    make_table_apply`)."""
 
     def __init__(self, layout: FaceBlockLayout, edge_faces,
                  freeF: np.ndarray, compute_dtype=torch.float32):

@@ -41,7 +41,8 @@ def block_jacobi(blocks_dofs: np.ndarray, block_mats: np.ndarray, ndof: int,
     ``block_mats``: (nblocks, bmax, bmax) local matrices (rows/cols of the
     global operator restricted to each block; padding rows/cols must be
     identity).  Overlapping blocks are summed (additive Schwarz).  The
-    inverses are taken on the host in float64 and stored in ``dtype``."""
+    inverses are taken on the host in float64 and stored in ``dtype``;
+    ``apply.table`` is the stored table."""
     device = resolve_device(device)
     inv = np.linalg.inv(np.asarray(block_mats, np.float64))
     if dtype == torch.float64:
@@ -49,6 +50,7 @@ def block_jacobi(blocks_dofs: np.ndarray, block_mats: np.ndarray, ndof: int,
         product = lambda xb: batched_local_matvec(table, xb)
     else:
         product = make_table_apply(inv, store_dtype=dtype, device=device)
+        table = product.table
     dofs = torch.as_tensor(np.asarray(blocks_dofs, np.int64), device=device)
     pad = dofs < 0
     safe = torch.where(pad, 0, dofs)
@@ -59,6 +61,7 @@ def block_jacobi(blocks_dofs: np.ndarray, block_mats: np.ndarray, ndof: int,
         yb = torch.where(pad, 0.0, product(xb.contiguous()))
         return x.new_zeros(ndof).index_add_(0, flat, yb.reshape(-1))
 
+    apply.table = table
     return apply
 
 
@@ -66,14 +69,25 @@ def extract_blocks_csr(A_csr, blocks_padded: np.ndarray) -> np.ndarray:
     """(nblocks, bmax, bmax) dense sub-blocks of the CSR matrix; padding
     rows/cols are identity.  ``blocks_padded``: (nblocks, bmax) int,
     -1-padded.  (The numpy route of the JAX package's
-    ``utils/native.extract_blocks_csr``.)"""
+    ``utils/native.extract_blocks_csr``.)  Every entry is looked up at once:
+    the stored entries, sorted by (row, column), are searched for each
+    block's (row, column) pairs."""
+    blocks_padded = np.asarray(blocks_padded, np.int64)
     nblocks, bmax = blocks_padded.shape
-    out = np.tile(np.eye(bmax), (nblocks, 1, 1))
-    A = A_csr.tocsc()
-    for i in range(nblocks):
-        b = blocks_padded[i]
-        b = b[b >= 0]
-        out[i, : len(b), : len(b)] = A[b][:, b].toarray()
+    A = A_csr.tocsr(copy=True)
+    A.sum_duplicates()  # canonical: sorted column indices, no duplicates
+    ncol = np.int64(A.shape[1])
+    keys = (np.repeat(np.arange(A.shape[0], dtype=np.int64),
+                      np.diff(A.indptr)) * ncol + A.indices)
+    rows = blocks_padded[:, :, None]
+    cols = blocks_padded[:, None, :]
+    real = (rows >= 0) & (cols >= 0)
+    query = np.where(real, rows * ncol + cols, -1)
+    pos = np.minimum(np.searchsorted(keys, query), max(len(keys) - 1, 0))
+    hit = real & (keys[pos] == query) if len(keys) else np.zeros_like(real)
+    out = np.where(hit, A.data[pos] if len(keys) else 0.0, 0.0)
+    pad = np.arange(bmax)[None, :] >= (blocks_padded >= 0).sum(1)[:, None]
+    out[:, np.arange(bmax), np.arange(bmax)] += pad
     return out
 
 

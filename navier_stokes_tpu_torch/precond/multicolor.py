@@ -1,10 +1,18 @@
-"""Multi-color block Gauss-Seidel support: coloring and coarse damping.
+"""Multi-color block Gauss-Seidel: coloring, sweeps and coarse damping.
 
-Counterpart of ``color_blocks`` (element-clique branch) and
-``damped_coarse`` in ``navier_stokes_tpu/precond/multicolor.py``.  The
-symmetric multicolor sweep itself lives with the face-block smoother
-(ops/faceblock.FaceStarSmoother.solve_color_rows) and the skeleton
-preconditioner (models/auxspace3d.py).
+Counterpart of ``navier_stokes_tpu/precond/multicolor.py``
+(``color_blocks`` with its element-clique branch, ``MulticolorGS``,
+``damped_coarse`` and ``symmetric_gs_preconditioner``).  Blocks are colored
+so that same-color blocks are operator-decoupled; each color is then
+updated as ONE batched dense block solve (gather -> batched matvec ->
+scatter) with a fresh residual per color.  The symmetric preconditioner
+(forward sweep, coarse correction, backward sweep) is the reference's
+MypreA.Mult with GS=True.
+
+The skeleton preconditioner's own sweep over row panels lives with the
+face-block smoother (ops/faceblock.FaceStarSmoother.solve_color_rows) and
+models/auxspace3d.py; :class:`MulticolorGS` sweeps dof-level blocks with a
+full operator apply per color (the 3D model's faceblock GS preconditioner).
 """
 
 from __future__ import annotations
@@ -14,7 +22,11 @@ import heapq
 import numpy as np
 import torch
 
-__all__ = ["color_blocks", "damped_coarse"]
+from ..device import resolve_device
+from ..ops.local_mv import batched_local_matvec
+
+__all__ = ["color_blocks", "MulticolorGS", "damped_coarse",
+           "symmetric_gs_preconditioner"]
 
 
 def color_blocks(blocks: list[np.ndarray], ndof: int,
@@ -64,15 +76,83 @@ def color_blocks(blocks: list[np.ndarray], ndof: int,
     return colors
 
 
-def damped_coarse(coarse, A_apply, example: torch.Tensor, target: float,
-                  iters: int = 30):
+class MulticolorGS:
+    """Forward/backward multi-color block-GS sweeps over precomputed dense
+    block inverses.
+
+    ``dofs``: (nblocks, bmax) padded with -1; ``mats``: the matching dense
+    blocks (padding rows/cols identity), inverted on the host in f64 and
+    stored in ``dtype`` on ``device``.  Each color step costs one operator
+    apply and one batched block solve, through
+    :func:`~navier_stokes_tpu_torch.ops.local_mv.batched_local_matvec` (the
+    hand-written kernel on the card, f32 or f64)."""
+
+    def __init__(self, dofs: np.ndarray, mats: np.ndarray,
+                 colors: np.ndarray, ndof: int, dtype=torch.float64,
+                 device=None):
+        device = resolve_device(device)
+        self.ndof = ndof
+        self.ncolors = int(colors.max()) + 1
+        inv = np.linalg.inv(np.asarray(mats, np.float64))
+        self.groups = []
+        for c in range(self.ncolors):
+            sel = np.where(colors == c)[0]
+            d = np.asarray(dofs[sel], np.int64)
+            pad = d < 0
+            self.groups.append((
+                torch.as_tensor(np.where(pad, 0, d), device=device),
+                torch.as_tensor(pad, device=device),
+                torch.as_tensor(inv[sel], device=device).to(dtype)
+                .contiguous()))
+
+    def _solve_color(self, g, r):
+        safe, pad, inv = g
+        rb = torch.where(pad, 0.0, r[safe])
+        yb = torch.where(pad, 0.0, batched_local_matvec(inv, rb))
+        # same-color blocks are dof-disjoint: add == set
+        return r.new_zeros(self.ndof).index_add_(0, safe.reshape(-1),
+                                                 yb.reshape(-1))
+
+    def forward(self, A_apply, x, y):
+        for g in self.groups:
+            y = y + self._solve_color(g, x - A_apply(y))
+        return y
+
+    def backward(self, A_apply, x, y):
+        for g in reversed(self.groups):
+            y = y + self._solve_color(g, x - A_apply(y))
+        return y
+
+
+def symmetric_gs_preconditioner(gs: MulticolorGS, A_apply, coarse=None,
+                                free=None):
+    """MypreA.Mult with GS=True: forward block-GS, the additive coarse
+    correction on the residual, backward block-GS.  Symmetric by
+    construction (reverse color order, exact coarse).  ``free``: a bool
+    mask; constrained entries pass through unchanged.  ``preA.gs`` is
+    ``gs``."""
+
+    def preA(x):
+        xf = torch.where(free, x, 0.0) if free is not None else x
+        y = gs.forward(A_apply, xf, torch.zeros_like(xf))
+        if coarse is not None:
+            y = y + coarse(xf - A_apply(y))
+        y = gs.backward(A_apply, xf, y)
+        return torch.where(free, y, x) if free is not None else y
+
+    preA.gs = gs
+    return preA
+
+
+def damped_coarse(coarse, A_apply, example: torch.Tensor,
+                  target: float = 0.9, iters: int = 30):
     """Scale an auxiliary-space coarse correction for multiplicative use.
 
     Inside the symmetric sweep the correction ``y += C (x - A y)`` keeps the
     preconditioner positive definite only when lambda_max(C A) < 2.  A
     power iteration of ``iters`` steps from ``example`` estimates
-    lambda_max(C A), and C is scaled to ``target`` (bench.py passes 1.6;
-    it must stay below 2).  Returns (damped coarse, lambda, theta)."""
+    lambda_max(C A), and C is scaled to ``target`` (the JAX package's
+    default 0.9; bench.py passes 1.6; it must stay below 2).  Returns (damped coarse, lambda, theta)."""
     v = example / torch.linalg.vector_norm(example)
     lam_t = torch.ones((), dtype=v.dtype)
     for _ in range(iters):

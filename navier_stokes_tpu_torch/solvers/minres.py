@@ -17,10 +17,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
-__all__ = ["SolverResult", "minres", "tdot", "taxpy", "tscale", "tsub",
-           "tzeros_like"]
+from ..linalg.pytree import taxpy, tdot, tscale, tsub, tzeros_like
+
+__all__ = ["SolverResult", "minres"]
 
 
 @dataclass
@@ -33,31 +33,6 @@ class SolverResult:
     errors: np.ndarray
     err0: float
     converged: bool
-
-
-# -- tuple-vector algebra (linalg/pytree.py of the JAX package) ------------
-
-
-def tdot(x, y) -> torch.Tensor:
-    """Global inner product sum_i <x_i, y_i> as a 0-d device tensor."""
-    return sum(torch.dot(a.reshape(-1), b.reshape(-1)) for a, b in zip(x, y))
-
-
-def tsub(x, y):
-    return tuple(a - b for a, b in zip(x, y))
-
-
-def tscale(a, x):
-    return tuple(a * v for v in x)
-
-
-def taxpy(a, x, y):
-    """a*x + y"""
-    return tuple(a * xv + yv for xv, yv in zip(x, y))
-
-
-def tzeros_like(x):
-    return tuple(torch.zeros_like(v) for v in x)
 
 
 def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,

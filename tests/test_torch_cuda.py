@@ -1,0 +1,568 @@
+"""The port's card-only tests: each hand-written kernel against its plain
+PyTorch version, and the split-k, segment and stream kernels bitwise
+against ``block_mv``, on CUDA tensors.
+
+Every test carries the ``cuda`` marker and skips without a CUDA device (the
+CUDA kernels have no CPU mode).  The file imports neither ``jax`` nor
+``navier_stokes_tpu``, so that it runs where only PyTorch is installed, as
+on the card's machine, without the repository's ``tests/conftest.py``
+(which configures JAX)::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+``chip_smoke.py`` runs that command as its ``[cuda-tests]`` phase.  The
+CPU parity tests of the same wrappers are in ``tests/test_torch_block_mv.py``,
+``test_torch_local_mv.py``, ``test_torch_stream_mv.py`` and
+``test_torch_timers.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from navier_stokes_tpu_torch.ops import block_mv as bm
+from navier_stokes_tpu_torch.ops import stream_mv as sm
+from navier_stokes_tpu_torch.ops.local_mv import (
+    batched_local_matvec,
+    batched_local_matvec_plain,
+)
+from navier_stokes_tpu_torch.utils.timers import KernelTimer, Timer
+
+# -- shapes and cases shared with the CPU tests of the same wrappers ---------
+
+NE, NB = 37, 14  # deliberately non-multiple ne, as test_torch_block_mv.py
+STILE = 8  # split-k tile: 5 tiles, which neither k = 2 nor k = 3 divides
+# The edges of the split-k kernels' CTA stretches (kernels 5-7; the same
+# shapes as chip_smoke.EDGE_SPLITK), (nblk, m, k, tile)
+EDGE_SPLITK = [(37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
+               (45, 54, 4, 3), (5, 3, 7, 2), (19, 5, 3, 4), (203, 7, 9, 16)]
+SEGMENTS = [(5, 7), (1, 13), (9, 5), (3, 12), (4, 1), (6, 16)]
+SEG_WIDTH = 16
+# kernel 8 (test_torch_local_mv.py): tolerances and the edges of its CTA
+# stretches, (ne, nb, offset in elements of a contiguous view into its
+# allocation)
+TOL = {"float32": 2e-6, "float64": 1e-13}
+EDGE_LOCAL = [(700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
+              (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
+              (3001, 4, 2), (5, 130, 3), (1, 1, 1)]
+
+
+def _cancellation_case(seed=11):
+    """~1e5 row cancellation (test_pallas_mv.py:125-151)."""
+    rng = np.random.default_rng(seed)
+    A64 = rng.standard_normal((NE, NB, NB))
+    x64 = rng.standard_normal((NE, NB))
+    A64[:, :, 0] *= 1e5
+    A64[:, :, 1] = -A64[:, :, 0] * (x64[:, 0] / x64[:, 1])[:, None]
+    return A64, x64
+
+
+# -- block_mv, block_mv2, block_mv_ds, the split-k and segment kernels ---
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """On the card: each kernel against its plain version on the same
+    inputs (runs where a CUDA device and nvcc are present)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for shape, dt in (((200, 54, 54), torch.float32), ((300, 6, 48),
+                      torch.bfloat16), ((5, 3, 7), torch.bfloat16)):
+        A = torch.randn(shape, generator=gen, device=dev).to(dt)
+        x = torch.randn(shape[0], shape[2], generator=gen, device=dev)
+        scale = torch.einsum("bmk,bk->bm", A.double().abs(), x.double().abs())
+        d = (bm.block_mv(A, x) - bm.block_mv_plain(A, x)).abs()
+        assert float((d / scale).max()) <= 1e-5
+    A64, x64 = (torch.from_numpy(a).to(dev) for a in _cancellation_case())
+    hi = A64.float()
+    lo = (A64 - hi.double()).float()
+    x = x64.float()
+    scale = torch.einsum("bmk,bk->bm", A64.abs(), x.double().abs())
+    d = (bm.block_mv2(hi, lo, x) - bm.block_mv2_plain(hi, lo, x)).abs()
+    assert float((d / scale).max()) <= 1e-5
+    xh, xl = bm.split_f64(x64)
+    yh, yl = bm.block_mv_comp(hi, lo, xh, xl)
+    rh, rl = bm.block_mv_comp_plain(hi, lo, xh, xl)
+    assert torch.equal(yh, rh) and torch.equal(yl, rl)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_splitk_kernels_match_plain_on_card(k):
+    """On the card: each split-k kernel against its plain version, and
+    bitwise against its unsplit kernel on the same table; kernel 7 also at
+    the edges of its CTA stretches (``EDGE_SPLITK``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    for shape, dt in (((300, 54, 54), torch.float32), ((301, 6, 48),
+                      torch.bfloat16), ((5, 3, 7), torch.bfloat16)):
+        A = torch.randn(shape, generator=gen, device=dev).to(dt)
+        x = torch.randn(shape[0], shape[2], generator=gen, device=dev)
+        subs = bm.pack_splitk(A, k, STILE)
+        y = bm.block_mv_splitk(subs, x, STILE)
+        scale = torch.einsum("bmk,bk->bm", A.double().abs(), x.double().abs())
+        d = (y - bm.block_mv_splitk_plain(subs, x, STILE)).abs()
+        assert float((d / scale).max()) <= 1e-5
+        assert torch.equal(y, bm.block_mv(A, x))
+    A64, x64 = (torch.from_numpy(a).to(dev) for a in _cancellation_case())
+    hi = A64.float()
+    lo = (A64 - hi.double()).float()
+    hs, ls = bm.pack_splitk(hi, k, STILE), bm.pack_splitk(lo, k, STILE)
+    x = x64.float()
+    scale = torch.einsum("bmk,bk->bm", A64.abs(), x.double().abs())
+    y2 = bm.block_mv2_splitk(hs, ls, x, STILE)
+    d = (y2 - bm.block_mv2_splitk_plain(hs, ls, x, STILE)).abs()
+    assert float((d / scale).max()) <= 1e-5
+    assert torch.equal(y2, bm.block_mv2(hi, lo, x))
+    xh, xl = bm.split_f64(x64)
+    yh, yl = bm.block_mv_comp_splitk(hs, ls, xh, xl, STILE)
+    rh, rl = bm.block_mv_comp_splitk_plain(hs, ls, xh, xl, STILE)
+    assert torch.equal(yh, rh) and torch.equal(yl, rl)
+    uh, ul = bm.block_mv_comp(hi, lo, xh, xl)
+    assert torch.equal(yh, uh) and torch.equal(yl, ul)
+    for nblk, m, kk, tile in EDGE_SPLITK:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        x64 = torch.randn((nblk, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+        yh, yl = bm.block_mv_comp_splitk(hs, ls, xh, xl, tile)
+        rh, rl = bm.block_mv_comp_splitk_plain(hs, ls, xh, xl, tile)
+        assert torch.equal(yh, rh) and torch.equal(yl, rl)
+        uh, ul = bm.block_mv_comp(hi, lo, xh, xl)
+        assert torch.equal(yh, uh) and torch.equal(yl, ul)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_block_mv_comp_equals_splitk_on_card():
+    """On the card: kernel 4, which is kernel 7's kernel at one sub-table,
+    bitwise equal to its plain version and to kernel 7 at k = 2, 4, 8 on
+    the edge shapes (``EDGE_SPLITK``); a table view that does not start on
+    a 16-byte boundary is refused, as the bulk copies need."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for nblk, m, kk, tile in EDGE_SPLITK:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        x64 = torch.randn((nblk, kk), generator=gen, device=dev,
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        yh, yl = bm.block_mv_comp(hi, lo, xh, xl)
+        rh, rl = bm.block_mv_comp_plain(hi, lo, xh, xl)
+        assert torch.equal(yh, rh) and torch.equal(yl, rl)
+        for k in (2, 4, 8):
+            hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            sh, sl = bm.block_mv_comp_splitk(hs, ls, xh, xl, tile)
+            assert torch.equal(yh, sh) and torch.equal(yl, sl)
+    torch.cuda.synchronize()
+    nblk, m, kk = 300, 54, 54
+    flat = torch.zeros(1 + nblk * m * kk, device=dev)
+    view = flat[1:].view(nblk, m, kk)  # 4 bytes past a 16-byte boundary
+    table = torch.zeros((nblk, m, kk), device=dev)
+    x = torch.zeros((nblk, kk), device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_comp(view, table, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_comp(table, view, x, x)
+
+
+# (nblk, m, k, tile) of the card tests of kernels 5 and 6 beyond
+# EDGE_SPLITK: tiles of 2 to 256 blocks, rows of 1 to 132 entries, f32 rows
+# of whole 16-byte vectors (k = 48: read a vector at a time) and not
+CARD_SPLITK = [(7, 1, 1, 2), (130, 12, 9, 256), (600, 48, 48, 64),
+               (257, 6, 48, 128), (90, 48, 6, 5), (41, 132, 132, 4),
+               (1000, 6, 6, 256)]
+
+
+def _card_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_mv_splitk_equals_block_mv_on_card(dtype):
+    """On the card: kernel 5 BITWISE equal to block_mv on the unsplit table
+    at k = 1..8, for tiles of 2 to 256 blocks, stretches across tile
+    boundaries and sub-tables of zero pad only, and within 1e-5 of
+    sum_j |a_ij x_j| of its plain version."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for nblk, m, kk, tile in EDGE_SPLITK + CARD_SPLITK:
+        A = torch.randn((nblk, m, kk), generator=gen, device="cuda").to(dtype)
+        x = torch.randn((nblk, kk), generator=gen, device="cuda")
+        want = bm.block_mv(A, x)
+        scale = torch.einsum("bmk,bk->bm", A.double().abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        for k in range(1, 9):
+            subs = bm.pack_splitk(A, k, tile)
+            y = bm.block_mv_splitk(subs, x, tile)
+            d = (y - bm.block_mv_splitk_plain(subs, x, tile)).abs()
+            assert torch.equal(y, want), (nblk, m, kk, tile, k)
+            assert float((d / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_block_mv2_splitk_equals_block_mv2_on_card():
+    """On the card: kernel 6 BITWISE equal to block_mv2 on the unsplit pair
+    at k = 1..8 on the shapes of the kernel-5 card test, and within 1e-5
+    of sum_j |a_ij x_j| of its plain version."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    for nblk, m, kk, tile in EDGE_SPLITK + CARD_SPLITK:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        x = torch.randn((nblk, kk), generator=gen, device="cuda")
+        want = bm.block_mv2(hi, lo, x)
+        scale = torch.einsum("bmk,bk->bm", A64.abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        for k in range(1, 9):
+            hs, ls = bm.pack_splitk(hi, k, tile), bm.pack_splitk(lo, k, tile)
+            y = bm.block_mv2_splitk(hs, ls, x, tile)
+            d = (y - bm.block_mv2_splitk_plain(hs, ls, x, tile)).abs()
+            assert torch.equal(y, want), (nblk, m, kk, tile, k)
+            assert float((d / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_splitk_refuses_misaligned_sub_table_on_card():
+    """On the card: a sub-table view that does not start on a 16-byte
+    boundary is refused by every split-k wrapper, as the bulk copies need,
+    and by the C entry itself."""
+    _card_or_skip()
+    nblk, m, kk = 64, 6, 8
+    flat = torch.zeros(2 + nblk * m * kk, device="cuda")
+    view = flat[1:1 + nblk * m * kk].view(nblk, m, kk)  # 4 bytes off
+    good = torch.zeros((nblk, m, kk), device="cuda")
+    flat16 = torch.zeros(8 + nblk * m * kk, device="cuda",
+                         dtype=torch.bfloat16)
+    view16 = flat16[4:4 + nblk * m * kk].view(nblk, m, kk)  # 8 bytes off
+    x = torch.zeros((nblk, kk), device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_splitk([good, view], x, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_splitk([view16], x, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv2_splitk([view], [good], x, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_comp_splitk([good], [view], x, x, 64)
+    y = torch.empty((nblk, m), device="cuda")
+    rc = bm.load_library().nstt_block_mv_splitk_f32(
+        bm._ptrs([view]), 1, x.data_ptr(), y.data_ptr(), nblk, m, kk, nblk,
+        nblk, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+# (nblk, m, k) edges of kernels 1 and 2 at one sub-table: m * k not a whole
+# number of 16-byte units in either type, odd k in bf16, one block, one
+# row, a CTA's stretch ending mid-block, blocks wider than a CTA's rows,
+# rows of an even number of 16-byte vectors (k = 8, 16, 48, 96)
+EDGE_UNSPLIT = [(1, 1, 1), (1, 54, 54), (37, 6, 7), (301, 4, 54),
+                (45, 54, 4), (5, 3, 7), (19, 5, 3), (203, 7, 9),
+                (7, 132, 132), (1000, 6, 6), (3, 300, 11), (130, 12, 96),
+                (3, 5, 48), (7, 1, 16), (33, 3, 8)]
+
+
+@pytest.mark.cuda
+def test_block_mv_and_block_mv2_edges_on_card():
+    """On the card: kernels 1 (f32 and bf16) and 2 at the edges of their
+    CTA stretches within 1e-5 of sum_j |a_ij x_j| of their plain versions,
+    and BITWISE equal to kernels 5 and 6 at k = 2 and 4 on the same
+    tables."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for nblk, m, kk in EDGE_UNSPLIT:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        x = torch.randn((nblk, kk), generator=gen, device="cuda")
+        scale = torch.einsum("bmk,bk->bm", A64.abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        for A in (hi, hi.to(torch.bfloat16)):
+            y = bm.block_mv(A, x)
+            d = (y - bm.block_mv_plain(A, x)).abs()
+            assert float((d / scale).max()) <= 1e-5, (nblk, m, kk, A.dtype)
+            for k in (2, 4):
+                subs = bm.pack_splitk(A, k, 4)
+                assert torch.equal(y, bm.block_mv_splitk(subs, x, 4))
+        y2 = bm.block_mv2(hi, lo, x)
+        d = (y2 - bm.block_mv2_plain(hi, lo, x)).abs()
+        assert float((d / scale).max()) <= 1e-5, (nblk, m, kk)
+        for k in (2, 4):
+            hs, ls = bm.pack_splitk(hi, k, 4), bm.pack_splitk(lo, k, 4)
+            assert torch.equal(y2, bm.block_mv2_splitk(hs, ls, x, 4))
+    torch.cuda.synchronize()
+
+
+# the three tables kernel 3 streams in the [ds] phase at maxh=0.09: A_ds,
+# B_ds and BT_ds (nblk, m, k)
+DS_BENCH = [(7740, 54, 54), (7740, 4, 54), (7740, 54, 4)]
+
+
+@pytest.mark.cuda
+def test_block_mv_ds_equals_block_mv_on_card():
+    """On the card: each of kernel 3's three outputs BITWISE equal to
+    block_mv on its (table, vector) pair -- A_hi x_hi, A_hi x_lo, A_lo x_hi
+    -- at the edges of the CTA stretches (``EDGE_UNSPLIT``) and on the
+    shapes of the [ds] phase's tables, and within 2e-6 of sum_j |a_ij x_j|
+    of its plain version."""
+    _card_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for nblk, m, kk in EDGE_UNSPLIT + DS_BENCH:
+        A64 = torch.randn((nblk, m, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        x64 = torch.randn((nblk, kk), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        got = bm.block_mv_ds(hi, lo, xh, xl)
+        ref = bm.block_mv_ds_plain(hi, lo, xh, xl)
+        scale = torch.einsum("bmk,bk->bm", A64.abs(),
+                             x64.abs()).clamp_min(1e-300)
+        for y, (A, x), r in zip(got, ((hi, xh), (hi, xl), (lo, xh)), ref):
+            assert torch.equal(y, bm.block_mv(A, x)), (nblk, m, kk)
+            d = (y - r).abs().double()
+            assert float((d / scale).max()) <= 2e-6, (nblk, m, kk)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_mv_segments_equals_block_mv_on_padded_on_card(dtype):
+    """On the card: the segment kernel EQUAL as values (torch.equal) to
+    block_mv on the padded table the segments stand for, on the segments
+    of the CPU test and on GS-like ones (d = 12 nf, nf = 3..11, up to
+    several hundred blocks each), and within 1e-5 of sum_j |a_ij x_j| of
+    its plain version."""
+    _card_or_skip()
+    rng = np.random.default_rng(8)
+    gs = [(int(rng.integers(1, 400)), 12 * nf) for nf in range(3, 12)]
+    for segs, width in ((SEGMENTS, SEG_WIDTH), (gs, 132)):
+        blocks = [torch.from_numpy(rng.standard_normal((c, d, d)))
+                  for c, d in segs]
+        nblk = sum(c for c, _ in segs) + 1
+        T = bm.pack_segments(blocks, nblk, width, dtype, "cuda")
+        x = torch.from_numpy(rng.standard_normal((nblk, width)).astype(
+            np.float32)).cuda()
+        y = bm.block_mv_segments(T, x)
+        P = T.padded()
+        assert torch.equal(y, bm.block_mv(P, x))
+        d = (y - bm.block_mv_segments_plain(T, x)).abs().double()
+        scale = torch.einsum("bmk,bk->bm", P.double().abs(),
+                             x.double().abs()).clamp_min(1e-300)
+        assert float((d / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_unsplit_kernels_refuse_misaligned_table_on_card():
+    """On the card: block_mv, block_mv2, block_mv_ds and block_mv_segments
+    refuse a table that does not start on a 16-byte boundary (their bulk
+    copies start there), and so do their C entries."""
+    _card_or_skip()
+    nblk, m, kk = 64, 6, 8
+    flat = torch.zeros(2 + nblk * m * kk, device="cuda")
+    view = flat[1:1 + nblk * m * kk].view(nblk, m, kk)  # 4 bytes off
+    good = torch.zeros((nblk, m, kk), device="cuda")
+    x = torch.zeros((nblk, kk), device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv(view, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv2(good, view, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_ds(good, view, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_ds(view, good, x, x)
+    T = bm.pack_segments([torch.zeros((2, 3, 3))], 3, 3, device="cuda")
+    Tv = bm.SegmentTable(flat[1:1 + T.data.numel()], T.desc, 3, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        bm.block_mv_segments(Tv, torch.zeros((3, 3), device="cuda"))
+    y = torch.empty((nblk, m), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = bm.load_library()
+    assert lib.nstt_block_mv_f32(view.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                 nblk, m, kk, stream) != 0
+    y2, y3 = torch.empty_like(y), torch.empty_like(y)
+    for a_hi, a_lo in ((view, good), (good, view)):
+        assert lib.nstt_block_mv_ds_f32(
+            a_hi.data_ptr(), a_lo.data_ptr(), x.data_ptr(), x.data_ptr(),
+            y.data_ptr(), y2.data_ptr(), y3.data_ptr(), nblk, m, kk,
+            stream) != 0
+    xs, ys = torch.zeros((3, 3), device="cuda"), torch.empty((3, 3),
+                                                             device="cuda")
+    assert lib.nstt_block_mv_seg_f32(
+        Tv.data.data_ptr(), Tv.data.numel(), Tv.desc.ctypes.data,
+        Tv.desc_dev.data_ptr(), 1, xs.data_ptr(), ys.data_ptr(), 3, 3,
+        stream) != 0
+
+# -- batched_local_matvec, and block_mv_ds on its tables -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_local_matvec_kernel_matches_plain_on_card(dtype):
+    """On the card: the kernel against its plain version at the transient
+    step's block sizes (54 x 54 element blocks, 4 x 4 pressure blocks), at
+    sizes that leave a ragged last tile, and at the edges of its CTA
+    stretches (``EDGE_LOCAL``, views at 4-, 8- and 12-byte offsets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bm.reset_launches()
+    shapes = [(ne, nb, 0) for ne, nb in ((700, 54), (3001, 4), (77, 12),
+                                         (1, 1), (5, 130))] + EDGE_LOCAL
+    for ne, nb, off in shapes:
+        fa = torch.randn(off + ne * nb * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        fu = torch.randn(off + ne * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        A, u = fa[off:].view(ne, nb, nb), fu[off:].view(ne, nb)
+        y = batched_local_matvec(A, u)
+        scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
+        d = (y - batched_local_matvec_plain(A, u)).abs().double()
+        assert float((d / scale).max()) <= TOL[dtype]
+    torch.cuda.synchronize()
+    key = ("batched_local_matvec" if dtype == "float32"
+           else "batched_local_matvec_f64")
+    assert bm.LAUNCHES[key] == len(shapes)
+
+
+@pytest.mark.cuda
+def test_block_mv_ds_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape in ((300, 54, 54), (301, 4, 54), (299, 54, 4), (5, 3, 7)):
+        A64 = torch.randn(shape, generator=gen, device="cuda",
+                          dtype=torch.float64)
+        x64 = torch.randn((shape[0], shape[2]), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        hi, lo = bm.split_f64(A64)
+        xh, xl = bm.split_f64(x64)
+        got = bm.block_mv_ds(hi, lo, xh, xl)
+        ref = bm.block_mv_ds_plain(hi, lo, xh, xl)
+        scale = torch.einsum("bmk,bk->bm", A64.abs(), x64.abs())
+        for g, r in zip(got, ref):
+            assert float(((g - r).abs().double() / scale).max()) <= 2e-6
+    torch.cuda.synchronize()
+
+# -- the microbenchmark kernels (ops/stream_mv.py) ----------------------
+
+
+@pytest.mark.cuda
+def test_stream_mv_kernels_match_plain_on_card():
+    """On the card: every kernel against its plain version and bitwise
+    against ``block_mv``, at the bench block and at ragged sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (333, 54, 12),
+                       (301, 4, 53)):
+        A = torch.randn((nblk, m, k), generator=gen, device="cuda")
+        x = torch.randn((nblk, k), generator=gen, device="cuda")
+        ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
+        got = [sm.block_mv_rows(A, x, r) for r in (0, 1, 5, 64, 432, 864)]
+        got += [sm.make_bmv_splitk_seq(A, ns, 128)(x) for ns in (2, 8)]
+        got += [sm.block_mv_mega(A, x, kt, 4 * r)
+                for kt, r in ((1, 1), (2, 8), (4, 32))]
+        got += [sm.block_mv_ring(A, x, nbuf, 4 * r)
+                for nbuf, r in ((1, 1), (2, 16), (8, 16), (3, 5))]
+        torch.cuda.synchronize()
+        for y in got:
+            assert torch.equal(y, ref)
+            assert float((y - want).abs().max()) <= 1e-4
+    # block_mv_soa: one partial element tile, nb = 1 and 64; bitwise equal
+    # to block_mv on the AoS table.  The tensor maps need 16-byte strides,
+    # so ne % 4 == 0 (pack_soa pads to 256): 333 is refused
+    for nb, ne in ((54, 7936), (7, 1000), (64, 336), (7, 4), (1, 260),
+                   (64, 7936)):
+        A2 = torch.randn((nb, nb, ne), generator=gen, device="cuda")
+        uT = torch.randn((nb, ne), generator=gen, device="cuda")
+        y = sm.block_mv_soa(A2, uT)
+        torch.cuda.synchronize()
+        assert float((y - sm.block_mv_soa_plain(A2, uT)).abs().max()) <= 1e-4
+        ref = bm.block_mv(A2.permute(2, 0, 1).contiguous(), uT.T.contiguous())
+        assert torch.equal(y.T, ref), (nb, ne)
+    with pytest.raises(ValueError):
+        sm.block_mv_soa(torch.zeros((64, 64, 333), device="cuda"),
+                        torch.zeros((64, 333), device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 12, 64, 128])
+def test_block_mv_ring_equals_block_mv_on_card(rows):
+    """On the card: the producer/consumer ring at every depth 1..8 bitwise
+    equal to ``block_mv`` and within 1e-4 of the plain version -- on the
+    bench block (its last stage ragged at 64 and 128 rows), on 7 x 13
+    blocks (a ragged last stage at every row count, a table tail that is
+    not whole 16-byte units, x stretches starting anywhere in a 16-byte
+    unit), with x a view 0 or 4 bytes past a 16-byte boundary, and on a
+    table of fewer tiles than the card holds CTAs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (3, 5, 4)):
+        A = torch.randn((nblk, m, k), generator=gen, device="cuda")
+        for off in (0, 1):
+            flat = torch.randn(off + nblk * k, generator=gen, device="cuda")
+            x = flat[off:].view(nblk, k)
+            ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
+            for nbuf in range(1, 9):
+                y = sm.block_mv_ring(A, x, nbuf, rows)
+                torch.cuda.synchronize()
+                assert torch.equal(y, ref), (nblk, m, k, off, nbuf)
+                assert float((y - want).abs().max()) <= 1e-4
+
+# -- KernelTimer and the device spin ------------------------------------
+
+
+@pytest.mark.cuda
+def test_kernel_timer_and_device_spin_on_card():
+    """On the card: the spin keeps the stream busy in proportion to the
+    cycles it is given, KernelTimer returns a median time, and Timer's
+    Stop fences on a CUDA tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the spin is a CUDA kernel")
+    from navier_stokes_tpu_torch.ops.block_mv import device_spin
+
+    def spin_ms(cycles):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        device_spin(cycles)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e)
+
+    spin_ms(1000)
+    short, long = spin_ms(10_000_000), spin_ms(20_000_000)
+    assert 1.0 < short < long  # 10 M cycles: about 5 ms at 1.98 GHz
+    assert 1.6 <= long / short <= 2.4
+    a = torch.randn(4096, 4096, device="cuda")
+    ms = KernelTimer(reps=5)(lambda: a @ a)
+    assert 0 < ms < 1000
+    t = Timer("matmul").Start()
+    y = a @ a
+    assert t.Stop(y) == t.time > 0

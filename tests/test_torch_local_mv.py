@@ -12,8 +12,8 @@ products with the JAX package's Pallas kernels.
   shapes of B (m = 4) and BT (k = 4): rtol 2e-6, atol 1e-5 as there, and
   the f64 sum of the three against the f64 product.
 
-The comparison of each CUDA kernel with its plain version on the card
-carries the ``cuda`` marker and skips without a GPU.
+The comparison of each CUDA kernel with its plain version on the card is
+in ``tests/test_torch_cuda.py`` (``cuda`` marker, no JAX import).
 """
 
 import jax.numpy as jnp
@@ -194,53 +194,3 @@ def test_block_mv_ds_rejects_bad_inputs():
         bm.block_mv_ds(A, torch.zeros((4, 5, 5)), x, x)
     with pytest.raises((TypeError, ValueError)):
         bm.block_mv_ds(A, A, x, torch.zeros((4, 3)))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_batched_local_matvec_kernel_matches_plain_on_card(dtype):
-    """On the card: the kernel against its plain version at the transient
-    step's block sizes (54 x 54 element blocks, 4 x 4 pressure blocks), at
-    sizes that leave a ragged last tile, and at the edges of its CTA
-    stretches (``EDGE_LOCAL``, views at 4-, 8- and 12-byte offsets)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    bm.reset_launches()
-    shapes = [(ne, nb, 0) for ne, nb in ((700, 54), (3001, 4), (77, 12),
-                                         (1, 1), (5, 130))] + EDGE_LOCAL
-    for ne, nb, off in shapes:
-        fa = torch.randn(off + ne * nb * nb, generator=gen, device="cuda",
-                         dtype=dt)
-        fu = torch.randn(off + ne * nb, generator=gen, device="cuda",
-                         dtype=dt)
-        A, u = fa[off:].view(ne, nb, nb), fu[off:].view(ne, nb)
-        y = batched_local_matvec(A, u)
-        scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
-        d = (y - batched_local_matvec_plain(A, u)).abs().double()
-        assert float((d / scale).max()) <= TOL[dtype]
-    torch.cuda.synchronize()
-    key = ("batched_local_matvec" if dtype == "float32"
-           else "batched_local_matvec_f64")
-    assert bm.LAUNCHES[key] == len(shapes)
-
-
-@pytest.mark.cuda
-def test_block_mv_ds_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for shape in ((300, 54, 54), (301, 4, 54), (299, 54, 4), (5, 3, 7)):
-        A64 = torch.randn(shape, generator=gen, device="cuda",
-                          dtype=torch.float64)
-        x64 = torch.randn((shape[0], shape[2]), generator=gen, device="cuda",
-                          dtype=torch.float64)
-        hi, lo = bm.split_f64(A64)
-        xh, xl = bm.split_f64(x64)
-        got = bm.block_mv_ds(hi, lo, xh, xl)
-        ref = bm.block_mv_ds_plain(hi, lo, xh, xl)
-        scale = torch.einsum("bmk,bk->bm", A64.abs(), x64.abs())
-        for g, r in zip(got, ref):
-            assert float(((g - r).abs().double() / scale).max()) <= 2e-6
-    torch.cuda.synchronize()

@@ -17,8 +17,8 @@ with the variant's own grouping of tiles, written out as the script does it:
 
 On the CPU every wrapper takes its plain version; float32, rtol 1e-5 of
 sum_j |a_ij x_j| (f32 sums in another order).  The comparison of each CUDA
-kernel with its plain version on the card carries the ``cuda`` marker and
-skips without a GPU.
+kernel with its plain version on the card is in ``tests/test_torch_cuda.py``
+(``cuda`` marker, no JAX import).
 """
 
 import jax.numpy as jnp
@@ -314,68 +314,3 @@ def test_stream_mv_rejects_bad_inputs(case):
             sm.block_mv_soa(A2.double(), uT.double())
         else:
             sm.block_mv_soa(A2.transpose(0, 1)[:, :, ::2], uT[:, ::2])
-
-
-@pytest.mark.cuda
-def test_stream_mv_kernels_match_plain_on_card():
-    """On the card: every kernel against its plain version and bitwise
-    against ``block_mv``, at the bench block and at ragged sizes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (333, 54, 12),
-                       (301, 4, 53)):
-        A = torch.randn((nblk, m, k), generator=gen, device="cuda")
-        x = torch.randn((nblk, k), generator=gen, device="cuda")
-        ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
-        got = [sm.block_mv_rows(A, x, r) for r in (0, 1, 5, 64, 432, 864)]
-        got += [sm.make_bmv_splitk_seq(A, ns, 128)(x) for ns in (2, 8)]
-        got += [sm.block_mv_mega(A, x, kt, 4 * r)
-                for kt, r in ((1, 1), (2, 8), (4, 32))]
-        got += [sm.block_mv_ring(A, x, nbuf, 4 * r)
-                for nbuf, r in ((1, 1), (2, 16), (8, 16), (3, 5))]
-        torch.cuda.synchronize()
-        for y in got:
-            assert torch.equal(y, ref)
-            assert float((y - want).abs().max()) <= 1e-4
-    # block_mv_soa: one partial element tile, nb = 1 and 64; bitwise equal
-    # to block_mv on the AoS table.  The tensor maps need 16-byte strides,
-    # so ne % 4 == 0 (pack_soa pads to 256): 333 is refused
-    for nb, ne in ((54, 7936), (7, 1000), (64, 336), (7, 4), (1, 260),
-                   (64, 7936)):
-        A2 = torch.randn((nb, nb, ne), generator=gen, device="cuda")
-        uT = torch.randn((nb, ne), generator=gen, device="cuda")
-        y = sm.block_mv_soa(A2, uT)
-        torch.cuda.synchronize()
-        assert float((y - sm.block_mv_soa_plain(A2, uT)).abs().max()) <= 1e-4
-        ref = bm.block_mv(A2.permute(2, 0, 1).contiguous(), uT.T.contiguous())
-        assert torch.equal(y.T, ref), (nb, ne)
-    with pytest.raises(ValueError):
-        sm.block_mv_soa(torch.zeros((64, 64, 333), device="cuda"),
-                        torch.zeros((64, 333), device="cuda"))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [4, 12, 64, 128])
-def test_block_mv_ring_equals_block_mv_on_card(rows):
-    """On the card: the producer/consumer ring at every depth 1..8 bitwise
-    equal to ``block_mv`` and within 1e-4 of the plain version -- on the
-    bench block (its last stage ragged at 64 and 128 rows), on 7 x 13
-    blocks (a ragged last stage at every row count, a table tail that is
-    not whole 16-byte units, x stretches starting anywhere in a 16-byte
-    unit), with x a view 0 or 4 bytes past a 16-byte boundary, and on a
-    table of fewer tiles than the card holds CTAs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(rows)
-    for nblk, m, k in ((700, 54, 54), (1001, 7, 13), (3, 5, 4)):
-        A = torch.randn((nblk, m, k), generator=gen, device="cuda")
-        for off in (0, 1):
-            flat = torch.randn(off + nblk * k, generator=gen, device="cuda")
-            x = flat[off:].view(nblk, k)
-            ref, want = bm.block_mv(A, x), bm.block_mv_plain(A, x)
-            for nbuf in range(1, 9):
-                y = sm.block_mv_ring(A, x, nbuf, rows)
-                torch.cuda.synchronize()
-                assert torch.equal(y, ref), (nblk, m, k, off, nbuf)
-                assert float((y - want).abs().max()) <= 1e-4

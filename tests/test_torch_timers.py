@@ -8,7 +8,7 @@ the card of each CUDA tensor, where the reference runs
 ``.time`` and returns it, and the timer works as a context manager.  Both
 run the same sequence of calls, each on its own copy of one scripted
 clock, so their ``.time`` must agree exactly.  The CUDA-event ``KernelTimer`` and the device spin it
-runs are checked on the card (``cuda`` marker).
+runs are checked on the card, in ``tests/test_torch_cuda.py``.
 """
 
 import types
@@ -21,7 +21,7 @@ import torch
 import navier_stokes_tpu.utils.timers as jax_timers
 import navier_stokes_tpu_torch.utils.timers as torch_timers
 from navier_stokes_tpu.utils.timers import Timer as JaxTimer
-from navier_stokes_tpu_torch.utils.timers import KernelTimer, Timer
+from navier_stokes_tpu_torch.utils.timers import Timer
 
 STEPS = [0.25, 1.5, 0.125, 2.0, 0.5, 3.0, 0.75, 4.0]  # seconds per read
 
@@ -98,33 +98,3 @@ def test_timer_keeps_its_name():
     assert Timer("apply A").name == JaxTimer("apply A").name == "apply A"
     assert Timer().name == JaxTimer().name == ""
     assert Timer().time == JaxTimer().time == 0.0
-
-
-@pytest.mark.cuda
-def test_kernel_timer_and_device_spin_on_card():
-    """On the card: the spin keeps the stream busy in proportion to the
-    cycles it is given, KernelTimer returns a median time, and Timer's
-    Stop fences on a CUDA tensor."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the spin is a CUDA kernel")
-    from navier_stokes_tpu_torch.ops.block_mv import device_spin
-
-    def spin_ms(cycles):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        device_spin(cycles)
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e)
-
-    spin_ms(1000)
-    short, long = spin_ms(10_000_000), spin_ms(20_000_000)
-    assert 1.0 < short < long  # 10 M cycles: about 5 ms at 1.98 GHz
-    assert 1.6 <= long / short <= 2.4
-    a = torch.randn(4096, 4096, device="cuda")
-    ms = KernelTimer(reps=5)(lambda: a @ a)
-    assert 0 < ms < 1000
-    t = Timer("matmul").Start()
-    y = a @ a
-    assert t.Stop(y) == t.time > 0

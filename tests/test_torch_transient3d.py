@@ -386,7 +386,9 @@ def test_f32_step_matches_jax_f32_step(plates):
 def test_do_time_step_and_solve_initial_timesteps(plates):
     """``DoTimeStep`` moves the model's state by the step function, and
     ``SolveInitial(timesteps=2)`` (pseudo-time Stokes steps, each projected)
-    matches the JAX package's; the BPCG branch names its ROADMAP item."""
+    matches the JAX package's; ``SolveInitial()`` is the BPCG initial solve,
+    which converges (tests/test_torch_bpcg.py holds it to the JAX
+    package's)."""
     mj, mp = plates["mj"], plates["mp"]
     u0, p0, uj0, pj0 = mp.u, mp.p, mj.u, mj.p
     try:
@@ -398,28 +400,16 @@ def test_do_time_step_and_solve_initial_timesteps(plates):
         mj.SolveInitial(timesteps=2)
         assert _rel(np.asarray(mj.u), mp.u.numpy()) <= 1e-8
         assert float(torch.linalg.norm(mp.B_raw(mp.u))) <= 1e-7
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mp.SolveInitial()
+        res = mp.SolveInitial(tol=1e-10, maxsteps=5000)
+        assert res.converged and mp.stokes_bpcg_iterations == res.iterations
+        assert float(torch.linalg.norm(mp.B_raw(mp.u))) <= 1e-7
     finally:
         mp.u, mp.p, mj.u, mj.p = u0, p0, uj0, pj0
 
 
-@pytest.mark.parametrize("what", ["enclosed", "AddForce",
-                                  "reconstruct_stress", "flagship_f32"])
-def test_left_out_parts_raise(plates, what):
-    mp, mp32 = plates["mp"], plates["mp32"]
-    if what == "enclosed":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NavierStokesMCS(
-                mp.mesh, nu=1.0, inflow="diri", outflow="", wall="outlet",
-                uin=_plates_uin, timestep=1e-3, device="cpu",
-                assembly_cache={"tabs3d": mp_tables(mp),
-                                "cond": (mp._Acc_inv, mp.A_cond_np)})
-    elif what == "flagship_f32":
-        from navier_stokes_tpu_torch.flagship import FlagshipSolve
+def test_left_out_parts_raise(plates):
+    """The flagship solve refuses a float32 model."""
+    from navier_stokes_tpu_torch.flagship import FlagshipSolve
 
-        with pytest.raises(TypeError, match="float64"):
-            FlagshipSolve(mp32)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(mp, what)(None)
+    with pytest.raises(TypeError, match="float64"):
+        FlagshipSolve(plates["mp32"])
