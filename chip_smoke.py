@@ -11,7 +11,7 @@ phases; any failed phase ends the run with a non-zero exit:
    and print the build seconds and the card;
 2. cuda-tests: ``python -m pytest --noconftest -m cuda
    tests/test_torch_cuda.py`` from the repository root -- the card-only
-   tests, which import no JAX -- must pass all 24 cases, none skipped;
+   tests, which import no JAX -- must pass all 29 cases, none skipped;
 3. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
@@ -73,12 +73,20 @@ phases; any failed phase ends the run with a non-zero exit:
     projection's reduction of ||B u||, whether a step is bitwise
     repeatable, per-piece milliseconds and the device busy share; then 3
     float64 steps (project_tol=1e-9) from the flagship solution, the
-    counters read after the first;
+    counters read after the first; then repeat: two f32 steps from the
+    same state must give bitwise equal increments and equal CG counts
+    (every scatter of the port is a deterministic ``ScatterPlan``);
 13. bench: the port's bench line (``navier_stokes_tpu_torch.bench.measure``
     on the models already built and the main path's cold and warm flagship
     solves, checked within 460 inner iterations, then calibrated warm f32
     steps), its keys checked;
-    printed on a line before the kernels' line;
+    printed on a line before the kernels' line; then refine:
+    ``mixed_precision_minres_refinement_2phase`` to 1e-8 on the main
+    path's model and its ``equilibrated_f32_ops(gs=True)``, once with the
+    native f64 A, B, B^T as ops64 and once with the compensated
+    ``block_mv_comp`` operators wrapped back to the unscaled system (held
+    to the native ones within 1e-12 first): passes, inner iterations, the
+    true f64 residual (<= 1.01e-8) and seconds of each;
 14. microbench: the two ported microbenchmark scripts
     (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
     7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
@@ -90,7 +98,21 @@ phases; any failed phase ends the run with a non-zero exit:
     AMG-preconditioned CG on the P1 stiffness to 1e-8 in under 40
     iterations with the V-cycle symmetric to 1e-10, the curved GS flagship
     solve cold and warm to a true f64 residual <= 1.01e-8, and one cold and
-    three warm float32 transient steps.
+    three warm float32 transient steps;
+16. hdg3d: ``NavierStokesHDG3D`` at the demo's configuration
+    (scripts/navier_stokes_3d.py --hdg, the reference's
+    NavierStokesSIMPLE_test_3D.py: the straight channel at maxh=0.09,
+    order 2, nu=1e-3, dt=2e-3, the auxspace preconditioner with 1,794
+    vertex-star blocks of up to 1,056 dofs, their inverses taken on the
+    card in f64), after the MCS models are let go: setup seconds by part;
+    kernel 8 on its f64 element and vertex-star tables against the plain
+    version; ``SolveInitial(tol=1e-8)`` (BPCG iterations, seconds, launches
+    per iteration, true f64 residual <= 1.01e-8); ``Project`` (||B u|| <
+    1e-7); two steps from the same state bitwise equal; 3 ``DoTimeStep``s
+    (finite, steps/s, CG counts, launches per step); an f32 twin whose
+    kernel-8 and kernel-1 tables are checked the same way, and
+    ``solve_initial_refined`` on the pair (its guard: a finite result
+    below the starting residual, reported).
 
 The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
@@ -116,6 +138,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -165,7 +188,7 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
-CUDA_TEST_CASES = 24  # 15 tests, 24 cases with their parameters
+CUDA_TEST_CASES = 29  # 19 tests, 29 cases with their parameters
 # [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
 # curved model at maxh=0.09, and the two faceblock variants on the shortened
 # channel of tests/test_navier_stokes_mcs3d.py:_channel3d
@@ -198,6 +221,9 @@ BPCG_SMALL_MAXH = 0.35
 BPCG_SMALL_JAX = {False: (931, 213.54712387600733),
                   True: (806, 664.0271504968791)}
 BPCG_SMALL_BAND = 0.02
+# [hdg3d]: NavierStokesHDG3D at the demo's configuration (the reference's
+# NavierStokesSIMPLE_test_3D.py through scripts/navier_stokes_3d.py --hdg)
+HDG_MAXH, HDG_MAXSTEPS = 0.09, 20000
 # the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
 # the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
 # * k not a multiple of 4 floats or 8 bf16 entries (ragged tails of up to 7
@@ -1179,7 +1205,7 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
         f"launches {launches}")
     check(launches["batched_local_matvec"] > 0,
           "batched_local_matvec never launched in the step")
-    # is a step bitwise repeatable?  (index_add_ uses float atomics)
+    # is a step bitwise repeatable?  ([repeat] holds it to that)
     u_again = step(u0)
     same = torch.equal(u, u_again)
     log(f"[transient] the same step again: bitwise "
@@ -1582,6 +1608,269 @@ def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
     projection_check(torch, m32, u, "[amg] (c)")
 
 
+def repeat_phase(torch, m, step):
+    """[repeat]: two f32 SIMPLE steps of the MCS stepping model ``m`` from
+    its state must give bitwise equal increments (every scatter of the
+    step goes through a deterministic ``ScatterPlan``), with equal CG
+    counts."""
+    t0 = time.perf_counter()
+    u0 = m.u
+    u1 = step(u0)
+    c1 = dict(m.last_iterations)
+    u2 = step(u0)
+    c2 = dict(m.last_iterations)
+    torch.cuda.synchronize()
+    same = torch.equal(u1 - u0, u2 - u0)
+    log(f"[repeat] MCS f32 step twice from the same state: increments "
+        f"{'bitwise equal' if same else 'DIFFERENT'}, max |d| "
+        f"{float((u1 - u2).abs().max()):.3e} (max |u1 - u0| "
+        f"{float((u1 - u0).abs().max()):.3e}), CG counts {c1} / {c2} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(same, "[repeat] two f32 steps from the same state differ")
+    check(c1 == c2, f"[repeat] CG counts differ: {c1} / {c2}")
+    return time.perf_counter() - t0
+
+
+def refine_phase(torch, bm, solver):
+    """[refine]: ``mixed_precision_minres_refinement_2phase`` to 1e-8 on the
+    main path's model and its ``equilibrated_f32_ops(gs=True)`` (phase 1:
+    block_mv2 on A32/B32/BT32, block_mv on the preconditioner's tables),
+    twice: with ``ops64`` the model's native f64 A / B / B^T, as the JAX
+    package's CPU path, and with ``ops64`` built from the compensated
+    double-single kernel (block_mv_comp, the TPU bench's substitute),
+    wrapped back to the unscaled system and held to the native operators
+    within 1e-12 relative first.  Per run: passes, inner iterations, the
+    true f64 relative residual (<= 1.01e-8, finite), wall seconds and the
+    launches."""
+    from navier_stokes_tpu_torch.solvers.refinement import (
+        mixed_precision_minres_refinement_2phase,
+    )
+
+    t_phase = time.perf_counter()
+    m, D, ods = solver.m, solver.D, solver.ops_ds
+    Dinv = 1.0 / D
+    native = dict(A=m.A, B=m.B, BT=m.BT)
+    comp = dict(A=lambda u: Dinv * ods["A"](Dinv * u),
+                B=lambda u: ods["B"](Dinv * u),
+                BT=lambda p: Dinv * ods["BT"](p))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    u = torch.randn(m.n, generator=gen, device="cuda", dtype=torch.float64)
+    p = torch.randn(m.Q.ndof, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    for name, x in (("A", u), ("B", u), ("BT", p)):
+        want, got = native[name](x), comp[name](x)
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        log(f"[refine] compensated {name} wrapped to the unscaled system: "
+            f"{rel:.3e} relative to the native f64 operator")
+        check(rel <= 1e-12, f"[refine] the compensated {name} is {rel:.3e} "
+              "off the native f64 operator")
+    results = {}
+    for label, ops64 in (("native f64", native),
+                         ("compensated (block_mv_comp)", comp)):
+        bm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (x0, x1), r, (p1, p2), inner = \
+            mixed_precision_minres_refinement_2phase(
+                ops64, solver.ops32, D, solver.f_mod, solver.g_mod, tol=TOL)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(bm.LAUNCHES)
+        true_rel = solver.true_rel(*solver.residual64(x0, x1))
+        results[label] = (p1, p2, inner, true_rel, secs)
+        log(f"[refine] 2-phase, ops64 {label}: passes ({p1}, {p2}), inner "
+            f"{inner}, driver rel {r:.3e}, true f64 rel {true_rel:.3e}, "
+            f"{secs:.3f} s (FlagshipSolve: 358 inner to 9.152e-10); "
+            f"launches {launches}")
+        check(true_rel <= 1.01 * TOL and math.isfinite(true_rel),
+              f"[refine] {label}: true residual {true_rel:.3e}")
+        check(bool(torch.isfinite(x0).all() and torch.isfinite(x1).all()),
+              f"[refine] {label}: the solution is not finite")
+        for name in ("block_mv", "block_mv2"):
+            check(launches.get(name, 0) > 0,
+                  f"[refine] {label}: {name} never launched")
+    check(bm.LAUNCHES.get("block_mv_comp", 0) > 0,
+          "[refine] the compensated run never launched block_mv_comp")
+    secs = time.perf_counter() - t_phase
+    log(f"[refine] phase {secs:.1f} s")
+    return secs
+
+
+def hdg_true_rel(torch, m):
+    """The true relative residual of the HDG model's initial Stokes system
+    at its state (u, p), through its f64 operators."""
+    f_mod = torch.where(m.free, m.f - m.A_raw(m.u_bc), 0.0)
+    g_mod = -m.B_raw(m.u_bc)
+    du = m.u - m.u_bc
+    r0 = f_mod - m.A(du) - m.BT(m.p)
+    r1 = g_mod - m.B(du)
+    return float(torch.sqrt(torch.dot(r0, r0) + torch.dot(r1, r1))
+                 / torch.sqrt(torch.dot(f_mod, f_mod)
+                              + torch.dot(g_mod, g_mod)))
+
+
+def hdg3d_phase(torch, bm, lm, timer, gen, reports):
+    """[hdg3d]: ``NavierStokesHDG3D`` at the demo's configuration (the
+    reference's NavierStokesSIMPLE_test_3D.py through
+    scripts/navier_stokes_3d.py --hdg: the straight channel at
+    ``HDG_MAXH``, order 2, nu = 1e-3, dt = 2e-3, auxspace preconditioner):
+    setup by part; kernel 8 on each f64 table it launches (A, M, the
+    vertex-star inverses) against its plain version; ``SolveInitial(tol=
+    1e-8)`` (iterations, seconds, true f64 residual <= 1.01e-8);
+    ``Project`` (||B u|| < 1e-7); two steps from the same state bitwise
+    equal ([repeat]); 3 ``DoTimeStep``s (finite; steps/s, CG counts);
+    then an f32 twin, kernel 8 (f32) and kernel 1 on its tables, and
+    ``solve_initial_refined`` (the guard: a finite result whose residual
+    is below the start's).  Launches per BPCG iteration and per step.
+    Returns (seconds, launches of the f64 path, launches of the refined
+    run)."""
+    from navier_stokes_tpu_torch.flagship import uin
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh_3d,
+    )
+    from navier_stokes_tpu_torch.models import NavierStokesHDG3D
+    from navier_stokes_tpu_torch.solvers.refinement import (
+        solve_initial_refined,
+    )
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = channel_with_cylinder_mesh_3d(HDG_MAXH)
+    t_mesh = time.perf_counter() - t0
+    kw = dict(nu=NU, inflow="inlet", outflow="outlet", wall="wall|cyl",
+              uin=uin, timestep=2e-3, order=ORDER, device="cuda")
+    cache = {}
+    t0 = time.perf_counter()
+    m = NavierStokesHDG3D(mesh, assembly_cache=cache, **kw)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    T = m.preA.table
+    nblk, bmax, _ = T.shape
+    log(f"[hdg3d] maxh={HDG_MAXH}: {mesh.ne} tets, {mesh.nv} vertices, "
+        f"ndof={m.n}+{m.Q.ndof}; mesh {t_mesh:.1f} s, model {t_model:.1f} "
+        "s: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                          m.setup_seconds.items())
+        + f"; vertex-star inverses {nblk} x {bmax} x {bmax} f64 "
+        f"({nbytes(T) / 1e9:.2f} GB padded), device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    check(bool(torch.isfinite(T).all()), "[hdg3d] non-finite block inverse")
+    rep64 = reports["batched_local_matvec_f64_hdg3d"]
+    for tname, A in (("A", m.A_loc), ("M", m.M_loc),
+                     ("vertex-star inverses", T)):
+        check_local_mv(torch, lm, timer, rep64, f"hdg3d {tname}", A, gen)
+
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = m.SolveInitial(iterative=True, tol=TOL, maxsteps=HDG_MAXSTEPS)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    solve_launches = dict(bm.LAUNCHES)
+    true_rel = hdg_true_rel(torch, m)
+    per_it = {k: round(v / max(res.iterations, 1), 2)
+              for k, v in solve_launches.items() if v}
+    log(f"[hdg3d] SolveInitial(tol={TOL:g}): {res.iterations} BPCG "
+        f"iterations (converged {res.converged}), {t_solve:.3f} s "
+        f"(stokes_bpcg_time {m.stokes_bpcg_time:.3f} s, "
+        f"{1e3 * t_solve / max(res.iterations, 1):.2f} ms per iteration), "
+        f"scale_k {m.stokes_bpcg_scale_k:.6g}; true f64 rel residual "
+        f"{true_rel:.3e}; launches {solve_launches}, per iteration {per_it}")
+    check(res.converged, f"[hdg3d] BPCG did not converge in {HDG_MAXSTEPS}")
+    check(true_rel <= 1.01 * TOL, f"[hdg3d] true residual {true_rel:.3e}")
+    check(solve_launches.get("batched_local_matvec_f64", 0) > 0,
+          "[hdg3d] kernel 8 never launched in the solve")
+
+    t0 = time.perf_counter()
+    bu0 = float(torch.linalg.norm(m.B_raw(m.u)))
+    m.Project()
+    torch.cuda.synchronize()
+    bu = float(torch.linalg.norm(m.B_raw(m.u)))
+    log(f"[hdg3d] Project: ||B u|| {bu0:.3e} -> {bu:.3e}, projection CG "
+        f"{m.last_iterations['project']}, {time.perf_counter() - t0:.3f} s "
+        f"(Chebyshev setup {m.setup_seconds.get('mass chebyshev', 0):.1f} "
+        "s)")
+    check(bu < 1e-7, f"[hdg3d] ||B u|| = {bu:.3e} after Project")
+
+    t0 = time.perf_counter()
+    step = m.make_step_fn()
+    torch.cuda.synchronize()
+    log(f"[hdg3d] step setup {time.perf_counter() - t0:.1f} s (convection "
+        f"{m.setup_seconds.get('convection', 0):.1f} s)")
+    u0 = m.u
+    u1 = step(u0)
+    c1 = dict(m.last_iterations)
+    u2 = step(u0)
+    torch.cuda.synchronize()
+    same = torch.equal(u1 - u0, u2 - u0)
+    log(f"[repeat] HDG3D f64 step twice from the same state: increments "
+        f"{'bitwise equal' if same else 'DIFFERENT'}, max |d| "
+        f"{float((u1 - u2).abs().max()):.3e} (max |u1 - u0| "
+        f"{float((u1 - u0).abs().max()):.3e}), CG counts {c1} / "
+        f"{dict(m.last_iterations)}")
+    check(same, "[repeat] two HDG3D steps from the same state differ")
+    del u1, u2
+
+    counts = []
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        m.DoTimeStep()
+        counts.append(dict(m.last_iterations))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    step_launches = dict(bm.LAUNCHES)
+    path_launches = {k: solve_launches.get(k, 0) + step_launches.get(k, 0)
+                     for k in set(solve_launches) | set(step_launches)}
+    finite = bool(torch.isfinite(m.u).all())
+    log(f"[hdg3d] 3 DoTimeSteps in {t_steps:.3f} s ({3 / t_steps:.3f} "
+        f"steps/s), CG counts {counts}, max |u| {float(m.u.abs().max()):.4f}"
+        f", ||B u|| {float(torch.linalg.norm(m.B_raw(m.u))):.3e}; launches "
+        f"per step {dict((k, v / 3) for k, v in step_launches.items() if v)}")
+    check(finite, "[hdg3d] the steps blew up")
+    check(max(c["project"] for c in counts) < 2000
+          and max(c["mstar"] for c in counts) < 2000,
+          "[hdg3d] a CG ran into maxsteps")
+
+    # the f32 twin and the mixed-precision initial solve
+    t0 = time.perf_counter()
+    m32 = NavierStokesHDG3D(mesh, assembly_cache=cache, dtype=torch.float32,
+                            **kw)
+    torch.cuda.synchronize()
+    log(f"[hdg3d] f32 twin: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in m32.setup_seconds.items())
+        + f"), device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    check_local_mv(torch, lm, timer, reports["batched_local_matvec_hdg3d"],
+                   "hdg3d f32 A", m32.A_loc, gen)
+    check_block_mv(torch, bm, timer, reports["block_mv_hdg3d"],
+                   "hdg3d f32 vertex-star inverses", m32.preA.table, gen)
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, passes, inner = solve_initial_refined(m, m32, tol=TOL)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    ref_launches = dict(bm.LAUNCHES)
+    true_ref = hdg_true_rel(torch, m)
+    log(f"[hdg3d] solve_initial_refined (f32 BPCG inner, tol {TOL:g}): "
+        f"passes {passes}, inner {inner}, driver rel {r:.3e}, true f64 rel "
+        f"{true_ref:.3e}, {t_ref:.3f} s; launches {ref_launches}")
+    check(math.isfinite(r) and r < 1.0 and bool(torch.isfinite(m.u).all()),
+          f"[hdg3d] the refinement guard failed: rel {r}")
+    check(abs(true_ref - r) <= 1e-3 * r + 1e-15,
+          f"[hdg3d] the driver's residual {r:.3e} is not the true one "
+          f"{true_ref:.3e}")
+    for name in ("block_mv", "batched_local_matvec",
+                 "batched_local_matvec_f64"):
+        check(ref_launches.get(name, 0) > 0,
+              f"[hdg3d] {name} never launched in the refined solve")
+    del m, m32, T, cache
+    secs = time.perf_counter() - t_phase
+    log(f"[hdg3d] phase {secs:.1f} s")
+    return secs, path_launches, ref_launches
+
+
 def redesign_order(entries, reports):
     """The order in which the kernels are worth redesigning: first those
     slower than the one PyTorch call for the same function, by the factor;
@@ -1748,6 +2037,14 @@ def run():
                                       SRC_STREAM),
         "block_mv_soa": KernelReport("block_mv_soa", f"{APPLY2}:123",
                                      SRC_STREAM),
+        # the 3D HDG model's tables ([hdg3d]): kernel 8 on its element and
+        # vertex-star tables, kernel 1 on its f32 twin's vertex stars
+        "batched_local_matvec_f64_hdg3d": KernelReport(
+            "batched_local_matvec_f64_hdg3d", f"{PALLAS_LOCAL}:26", SRC_LOCAL,
+            F64_FLOPS_PER_S),
+        "batched_local_matvec_hdg3d": KernelReport(
+            "batched_local_matvec_hdg3d", f"{PALLAS_LOCAL}:26", SRC_LOCAL),
+        "block_mv_hdg3d": KernelReport("block_mv_hdg3d", f"{PALLAS}:118"),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -1897,14 +2194,29 @@ def run():
     launches_t, launches_t64 = transient_phase(torch, bm, m32, step32, m,
                                                m.u_bc + warm.x[0])
 
+    # 12b. the repeatability of the f32 step (every scatter deterministic)
+    t_repeat = repeat_phase(torch, m32, step32)
+
     # 13. the port's bench line on the models already built
     bench_line, t_bench = bench_phase(bench, m, m32, cold, warm, card)
+
+    # 13b. the 2-phase MINRES refinement driver on the main path's model
+    t_refine = refine_phase(torch, bm, solver)
 
     # 14. this slice's path: the two ported microbenchmark scripts
     launches_mb = microbench_phase(bm)
 
     # 15. the SA-AMG coarse solve on a mesh above the dense limit
     amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry)
+
+    # 16. the 3D HDG model: the models of the MCS paths are let go first
+    del solver, solver_s, solver_k, m_s, step32, m32, m
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_hdg, launches_hdg, launches_ref = hdg3d_phase(torch, bm, lm, timer, gen,
+                                                    reports)
 
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
@@ -1918,12 +2230,19 @@ def run():
               **{k: launches_mb[k] for k in ("block_mv_rows", "block_mv_mega",
                                              "block_mv_ring",
                                              "block_mv_soa")},
-              "block_mv_splitk_seq": launches_mb["block_mv_splitk"]}
+              "block_mv_splitk_seq": launches_mb["block_mv_splitk"],
+              "batched_local_matvec_f64_hdg3d":
+                  launches_hdg.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_hdg3d":
+                  launches_ref.get("batched_local_matvec", 0),
+              "block_mv_hdg3d": launches_ref.get("block_mv", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
-    log(f"[time] new phases: cuda-tests {t_cuda_tests:.1f} s, bpcg "
-        f"{t_bpcg:.1f} s, bench {t_bench:.1f} s; whole run "
+    log(f"[time] phases: cuda-tests {t_cuda_tests:.1f} s, bpcg "
+        f"{t_bpcg:.1f} s, bench {t_bench:.1f} s; new: repeat "
+        f"{t_repeat:.1f} s, refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s "
+        f"(together {t_repeat + t_refine + t_hdg:.1f} s); whole run "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,8 +1,10 @@
-"""H(div)-conforming BDM elements on tetrahedra.
+"""H(div)-conforming BDM and RT elements on tetrahedra.
 
 3D extension of fem/hdiv.py (the NGSolve HDiv space on tets, SURVEY.md
 section 2b row 2).  BDM_k = [P_k]^3 with face dofs = moments of the normal
-trace against the orthonormal 2D Dubiner basis on the face.
+trace against the orthonormal 2D Dubiner basis on the face; RT_k =
+[P_k]^3 + x * (homogeneous P_k) with the same face moments (``rt_tet``,
+``HDiv3D(RT=True)``).
 
 Orientation strategy: face moments are defined in the face's GLOBAL frame —
 the face is parametrized from its sorted global vertices
@@ -108,6 +110,67 @@ def bdm_tet(order: int, combo: tuple) -> TetBDMBasis:
     )
 
 
+def rt_tet(order: int, combo: tuple) -> TetBDMBasis:
+    """RT_k on the reference tet: [P_k]^3 + x * (homogeneous P_k), face
+    moments against P_k in the global frames of ``combo`` (2D analogue:
+    fem/hdiv.py::rt_triangle)."""
+    k = order
+    kk = k + 1  # RT_k lives inside [P_{k+1}]^3
+    M = (kk + 1) * (kk + 2) * (kk + 3) // 6
+    dim_big = 3 * M
+    # spanning set fitted in the degree-(k+1) vector modal frame
+    rng = np.random.default_rng(0)
+    pts = rng.random((6 * dim_big, 3))
+    pts = pts[pts.sum(1) < 0.98]
+    vm, _ = _vector_modal_eval_3d(pts, kk)
+    span = []
+    vk, _ = tet_modal(pts, k)
+    for m in range(vk.shape[1]):
+        for c in range(3):
+            col = np.zeros((len(pts), 3))
+            col[:, c] = vk[:, m]
+            span.append(col)
+    for i in range(k + 1):  # x * homogeneous monomials x^a y^b z^(k-a-b)
+        for j in range(k + 1 - i):
+            mono = pts[:, 0] ** i * pts[:, 1] ** j * pts[:, 2] ** (k - i - j)
+            span.append(pts * mono[:, None])
+    vm2 = vm.transpose(0, 2, 1).reshape(-1, dim_big)
+    coeff_span = []
+    for fcol in span:
+        c, *_ = np.linalg.lstsq(vm2, fcol.reshape(-1), rcond=None)
+        coeff_span.append(c)
+    S = np.stack(coeff_span)
+    q, r = np.linalg.qr(S.T)
+    rank = int(np.sum(np.abs(np.diag(r)) > 1e-9))
+    basis_rt = q[:, :rank].T  # (nrt, dim_big)
+
+    nfd = (k + 1) * (k + 2) // 2
+    q2 = triangle_rule(2 * k + 4)
+    fvals, _ = triangle_modal(q2.points, k)
+    rows = []
+    for lf in range(4):
+        origin, e1, e2, n = face_frame(combo[lf], lf)
+        pts_f = (
+            origin[None] + q2.points[:, :1] * e1[None]
+            + q2.points[:, 1:2] * e2[None]
+        )
+        vm_f, _ = _vector_modal_eval_3d(pts_f, kk)
+        vn = np.einsum("qnc,c->qn", vm_f, n) @ basis_rt.T  # RT frame
+        for j in range(nfd):
+            rows.append(np.einsum("q,q,qn->n", q2.weights, fvals[:, j], vn))
+    L = np.stack(rows)
+    W_face = np.linalg.pinv(L)
+    _, _, Vt = np.linalg.svd(L)
+    null = Vt[np.linalg.matrix_rank(L, tol=1e-9):].T
+    coeffs_rt = np.concatenate([W_face, null], axis=1).T
+    coeffs = coeffs_rt @ basis_rt  # back to the degree-(k+1) modal frame
+    nb = coeffs.shape[0]
+    return TetBDMBasis(
+        order=kk, n_basis=nb, n_face=nfd, n_cell=nb - 4 * nfd,
+        coeffs=coeffs, combo=combo,
+    )
+
+
 @dataclass
 class HDivSpace3D:
     """Global 3D H(div) space: shared face dofs (global-frame moments, no
@@ -152,7 +215,10 @@ class HDivSpace3D:
         return vals[self.combo_ids], grads[self.combo_ids]
 
 
-def HDiv3D(mesh: Mesh, order: int, dirichlet: str = "") -> HDivSpace3D:
+def HDiv3D(mesh: Mesh, order: int, dirichlet: str = "",
+           RT: bool = False) -> HDivSpace3D:
+    """The global 3D H(div) space of BDM_k elements, or of RT_k with
+    ``RT=True`` (:func:`rt_tet`)."""
     assert mesh.dim == 3
     k = order
     nfd = (k + 1) * (k + 2) // 2
@@ -175,7 +241,8 @@ def HDiv3D(mesh: Mesh, order: int, dirichlet: str = "") -> HDivSpace3D:
             combo_list.append(key)
         combo_ids[e] = combos[key]
         elem_combos.append(key)
-    bases = [bdm_tet(order, c) for c in combo_list]
+    make = rt_tet if RT else bdm_tet
+    bases = [make(order, c) for c in combo_list]
 
     nb = bases[0].n_basis
     nc_d = bases[0].n_cell
@@ -194,5 +261,5 @@ def HDiv3D(mesh: Mesh, order: int, dirichlet: str = "") -> HDivSpace3D:
         col += 1
     return HDivSpace3D(
         mesh, order, ndof, table.astype(np.int32), combo_ids, bases,
-        dirichlet, name=f"BDM{order}-3D",
+        dirichlet, name=f"{'RT' if RT else 'BDM'}{order}-3D",
     )

@@ -1,7 +1,11 @@
-"""Skeleton preconditioner for the condensed 3D MCS operator.
+"""Auxiliary-space P1 coarse corrections for 3D [H(div) | facet] systems.
 
-Counterpart of ``navier_stokes_tpu/models/auxspace3d.py``, fast face-block
-path:
+Counterpart of ``navier_stokes_tpu/models/auxspace3d.py``.  For the 3D HDG
+model (models/navier_stokes_hdg3d.py): the vector-P1 embedding
+``hybrid_h1_embedding_3d`` (T, T^T) and ``build_auxspace_preconditioner_3d``,
+a vertex-star block smoother plus the P1 coarse solve, additive or
+multicolor GS.  For the condensed 3D MCS operator, the skeleton
+preconditioner of the fast face-block path:
 
   preA = E pre_skel E^T + I_i A_ii^{-1} I_i^T,
 
@@ -35,21 +39,64 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from ..fem.quadrature import triangle_rule
+from ..device import resolve_device
+from ..fem.quadrature import tetrahedron_rule, triangle_rule
 from ..fem.reference import triangle_modal
 from ..fem.spaces import H1
+from ..ops.assembly import assemble_csr
 from ..ops.block_mv import make_table_apply
 from ..ops.faceblock import (
     FaceBlockLayout,
     face_star_smoother,
     symmetric_part,
 )
-from ..precond.multicolor import color_blocks, damped_coarse
+from ..precond.amg import _ell, _ell_apply
+from ..precond.jacobi import (
+    block_inverses,
+    block_jacobi_inverses,
+    extract_blocks_csr,
+    padded_blocks,
+)
+from ..precond.multicolor import (
+    MulticolorGS,
+    color_blocks,
+    damped_coarse,
+    symmetric_gs_preconditioner,
+)
 from ..precond.twolevel import coarse_p1_solver
+from .stokes_hybrid3d import free_blocks, piola_values
 
-__all__ = ["hybrid_h1_face_transfer", "build_skeleton_preconditioner_3d"]
+__all__ = ["hybrid_h1_face_transfer", "build_skeleton_preconditioner_3d",
+           "hybrid_h1_embedding_3d", "build_auxspace_preconditioner_3d"]
+
+
+def _p1_face_moments(V):
+    """The per-face data of the vector-P1 embedding: ``cjv`` / ``cjv_fac``
+    (int_T phi_j lambda_v over the unit triangle for the H(div) and facet
+    modes; tabulated separately per order, as triangle_modal's mode
+    ordering makes the first columns of a higher-order tabulation NOT the
+    lower-order modes), the faces' sorted vertices, the scaled normals
+    (the Piola moment normal) and W = G^-1 E, the frame coefficients of a
+    tangent vector ((nface, 2, 3); E the two face edges, G their Gram)."""
+    mesh = V.mesh
+    rule2 = triangle_rule(2 * max(V.hdiv.order, V.facet.order) + 2)
+    phi_v, _ = triangle_modal(rule2.points, V.hdiv.order)
+    phi_f, _ = triangle_modal(rule2.points, V.facet.order)
+    lam2 = np.concatenate(
+        [1 - rule2.points.sum(1, keepdims=True), rule2.points], axis=1
+    )
+    cjv = np.einsum("q,qj,qv->jv", rule2.weights, phi_v, lam2)
+    cjv_fac = np.einsum("q,qj,qv->jv", rule2.weights, phi_f, lam2)
+    faces = np.asarray(mesh.faces)
+    fv = mesh.points[faces]
+    E = np.stack([fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]], axis=1)
+    nsc = np.cross(E[:, 0], E[:, 1])
+    G = np.einsum("fdc,fec->fde", E, E)
+    W = np.einsum("fde,fec->fdc", np.linalg.inv(G), E)
+    return cjv, cjv_fac, faces, nsc, W
 
 
 def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
@@ -61,31 +108,12 @@ def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
     3 vertices x 3 components (hdiv moment rows, then facet frame rows)."""
     mesh = V.mesh
     hd = V.hdiv
-    k = hd.order
     nfd_v = hd.n_face_dofs
     nss = V.facet.n_scalar
     nface = mesh.nface
     nfb = lay.nfb
     dev = lay.device
-
-    rule2 = triangle_rule(2 * max(k, V.facet.order) + 2)
-    phi_v, _ = triangle_modal(rule2.points, k)
-    phi_f, _ = triangle_modal(rule2.points, V.facet.order)
-    lam2 = np.concatenate(
-        [1 - rule2.points.sum(1, keepdims=True), rule2.points], axis=1
-    )
-    cjv = np.einsum("q,qj,qv->jv", rule2.weights, phi_v, lam2)
-    cjv_fac = np.einsum("q,qj,qv->jv", rule2.weights, phi_f, lam2)
-
-    pts = mesh.points
-    faces = np.asarray(mesh.faces)
-    fv = pts[faces]
-    E1 = fv[:, 1] - fv[:, 0]
-    E2 = fv[:, 2] - fv[:, 0]
-    nsc = np.cross(E1, E2)
-    E = np.stack([E1, E2], axis=1)  # (nface, 2, 3)
-    G = np.einsum("fdc,fec->fde", E, E)
-    W = np.einsum("fde,fec->fdc", np.linalg.inv(G), E)  # (nface, 2, 3)
+    cjv, cjv_fac, faces, nsc, W = _p1_face_moments(V)
 
     M_F = np.zeros((nface, nfb, 9))
     M_F[:, :nfd_v] = np.einsum(
@@ -345,4 +373,194 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
     # component probes (face-layout in/out) for per-part timings
     parts.update(pre_skel=pre_skel_faces, tables=tables)
     preA.parts = parts
+    return preA
+
+
+def hybrid_h1_embedding_3d(V, dtype=torch.float64, device=None):
+    """(T, TT) for a HybridVelocitySpace3D; coarse vectors are (3*nv,)
+    component-major.
+
+    T embeds a continuous vector-P1 field: face dofs are moments of the
+    linear field, facet dofs the frame coefficients of its tangential
+    trace, interior dofs the per-element L2-optimal completion (exact on
+    vector linears).  Both directions are padded-ELL gathers of the host
+    assembled sparse T and its transpose, in ``dtype`` on ``device``."""
+    device = resolve_device(device)
+    mesh = V.mesh
+    hd = V.hdiv
+    k = hd.order
+    nfd_v = hd.n_face_dofs
+    nss = V.facet.n_scalar
+    nfd_f = V.facet.n_face
+    nv = mesh.nv
+    nV = V.ndof
+
+    cjv, cjv_fac, faces, nsc, W = _p1_face_moments(V)
+
+    # ---- interior completion tables ----------------------------------
+    n_int = hd.bases[0].n_cell
+    nbv = hd.n_basis
+    n_face_tot = 4 * nfd_v
+    J, detJ, _ = mesh.element_jacobians
+    vol = tetrahedron_rule(2 * k + 2)
+    vals_ref, _ = hd.tabulate_elements(vol.points)  # (ne, nq, nb, 3)
+    # the JAX package's quadrature sums as batched products over the
+    # points: the Piola values J vhat, then one Gram product per element
+    ne, nq = vals_ref.shape[:2]
+    pv = piola_values(J, vals_ref)  # (ne, nq, nb, 3)
+    pw = pv * (vol.weights[None, :, None, None] / detJ[:, None, None, None])
+    Gm = np.matmul(pw.transpose(0, 2, 1, 3).reshape(ne, nbv, nq * 3),
+                   pv.transpose(0, 1, 3, 2).reshape(ne, nq * 3, nbv))
+    lam3 = np.concatenate(
+        [1 - vol.points.sum(1, keepdims=True), vol.points], axis=1
+    )  # (nq, 4)
+    t_mat = np.matmul(
+        pv.transpose(0, 2, 3, 1).reshape(ne, nbv * 3, nq),
+        vol.weights[:, None] * lam3,
+    ).reshape(ne, nbv, 12)  # (c, v) flattened c*4+v
+    del pv, pw
+
+    # S[e, local-face-dof, (c,v)]: global face moments from element vertex
+    # values (vertex positions of each face's sorted-global vertices)
+    els = mesh.elements
+    S = np.zeros((mesh.ne, n_face_tot, 12))
+    for lf in range(4):
+        fid = mesh.element_faces[:, lf]
+        gvert = faces[fid]  # (ne, 3) sorted global ids
+        # position of each face vertex among the element's vertices
+        pos = np.argmax(els[:, :, None] == gvert[:, None, :], axis=1)  # (ne,3)
+        for j in range(nfd_v):
+            for v in range(3):
+                for c in range(3):
+                    S[np.arange(mesh.ne), lf * nfd_v + j, c * 4 + pos[:, v]] += (
+                        cjv[j, v] * nsc[fid, c]
+                    )
+    G_ii = Gm[:, n_face_tot:, n_face_tot:]
+    G_ie = Gm[:, n_face_tot:, :n_face_tot]
+    rhs_int = t_mat[:, n_face_tot:, :] - np.einsum(
+        "eij,ejv->eiv", G_ie, S, optimize=True
+    )
+    M_int = np.linalg.solve(G_ii, rhs_int)  # (ne, n_int, 12)
+    off_c = mesh.nface * nfd_v
+    nface = mesh.nface
+    ne = mesh.ne
+    nhd = hd.ndof
+
+    # ---- padded-ELL sparse transfer (host-assembled) -------------------
+    # T is a FIXED sparse operator (<= 12 nnz per fine row: one face's 3
+    # vertices x 3 components, or one element's 4 x 3), so both transfer
+    # directions are gathers with row sums: no scatter.
+    # part 1: hdiv face-moment rows  T[f*nfd_v+j, c*nv+faces[f,v]]
+    #         = cjv[j,v] * nsc[f,c]
+    r1 = (np.arange(nface)[:, None, None, None] * nfd_v
+          + np.arange(nfd_v)[None, :, None, None])            # (f,j,1,1)
+    c1 = (np.arange(3)[None, None, None, :] * nv
+          + faces[:, None, :, None])                          # (f,1,v,c)
+    v1 = (cjv[:nfd_v][None, :, :, None]
+          * nsc[:, None, None, :])                            # (f,j,v,c)
+    r1b, c1b, v1b = np.broadcast_arrays(r1, c1, v1)
+
+    # part 2: facet frame rows  T[nhd+f*nfd_f+(j*2+d), c*nv+faces[f,v]]
+    #         = cjv_fac[j,v] * W[f,d,c]
+    r2 = (nhd + np.arange(nface)[:, None, None, None, None] * nfd_f
+          + (np.arange(nss)[None, :, None, None, None] * 2
+             + np.arange(2)[None, None, :, None, None]))      # (f,j,d,1,1)
+    c2 = (np.arange(3)[None, None, None, None, :] * nv
+          + faces[:, None, None, :, None])                    # (f,1,1,v,c)
+    v2 = (cjv_fac[:nss][None, :, None, :, None]
+          * W[:, None, :, None, :])                           # (f,j,d,v,c)
+    r2b, c2b, v2b = np.broadcast_arrays(r2, c2, v2)
+
+    # part 3: interior completion rows  T[off_c+e*n_int+i, c*nv+els[e,v]]
+    #         = M_int[e,i,c*4+v]
+    r3 = (off_c + np.arange(ne)[:, None, None, None] * n_int
+          + np.arange(n_int)[None, :, None, None])            # (e,i,1,1)
+    c3 = (np.arange(3)[None, None, :, None] * nv
+          + els[:, None, None, :])                            # (e,1,c,v)
+    v3 = M_int.reshape(ne, n_int, 3, 4)                       # (e,i,c,v)
+    r3b, c3b, v3b = np.broadcast_arrays(r3, c3, v3)
+
+    Tm = sp.coo_matrix(
+        (
+            np.concatenate([v1b.ravel(), v2b.ravel(), v3b.ravel()]),
+            (
+                np.concatenate([r1b.ravel(), r2b.ravel(), r3b.ravel()]),
+                np.concatenate([c1b.ravel(), c2b.ravel(), c3b.ravel()]),
+            ),
+        ),
+        shape=(nV, 3 * nv),
+    ).tocsr()
+    Tm.eliminate_zeros()
+    Ti, Tv = _ell(Tm, dtype, device)
+    Tt = Tm.T.tocsr()
+    Tt.eliminate_zeros()
+    Ri, Rv = _ell(Tt, dtype, device)
+
+    def T(c):
+        return _ell_apply(Ti, Tv, c)
+
+    def TT(x):
+        return _ell_apply(Ri, Rv, x)
+
+    return T, TT
+
+def build_auxspace_preconditioner_3d(
+    V, A_np, velocity_dirichlet: str, dtype=torch.float64,
+    coarse_coefficient: float = 1.0, blocks: str = "vertexstar",
+    gs: bool = False, A_apply=None, device=None,
+):
+    """Overlapping block smoother + vector-P1 coarse correction for the
+    assembled [H(div) | facet] operator of the element tables ``A_np``, the
+    3D counterpart of the reference's MypreA structure: additive,
+    preA u = S u + T Kc^{-1} T^T u on the free dofs, with S the
+    block-Jacobi over the free dofs of the :func:`~.stokes_hybrid3d.
+    hybrid_blocks_3d` patches (``blocks``, vertex stars by default) and
+    Kc the P1 stiffness times ``coarse_coefficient``
+    (precond/twolevel.coarse_p1_solver).
+
+    The block inverses are extracted and inverted on ``device`` in f64
+    (precond/jacobi.block_inverses: the blocks rounded to ``dtype`` first,
+    as the JAX model rounds them) and stored padded in ``dtype``; the
+    apply is ``batched_local_matvec`` in f64 and ``block_mv`` in f32, the
+    hand-written kernels on the card.  ``preA.table`` is the stored table.
+
+    ``gs=True`` switches to the symmetric multicolor block-GS variant
+    (MypreA.Mult with GS=True; precond/multicolor, its inverses taken on
+    the host as the JAX package's) around the same coarse correction; it
+    needs ``A_apply``, the masked operator."""
+    device = resolve_device(device)
+    mesh = V.mesh
+    nV = V.ndof
+    free = torch.as_tensor(V.free_mask, device=device)
+    blks = free_blocks(V, blocks)
+    dofs = padded_blocks(blks)
+    A_csr = assemble_csr(np.asarray(A_np), V.element_dofs, nV)
+
+    T, TT = hybrid_h1_embedding_3d(V, dtype, device)
+    space = H1(mesh, 1, dirichlet=velocity_dirichlet)
+    solve1 = coarse_p1_solver(space, coarse_coefficient, dtype,
+                              device=device)
+    nv = mesh.nv
+
+    def coarse(r):
+        rt = TT(r).reshape(3, nv).T
+        return T(solve1(rt).T.reshape(-1))
+
+    if gs:
+        if A_apply is None:
+            raise ValueError("gs=True needs the masked operator A_apply")
+        colors = color_blocks(blks, nV, np.asarray(V.element_dofs))
+        mgs = MulticolorGS(dofs, extract_blocks_csr(A_csr, dofs), colors,
+                           nV, dtype, device)
+        return symmetric_gs_preconditioner(mgs, A_apply, coarse, free)
+
+    smooth = block_jacobi_inverses(
+        dofs, block_inverses(A_csr, dofs, dtype, device), nV, dtype, device)
+
+    def preA(u):
+        uf = torch.where(free, u, 0.0)
+        y = smooth(uf) + coarse(uf)
+        return torch.where(free, y, u)
+
+    preA.table = smooth.table
     return preA

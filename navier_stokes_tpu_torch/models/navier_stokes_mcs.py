@@ -51,7 +51,7 @@ from ..fem.hdiv3d import HDiv3D
 from ..fem.quadrature import tetrahedron_rule
 from ..fem.reference import TET_FACES, TET_VERTICES, triangle_modal
 from ..fem.spaces import H1, L2
-from ..ops.assembly import mass_diagonal
+from ..ops.assembly import ScatterPlan, mass_diagonal
 from ..ops.convection3d import build_upwind_convection_3d
 from ..ops.faceblock import FaceBlockLayout
 from ..ops.facets3d import facet_geometry_3d
@@ -923,12 +923,11 @@ class NavierStokesMCS:
                                   dtype, device=dev)
         els = torch.as_tensor(mesh.elements.astype(np.int64), device=dev)
         Tref_t = torch.as_tensor(Tref, device=dev).to(dtype)
-        nv = mesh.nv
+        to_vertices = ScatterPlan(els, mesh.nv)
 
         def pre(p):
             pe = p.reshape(ne, mQ)
-            g = p.new_zeros(nv).index_add_(
-                0, els.reshape(-1), (pe @ Tref_t).reshape(-1))
+            g = to_vertices(pe @ Tref_t)
             z = solve1(g)
             coarse = (z[els] @ Tref_t.T).reshape(-1)
             return block(p) + coarse

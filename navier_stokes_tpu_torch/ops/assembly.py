@@ -7,6 +7,13 @@ precond/twolevel.py), the P1 stiffness element tables, the pressure mass
 diagonal behind ``preM`` (models/navier_stokes_mcs.py), and
 ``gather`` / ``scatter_add`` / ``diagonal_of_local`` /
 ``apply_local_matrices``.
+
+Every scatter-add of the port goes through :class:`ScatterPlan`: the
+destinations of one index table are sorted once (stably), and each apply
+is a gather of the contributions into an (ndof, multiplicity) table and a
+sum over its rows -- no float atomics, so that the result is the same
+from run to run on the card (``index_add_`` adds in an order that
+changes).  The JAX package's scatters are deterministic on the TPU.
 """
 
 from __future__ import annotations
@@ -66,32 +73,86 @@ def gather(u: torch.Tensor, eldofs: torch.Tensor) -> torch.Tensor:
     return u[eldofs]
 
 
-def scatter_add(local: torch.Tensor, eldofs: torch.Tensor,
-                ndof: int) -> torch.Tensor:
-    """(ne, nb) local contributions -> (ndof,) global vector
-    (``index_add_``: on the card its float atomics add in an order that
-    changes from run to run)."""
-    out = local.new_zeros(ndof)
-    return out.index_add_(0, eldofs.reshape(-1), local.reshape(-1))
+class ScatterPlan:
+    """Deterministic scatter-add of per-entry contributions onto ``ndof``
+    entries, for one fixed index table.
+
+    ``index``: an integer tensor of any shape (element dofs (ne, nb), block
+    dofs (nblocks, bmax), ...); entries < 0 are dropped.  Built once, on
+    the index's device: a stable sort of the destinations gives, per
+    destination, the positions of its contributions in their original order,
+    padded to the largest multiplicity with a position that reads zero.
+    ``plan(values)`` (values of ``index``'s shape) gathers them and sums
+    each row: a gather and a reduction in a fixed order.  ``plan.index`` is
+    the index table (long), for the matching gathers."""
+
+    def __init__(self, index, ndof: int):
+        index = torch.as_tensor(index)
+        self.index = index.long()
+        self.ndof = int(ndof)
+        self.shape = tuple(index.shape)
+        flat = self.index.reshape(-1)
+        if flat.numel() and int(flat.max()) >= self.ndof:
+            raise ValueError(f"ScatterPlan: index {int(flat.max())} out of "
+                             f"range for {self.ndof} entries")
+        pos = torch.nonzero(flat >= 0).reshape(-1)
+        dst, perm = torch.sort(flat[pos], stable=True)
+        src = pos[perm]
+        counts = torch.bincount(dst, minlength=self.ndof)
+        self.width = width = int(counts.max()) if dst.numel() else 0
+        starts = torch.cumsum(counts, 0) - counts
+        slot = torch.arange(dst.numel(), device=flat.device) - starts[dst]
+        # position flat.numel() reads the zero appended to the values
+        table = torch.full((self.ndof, max(width, 1)), flat.numel(),
+                           dtype=torch.long, device=flat.device)
+        table[dst, slot] = src
+        self.table = table
+
+    def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        if tuple(values.shape) != self.shape:
+            raise ValueError(f"ScatterPlan: values of shape "
+                             f"{tuple(values.shape)}, expected {self.shape}")
+        ext = torch.cat([values.reshape(-1), values.new_zeros(1)])
+        return ext[self.table].sum(dim=1)
 
 
-def diagonal_of_local(a_local: torch.Tensor, eldofs: torch.Tensor,
-                      ndof: int) -> torch.Tensor:
+def scatter_plan(index, ndof: int) -> ScatterPlan:
+    """The :class:`ScatterPlan` of ``index`` (returned as is when it is
+    one already)."""
+    if isinstance(index, ScatterPlan):
+        if index.ndof != ndof:
+            raise ValueError(f"ScatterPlan onto {index.ndof} entries, "
+                             f"{ndof} asked")
+        return index
+    return ScatterPlan(index, ndof)
+
+
+def scatter_add(local: torch.Tensor, eldofs, ndof: int) -> torch.Tensor:
+    """(ne, nb) local contributions -> (ndof,) global vector, summed in a
+    fixed order.  ``eldofs``: a :class:`ScatterPlan` (build it once for an
+    index table applied more than once) or the index tensor itself."""
+    return scatter_plan(eldofs, ndof)(local)
+
+
+def diagonal_of_local(a_local: torch.Tensor, eldofs, ndof: int
+                      ) -> torch.Tensor:
     """(ndof,) diagonal of the operator assembled from the element matrices
     (ne, nb, nb)."""
     return scatter_add(torch.diagonal(a_local, dim1=1, dim2=2), eldofs, ndof)
 
 
-def apply_local_matrices(a_local: torch.Tensor, eldofs: torch.Tensor,
-                         ndof: int, u: torch.Tensor,
+def apply_local_matrices(a_local: torch.Tensor, eldofs, ndof: int,
+                         u: torch.Tensor,
                          use_kernel: bool = False) -> torch.Tensor:
     """y = A u with A given by per-element dense blocks (gather -> local
-    matvec -> scatter).  ``use_kernel`` routes the batched local matvec
+    matvec -> scatter).  ``eldofs``: the (ne, nb) dof table or its
+    :class:`ScatterPlan`.  ``use_kernel`` routes the batched local matvec
     through :func:`~navier_stokes_tpu_torch.ops.local_mv.batched_local_matvec`
     (``use_pallas`` of the JAX package); the einsum is the default."""
-    ue = gather(u, eldofs)
+    plan = scatter_plan(eldofs, ndof)
+    ue = gather(u, plan.index)
     if use_kernel:
         ye = batched_local_matvec(a_local, ue.contiguous())
     else:
         ye = torch.einsum("eij,ej->ei", a_local, ue)
-    return scatter_add(ye, eldofs, ndof)
+    return plan(ye)

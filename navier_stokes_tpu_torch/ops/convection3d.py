@@ -12,7 +12,10 @@ innermost ((e, q*c, i) and (e, i, q*c*d)) so that every contraction is one
 package's five-operand volume einsum is contracted in two steps (the
 weighted u (x) u at the quadrature points, then one batched product with the
 gradient table), which never materializes an (e, q, i, c, d)-sized
-temporary.  The three scatter-adds are ``index_add_``.
+temporary.  The volume and the two facet contributions are summed onto
+the dofs by ONE deterministic scatter (ops/assembly.ScatterPlan over the
+three index tables side by side): no float atomics, so that a step repeats
+bitwise on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from ..device import resolve_device
 from ..fem.hdiv3d import HDivSpace3D
 from ..fem.quadrature import tetrahedron_rule
+from .assembly import ScatterPlan
 from .facets3d import facet_geometry_3d
 
 __all__ = ["build_upwind_convection_3d"]
@@ -140,6 +144,9 @@ def build_upwind_convection_3d(V: HDivSpace3D, uin=None,
     w_face = ship(fg.qw[None, :] * area[:, None])  # (f, q)
     w_vol = ship(vol.weights[None, :] * detJ[:, None])  # (e, q)
     ndof = V.ndof
+    # one scatter for the three sets of contributions, in this order
+    scatter = ScatterPlan(torch.cat([eldofs.reshape(-1), dofs_L.reshape(-1),
+                                     dofs_R.reshape(-1)]), ndof)
 
     def conv(u):
         ue = u[eldofs]
@@ -149,8 +156,6 @@ def build_upwind_convection_3d(V: HDivSpace3D, uin=None,
         uu = (w_vol[:, :, None, None] * uq[:, :, :, None]
               * uq[:, :, None, :]).reshape(ne, nq * 9, 1)
         fe_vol = torch.bmm(grad_t, uu).reshape(ne, nb)
-        out = u.new_zeros(ndof)
-        out.index_add_(0, eldofs.reshape(-1), fe_vol.reshape(-1))
 
         uL = torch.bmm(trace_L, u[dofs_L][:, :, None]).reshape(nfacet, nq2, 3)
         uR_in = torch.bmm(trace_R, u[dofs_R][:, :, None]).reshape(
@@ -162,9 +167,8 @@ def build_upwind_convection_3d(V: HDivSpace3D, uin=None,
         fe_L = -torch.bmm(flux, trace_L).reshape(nfacet, nb)
         fe_R = torch.bmm(flux, trace_R).reshape(nfacet, nb)
         fe_R = torch.where(has_right_t[:, None], fe_R, 0.0)
-        out.index_add_(0, dofs_L.reshape(-1), fe_L.reshape(-1))
-        out.index_add_(0, dofs_R.reshape(-1), fe_R.reshape(-1))
-        return out
+        return scatter(torch.cat([fe_vol.reshape(-1), fe_L.reshape(-1),
+                                  fe_R.reshape(-1)]))
 
     conv.tables = {"val": val_t, "grad": grad_t, "trace_L": trace_L,
                    "trace_R": trace_R}

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.assembly import ScatterPlan
 from ..ops.local_mv import batched_local_matvec
 
 __all__ = ["color_blocks", "MulticolorGS", "damped_coarse",
@@ -103,15 +104,14 @@ class MulticolorGS:
                 torch.as_tensor(np.where(pad, 0, d), device=device),
                 torch.as_tensor(pad, device=device),
                 torch.as_tensor(inv[sel], device=device).to(dtype)
-                .contiguous()))
+                .contiguous(),
+                ScatterPlan(torch.as_tensor(d, device=device), ndof)))
 
     def _solve_color(self, g, r):
-        safe, pad, inv = g
+        safe, pad, inv, scatter = g
         rb = torch.where(pad, 0.0, r[safe])
-        yb = torch.where(pad, 0.0, batched_local_matvec(inv, rb))
-        # same-color blocks are dof-disjoint: add == set
-        return r.new_zeros(self.ndof).index_add_(0, safe.reshape(-1),
-                                                 yb.reshape(-1))
+        # same-color blocks are dof-disjoint: each dof takes one value
+        return scatter(batched_local_matvec(inv, rb))
 
     def forward(self, A_apply, x, y):
         for g in self.groups:

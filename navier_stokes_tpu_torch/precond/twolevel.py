@@ -25,9 +25,9 @@ import torch
 from ..device import resolve_device
 from ..fem.spaces import H1, FunctionSpace
 from ..ops.assembly import (
+    ScatterPlan,
     assemble_csr,
     diagonal_of_local,
-    scatter_add,
     stiffness_local,
 )
 from .amg import build_sa_amg
@@ -65,14 +65,15 @@ def p1_embedding(space: FunctionSpace, dtype=torch.float64, device=None):
     winv = torch.as_tensor(1.0 / np.maximum(mult, 1.0),
                            device=device).to(dtype)
     lam_t = torch.as_tensor(lam, device=device).to(dtype)
+    to_fine, to_coarse = ScatterPlan(eldofs, ndof), ScatterPlan(elverts, nv)
 
     def P(c):
         fe = c[elverts] @ lam_t.T  # (ne, dim+1) -> (ne, nb)
-        return winv * scatter_add(fe, eldofs, ndof)
+        return winv * to_fine(fe)
 
     def PT(x):
         ce = (winv * x)[eldofs] @ lam_t  # (ne, nb) -> (ne, dim+1)
-        return scatter_add(ce, elverts, nv)
+        return to_coarse(ce)
 
     return P, PT
 

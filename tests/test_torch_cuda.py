@@ -566,3 +566,88 @@ def test_kernel_timer_and_device_spin_on_card():
     t = Timer("matmul").Start()
     y = a @ a
     assert t.Stop(y) == t.time > 0
+
+
+# -- the 3D HDG model's vertex-star tables and the deterministic scatter ----
+
+# vertex-star blocks of the 3D HDG channel: up to 1,056 dofs at maxh 0.09
+# (mean 597); (ne, nb, offset in elements)
+STAR_BLOCKS = [(3, 1056, 0), (5, 600, 1), (2, 1056, 3), (9, 97, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_local_matvec_vertex_star_blocks_on_card(dtype):
+    """On the card: kernel 8 on blocks as wide as the HDG vertex stars
+    (the launch plan's fewest rows per CTA), against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for ne, nb, off in STAR_BLOCKS:
+        fa = torch.randn(off + ne * nb * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        fu = torch.randn(off + ne * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        A, u = fa[off:].view(ne, nb, nb), fu[off:].view(ne, nb)
+        y = batched_local_matvec(A, u)
+        scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
+        d = (y - batched_local_matvec_plain(A, u)).abs().double()
+        assert float((d / scale).max()) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_block_mv_vertex_star_blocks_on_card():
+    """On the card: kernel 1 (the f32 block-Jacobi route) on blocks as wide
+    as the HDG vertex stars, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for nblk, nb in ((3, 1056), (7, 600), (4, 1055)):
+        A = torch.randn((nblk, nb, nb), generator=gen, device="cuda")
+        x = torch.randn((nblk, nb), generator=gen, device="cuda")
+        y = bm.block_mv(A, x)
+        scale = torch.einsum("bmk,bk->bm", A.double().abs(), x.double().abs())
+        d = (y - bm.block_mv_plain(A, x)).abs().double()
+        assert float((d / scale).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_scatter_plan_repeats_bitwise_on_card():
+    """On the card: the deterministic scatter gives the same bits on every
+    call, and index_add_'s sum to rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from navier_stokes_tpu_torch.ops.assembly import ScatterPlan
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    index = torch.randint(0, 5000, (200000,), generator=gen, device="cuda")
+    values = torch.randn(200000, generator=gen, device="cuda",
+                         dtype=torch.float32)
+    plan = ScatterPlan(index, 6000)
+    first = plan(values)
+    for _ in range(5):
+        assert torch.equal(first, plan(values))
+    want = values.double().new_zeros(6000).index_add_(0, index,
+                                                      values.double())
+    assert float((first.double() - want).abs().max()) <= 1e-5 * float(
+        values.abs().sum()) / 5000
+    assert bool((first[5000:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_transient_step_repeats_bitwise_on_card():
+    """On the card: two f32 SIMPLE steps of the 3D MCS model from the same
+    state are bitwise equal (every scatter of the step is deterministic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from navier_stokes_tpu_torch.flagship import build_model
+
+    m = build_model(0.6, curved=False, dtype=torch.float32, device="cuda")
+    step = m.make_step_fn(project_tol=1e-5)
+    u1 = step(m.u)
+    counts = dict(m.last_iterations)
+    u2 = step(m.u)
+    assert bool(torch.isfinite(u1).all())
+    assert torch.equal(u1, u2)
+    assert counts == m.last_iterations
