@@ -11,7 +11,7 @@ phases; any failed phase ends the run with a non-zero exit:
    and print the build seconds and the card;
 2. cuda-tests: ``python -m pytest --noconftest -m cuda
    tests/test_torch_cuda.py`` from the repository root -- the card-only
-   tests, which import no JAX -- must pass all 29 cases, none skipped;
+   tests, which import no JAX -- must pass all 33 cases, none skipped;
 3. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
@@ -112,7 +112,24 @@ phases; any failed phase ends the run with a non-zero exit:
     (finite, steps/s, CG counts, launches per step); an f32 twin whose
     kernel-8 and kernel-1 tables are checked the same way, and
     ``solve_initial_refined`` on the pair (its guard: a finite result
-    below the starting residual, reported).
+    below the starting residual, reported);
+17. mcs2d, th2d: the 2D models at the 2D demo's configuration
+    (scripts/navier_stokes_2d.py, the reference's NavierStokesSIMPLE_test.py:
+    ``channel_with_cylinder_mesh(0.05)``, 762 triangles, order 2, nu=1e-3,
+    dt=1e-3).  ``NavierStokesMCS`` with the auxspace GS preconditioner:
+    setup seconds; kernel 8 (f64) on its A_cond, mass, projection-block and
+    every color's vertex-star inverse table against the plain version;
+    ``SolveInitial(iterative=True, GS=True, tol=1e-10)`` with the JAX
+    package's Bramble-Pasciak k (its count held to the JAX CPU count of
+    ``tools/jax_bpcg_reference_2d.py`` by ``count_matches``) and with its
+    own, the true f64 residual; two f64 steps from one state bitwise equal
+    (``[repeat]``); 20 ``DoTimeStep``s (steps/s, CG counts); then the same
+    at maxh=0.01 (17,002 triangles, 179,951 + 51,006 dofs; JAX 662).
+    The Taylor-Hood ``NavierStokes`` at maxh=0.05: kernel 8 on its viscous,
+    mass and patch-inverse tables, ``SolveInitial`` with the JAX k (count
+    held the same way), 20 steps.  Kernel 8 must launch in each solve and
+    each run of steps; the counters are set to 0 just before each solve
+    and before each run of steps.
 
 The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
@@ -188,7 +205,7 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
-CUDA_TEST_CASES = 29  # 19 tests, 29 cases with their parameters
+CUDA_TEST_CASES = 33  # 21 tests, 33 cases with their parameters
 # [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
 # curved model at maxh=0.09, and the two faceblock variants on the shortened
 # channel of tests/test_navier_stokes_mcs3d.py:_channel3d
@@ -224,6 +241,27 @@ BPCG_SMALL_BAND = 0.02
 # [hdg3d]: NavierStokesHDG3D at the demo's configuration (the reference's
 # NavierStokesSIMPLE_test_3D.py through scripts/navier_stokes_3d.py --hdg)
 HDG_MAXH, HDG_MAXSTEPS = 0.09, 20000
+# [mcs2d] / [th2d]: the 2D demo (the reference's NavierStokesSIMPLE_test.py
+# through scripts/navier_stokes_2d.py): the channel with cylinder at
+# maxh 0.05 (762 triangles), order 2, nu 1e-3, dt 1e-3, the auxspace GS
+# A-preconditioner, SolveInitial to 1e-10, then 20 f64 steps; the MCS
+# model again at maxh 0.01 (17,002 triangles)
+MCS2D_MAXH, MCS2D_FINE, MCS2D_TOL, MCS2D_STEPS = 0.05, 0.01, 1e-10, 20
+# the JAX package's MCS count and Bramble-Pasciak k there, on the CPU in
+# f64 (tools/jax_bpcg_reference_2d.py; 172 with one BLAS thread and with
+# eight; the port on the CPU with that k: 172).  The port solves with that
+# k and is held to the count by count_matches: equal, or, where the
+# card's sums put the error at the JAX count just past the threshold
+# (within a factor 1.5 of it), at most MCS2D_PLATEAU more -- the error
+# history plateaus there: on the CPU the port with its own k, 1e-11 off
+# JAX's, reads 1.109e-10 at 172, then 1.210e-10, 1.691e-10, 1.303e-10
+# and stops at 176 (8.330e-11)
+MCS2D_JAX = {MCS2D_MAXH: (172, 26.24155445117038),
+             # maxh 0.01: 220.6 s on the CPU
+             MCS2D_FINE: (662, 400.87853032198007)}
+MCS2D_PLATEAU = 4
+# the Taylor-Hood count and k there (tools/jax_bpcg_reference_2d.py --th)
+TH2D_JAX = (126, 1.711092508702795)
 # the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
 # the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
 # * k not a multiple of 4 floats or 8 bf16 entries (ragged tails of up to 7
@@ -1870,6 +1908,248 @@ def hdg3d_phase(torch, bm, lm, timer, gen, reports):
     log(f"[hdg3d] phase {secs:.1f} s")
     return secs, path_launches, ref_launches
 
+def count_matches(res, n_jax, tol, plateau):
+    """Whether a BPCG count given the JAX k agrees with the JAX count
+    ``n_jax``: equal; or one fewer, the card's error there within a
+    factor 1.5 under ``tol``; or up to ``plateau`` more, the card's error
+    at ``n_jax`` within a factor 1.5 over ``tol`` (the stopping test sits
+    on the threshold, and the sums' order decides it).  Returns (ok, the
+    card's errors around n_jax)."""
+    err = [float(e) for e in res.errors[max(n_jax - 2, 0):n_jax + plateau + 1]]
+    n = res.iterations
+    if n == n_jax:
+        return True, err
+    if n == n_jax - 1:
+        return tol / 1.5 <= float(res.errors[n]) < tol, err
+    e = float(res.errors[n_jax])
+    return n_jax < n <= n_jax + plateau and tol <= e <= 1.5 * tol, err
+
+
+def th_true_rel(torch, m):
+    """The true relative residual of the Taylor-Hood model's initial Stokes
+    system at its state (u, p), through its f64 operators."""
+    fr = m.free_s[None]
+    f_mod = torch.where(fr, m.f - m._stokesA_raw(m.u_bc), 0.0).reshape(-1)
+    u_bc = m.u_bc.reshape(-1)
+    g_mod = -m.B_raw(u_bc)
+    du = m.u - u_bc
+    r0 = f_mod - m.A(du) - m.BT(m.p)
+    r1 = g_mod - m.B(du)
+    return float(torch.sqrt(torch.dot(r0, r0) + torch.dot(r1, r1))
+                 / torch.sqrt(torch.dot(f_mod, f_mod)
+                              + torch.dot(g_mod, g_mod)))
+
+
+def steps_2d(torch, bm, m, n, label):
+    """``n`` DoTimeSteps of the 2D model ``m`` after one untimed step (the
+    lazy setup), with the launch counters set to 0 just before them:
+    seconds, steps/s, CG counts (all below maxsteps), finite state,
+    launches."""
+    m.DoTimeStep()
+    torch.cuda.synchronize()
+    counts = []
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        m.DoTimeStep()
+        counts.append(dict(m.last_iterations))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    finite = bool(torch.isfinite(m.u).all())
+    ms = [c["mstar"] for c in counts]
+    pj = [c["project"] for c in counts]
+    log(f"{label} {n} DoTimeSteps in {secs:.3f} s ({n / secs:.2f} steps/s), "
+        f"M* CG {min(ms)}-{max(ms)}, projection CG {min(pj)}-{max(pj)}, "
+        f"max |u| {float(m.u.abs().max()):.4f}, ||B u|| "
+        f"{float(torch.linalg.norm(m.B_raw(m.u))):.3e}; launches per step "
+        f"{dict((k, v / n) for k, v in launches.items() if v)}")
+    check(finite, f"{label} the steps blew up")
+    check(max(ms) < 2000 and max(pj) < 500, f"{label} a CG ran into "
+          "maxsteps")
+    return secs, launches
+
+
+def mcs2d_phase(torch, bm, lm, timer, gen, reports):
+    """[mcs2d]: the 2D ``NavierStokesMCS`` at the demo's configuration
+    (``MCS2D_MAXH``): setup seconds; kernel 8 on the f64 A_cond, mass,
+    projection-block and every GS color's vertex-star inverse table against
+    its plain version; ``SolveInitial(iterative=True, GS=True, tol=1e-10)``
+    with the JAX package's k (its count held to ``MCS2D_JAX`` by
+    :func:`count_matches`) and with its own; the true f64 residual;
+    [repeat]: two f64 steps from the same state bitwise equal; 20
+    ``DoTimeStep``s.  The launch counters are set to 0 just before the
+    solve and read after the steps (kernel 8 must launch in both).  Then
+    the same at ``MCS2D_FINE`` (its count held to JAX's there too).
+    Returns (seconds, launches of the ``MCS2D_MAXH`` path)."""
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh,
+    )
+    from navier_stokes_tpu_torch.models import NavierStokesMCS
+    from navier_stokes_tpu_torch.scripts.navier_stokes_2d import uin
+
+    t_phase = time.perf_counter()
+    rep64 = reports["batched_local_matvec_f64_mcs2d"]
+    kw = dict(nu=NU, inflow="inlet", outflow="outlet", wall="wall|cyl",
+              uin=uin, timestep=1e-3, order=ORDER, device="cuda")
+    path_launches = {}
+    for maxh in (MCS2D_MAXH, MCS2D_FINE):
+        tag = f"[mcs2d] maxh={maxh}"
+        t0 = time.perf_counter()
+        mesh = channel_with_cylinder_mesh(maxh)
+        t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = NavierStokesMCS(mesh, **kw)
+        torch.cuda.synchronize()
+        t_model = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preA = m._preA_for(True)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        groups = preA.gs.groups
+        widths = [g[2].shape[1] for g in groups]
+        log(f"{tag}: {mesh.ne} triangles, {mesh.nv} vertices, ndof "
+            f"{m.n}+{m.Q.ndof}; mesh {t_mesh:.1f} s, model {t_model:.1f} s, "
+            f"auxspace GS preconditioner {t_pre:.1f} s ({len(groups)} "
+            f"colors, {sum(g[2].shape[0] for g in groups)} vertex stars of "
+            f"up to {max(widths)} dofs)")
+        if maxh == MCS2D_MAXH:
+            check(mesh.ne == 762 and m.n == 8286 and m.Q.ndof == 2286,
+                  f"{tag}: unexpected size {mesh.ne}, {m.n}+{m.Q.ndof}")
+        pre2 = m._pre_proj_twolevel()
+        tables = [("A_cond", m._A_cond), ("M_loc", m._M_loc),
+                  ("S_inv", pre2.S_inv)]
+        tables += [(f"star color {i}", g[2]) for i, g in enumerate(groups)]
+        for tname, A in tables:
+            check_local_mv(torch, lm, timer, rep64 if maxh == MCS2D_MAXH
+                           else None, f"mcs2d {maxh} {tname}", A, gen)
+
+        n_jax, k_jax = MCS2D_JAX[maxh]
+        for kname, k in (("JAX k", k_jax), ("own k", None)):
+            bm.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = m.SolveInitial(iterative=True, GS=True, tol=MCS2D_TOL,
+                                 scale_k=k)
+            torch.cuda.synchronize()
+            t_solve = time.perf_counter() - t0
+            solve_launches = dict(bm.LAUNCHES)
+            true_rel = hdg_true_rel(torch, m)
+            log(f"{tag} SolveInitial(GS=True, tol={MCS2D_TOL:g}, {kname} "
+                f"{m.stokes_bpcg_scale_k:.6g}): {res.iterations} BPCG "
+                f"iterations (converged {res.converged}), {t_solve:.3f} s "
+                f"(stokes_bpcg_time {m.stokes_bpcg_time:.3f} s, "
+                f"{1e3 * t_solve / max(res.iterations, 1):.2f} ms per "
+                f"iteration); true f64 rel residual {true_rel:.3e}; "
+                f"launches {solve_launches}")
+            check(res.converged, f"{tag} BPCG did not converge")
+            check(true_rel <= 1e-8, f"{tag} true residual {true_rel:.3e}")
+            check(solve_launches.get("batched_local_matvec_f64", 0) > 0,
+                  f"{tag} kernel 8 never launched in the solve")
+            if k is not None:
+                ok, err = count_matches(res, n_jax, MCS2D_TOL, MCS2D_PLATEAU)
+                log(f"{tag} errors at iterations {n_jax - 2}.. (JAX count "
+                    f"{n_jax}): " + ", ".join(f"{e:.3e}" for e in err))
+                check(ok, f"{tag} {res.iterations} iterations with the JAX "
+                      f"k, JAX {n_jax}")
+                jax_launches = solve_launches
+
+        t0 = time.perf_counter()
+        m.make_step_fn()
+        torch.cuda.synchronize()
+        log(f"{tag} step setup {time.perf_counter() - t0:.2f} s: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in m.setup_seconds.items()))
+        if maxh == MCS2D_MAXH:
+            step = m.make_step_fn()
+            u0 = m.u
+            u1 = step(u0)
+            c1 = dict(m.last_iterations)
+            u2 = step(u0)
+            torch.cuda.synchronize()
+            same = torch.equal(u1, u2)
+            log(f"[repeat] MCS 2D f64 step twice from the same state: "
+                f"{'bitwise equal' if same else 'DIFFERENT'}, max |d| "
+                f"{float((u1 - u2).abs().max()):.3e}, CG counts {c1} / "
+                f"{dict(m.last_iterations)}")
+            check(same, "[repeat] two 2D MCS steps from the same state "
+                  "differ")
+            del u1, u2
+        _, step_launches = steps_2d(torch, bm, m, MCS2D_STEPS, tag)
+        check(step_launches.get("batched_local_matvec_f64", 0) > 0,
+              f"{tag} kernel 8 never launched in the steps")
+        if maxh == MCS2D_MAXH:
+            path_launches = {
+                k: jax_launches.get(k, 0) + step_launches.get(k, 0)
+                for k in set(jax_launches) | set(step_launches)}
+        del m, preA, groups, tables, pre2
+    secs = time.perf_counter() - t_phase
+    log(f"[mcs2d] phase {secs:.1f} s")
+    return secs, path_launches
+
+
+def th2d_phase(torch, bm, lm, timer, gen, reports):
+    """[th2d]: the Taylor-Hood ``NavierStokes`` at the 2D demo's
+    configuration: setup seconds; kernel 8 on its f64 viscous and mass
+    tables and the velocity two-level patch inverses against its plain
+    version; ``SolveInitial(iterative=True, tol=1e-10)`` with the JAX
+    package's k (count ``TH2D_JAX``, by :func:`count_matches`) and true f64
+    residual; 20 ``DoTimeStep``s.  Returns (seconds, launches)."""
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh,
+    )
+    from navier_stokes_tpu_torch.models import NavierStokes
+    from navier_stokes_tpu_torch.scripts.navier_stokes_2d import uin
+
+    t_phase = time.perf_counter()
+    tag = f"[th2d] maxh={MCS2D_MAXH}"
+    mesh = channel_with_cylinder_mesh(MCS2D_MAXH)
+    t0 = time.perf_counter()
+    m = NavierStokes(mesh, nu=NU, inflow="inlet", outflow="outlet",
+                     wall="wall|cyl", uin=uin, timestep=1e-3, order=ORDER,
+                     device="cuda")
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    log(f"{tag}: {mesh.ne} triangles, ndof {m.V.ndof}+{m.Q.ndof}; model "
+        f"{t_model:.1f} s (with the two-level preconditioners)")
+    rep64 = reports["batched_local_matvec_f64_th2d"]
+    tables = [("A_tab", m.A_tab), ("M_loc", m.M_loc)]
+    tables += [(f"patch inverses {c}", t) for c, t in
+               enumerate(m.preA_tables)]
+    for tname, A in tables:
+        check_local_mv(torch, lm, timer, rep64, f"th2d {tname}", A, gen)
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = m.SolveInitial(iterative=True, tol=MCS2D_TOL, scale_k=TH2D_JAX[1])
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    solve_launches = dict(bm.LAUNCHES)
+    true_rel = th_true_rel(torch, m)
+    log(f"{tag} SolveInitial(tol={MCS2D_TOL:g}, JAX k {TH2D_JAX[1]:.6g}): "
+        f"{res.iterations} BPCG iterations (converged {res.converged}), "
+        f"{t_solve:.3f} s (stokes_bpcg_time {m.stokes_bpcg_time:.3f} s); "
+        f"true f64 rel residual {true_rel:.3e}; launches {solve_launches}")
+    check(res.converged, f"{tag} BPCG did not converge")
+    check(true_rel <= 1e-8, f"{tag} true residual {true_rel:.3e}")
+    ok, err = count_matches(res, TH2D_JAX[0], MCS2D_TOL, MCS2D_PLATEAU)
+    log(f"{tag} errors at iterations {TH2D_JAX[0] - 2}.. (JAX count "
+        f"{TH2D_JAX[0]}): " + ", ".join(f"{e:.3e}" for e in err))
+    check(ok, f"{tag} {res.iterations} iterations with the JAX k, JAX "
+          f"{TH2D_JAX[0]}")
+    check(solve_launches.get("batched_local_matvec_f64", 0) > 0,
+          f"{tag} kernel 8 never launched in the solve")
+    _, step_launches = steps_2d(torch, bm, m, MCS2D_STEPS, tag)
+    check(step_launches.get("batched_local_matvec_f64", 0) > 0,
+          f"{tag} kernel 8 never launched in the steps")
+    log(f"{tag} setup " + ", ".join(f"{k} {v:.2f} s"
+                                    for k, v in m.setup_seconds.items()))
+    launches = {k: solve_launches.get(k, 0) + step_launches.get(k, 0)
+                for k in set(solve_launches) | set(step_launches)}
+    secs = time.perf_counter() - t_phase
+    log(f"[th2d] phase {secs:.1f} s")
+    return secs, launches
+
 
 def redesign_order(entries, reports):
     """The order in which the kernels are worth redesigning: first those
@@ -2045,6 +2325,14 @@ def run():
         "batched_local_matvec_hdg3d": KernelReport(
             "batched_local_matvec_hdg3d", f"{PALLAS_LOCAL}:26", SRC_LOCAL),
         "block_mv_hdg3d": KernelReport("block_mv_hdg3d", f"{PALLAS}:118"),
+        # the 2D models' tables ([mcs2d], [th2d]): kernel 8 in f64 on the
+        # element tables, the MCS vertex stars and the Taylor-Hood patches
+        "batched_local_matvec_f64_mcs2d": KernelReport(
+            "batched_local_matvec_f64_mcs2d", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
+        "batched_local_matvec_f64_th2d": KernelReport(
+            "batched_local_matvec_f64_th2d", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -2217,6 +2505,12 @@ def run():
     torch.cuda.empty_cache()
     t_hdg, launches_hdg, launches_ref = hdg3d_phase(torch, bm, lm, timer, gen,
                                                     reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the 2D models: MCS (maxh 0.05 and 0.01) and Taylor-Hood
+    t_mcs2d, launches_mcs2d = mcs2d_phase(torch, bm, lm, timer, gen, reports)
+    t_th2d, launches_th2d = th2d_phase(torch, bm, lm, timer, gen, reports)
 
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
@@ -2235,14 +2529,19 @@ def run():
                   launches_hdg.get("batched_local_matvec_f64", 0),
               "batched_local_matvec_hdg3d":
                   launches_ref.get("batched_local_matvec", 0),
-              "block_mv_hdg3d": launches_ref.get("block_mv", 0)}
+              "block_mv_hdg3d": launches_ref.get("block_mv", 0),
+              "batched_local_matvec_f64_mcs2d":
+                  launches_mcs2d.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_f64_th2d":
+                  launches_th2d.get("batched_local_matvec_f64", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
     log(f"[time] phases: cuda-tests {t_cuda_tests:.1f} s, bpcg "
-        f"{t_bpcg:.1f} s, bench {t_bench:.1f} s; new: repeat "
-        f"{t_repeat:.1f} s, refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s "
-        f"(together {t_repeat + t_refine + t_hdg:.1f} s); whole run "
+        f"{t_bpcg:.1f} s, bench {t_bench:.1f} s, repeat {t_repeat:.1f} s, "
+        f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s; new: mcs2d "
+        f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s (together "
+        f"{t_mcs2d + t_th2d:.1f} s); whole run "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)

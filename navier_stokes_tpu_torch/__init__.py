@@ -11,6 +11,9 @@ solve (``SolveInitial``) is the JAX model's Bramble-Pasciak CG
 bench.py's JSON line for the port.  ``models.NavierStokesHDG3D`` is the 3D
 interior-penalty H(div) model, ``solvers/refinement.py`` holds the
 mixed-precision refinement drivers, and ``scripts/navier_stokes_3d.py`` the
-3D demo.  Every scatter-add is deterministic (``ops.assembly.ScatterPlan``).
+3D demo.  ``models.NavierStokesMCS`` also takes a triangle mesh (the 2D
+MCS model), ``models.NavierStokes`` is the Taylor-Hood model in 2D and 3D,
+and ``scripts/navier_stokes_2d.py`` / ``navier_stokes_cavity.py`` the 2D
+demos.  Every scatter-add is deterministic (``ops.assembly.ScatterPlan``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -257,6 +257,31 @@ TET_EDGES = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
 TET_FACES = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
 
 
+def triangle_lagrange_nodes(order: int) -> tuple[np.ndarray, dict]:
+    """Equispaced Lagrange nodes on the unit triangle, entity-ordered.
+
+    Returns (nodes (nb,2), layout) where layout records how many dofs sit on
+    each entity class and, for edges, the node ordering convention: edge-dof
+    index e*(order-1)+m is the m-th interior node walking from the edge's
+    first to second local vertex.
+    """
+    k = order
+    nodes = [TRI_VERTICES[0], TRI_VERTICES[1], TRI_VERTICES[2]]
+    for (va, vb) in TRI_EDGES:
+        for m in range(1, k):
+            t = m / k
+            nodes.append((1 - t) * TRI_VERTICES[va] + t * TRI_VERTICES[vb])
+    # interior nodes, lexicographic in (i, j)
+    for i in range(1, k):
+        for j in range(1, k - i):
+            nodes.append(np.array([i / k, j / k]))
+    layout = dict(n_vertex=1, n_edge=k - 1, n_face=0,
+                  n_cell=max(0, (k - 1) * (k - 2) // 2))
+    if k == 0:  # pragma: no cover - order-0 handled by L2 constant basis
+        raise ValueError("order must be >= 1 for Lagrange nodes")
+    return np.array(nodes), layout
+
+
 def tet_lagrange_nodes(order: int) -> tuple[np.ndarray, dict]:
     """Equispaced Lagrange nodes on the unit tetrahedron, entity-ordered."""
     k = order
@@ -332,6 +357,16 @@ def _nodal_from_modal(nodes, modal, order, dim):
     return tab
 
 
+def lagrange_triangle(order: int) -> ElementBasis:
+    """Continuous Pk Lagrange basis on the unit triangle."""
+    nodes, layout = triangle_lagrange_nodes(order)
+    tab = _nodal_from_modal(nodes, triangle_modal, order, 2)
+    return ElementBasis(
+        dim=2, order=order, n_basis=len(nodes), _tabulate=tab, nodes=nodes,
+        name=f"P{order}-tri", **layout,
+    )
+
+
 def lagrange_tet(order: int) -> ElementBasis:
     """Continuous Pk Lagrange basis on the unit tetrahedron."""
     nodes, layout = tet_lagrange_nodes(order)
@@ -343,24 +378,33 @@ def lagrange_tet(order: int) -> ElementBasis:
 
 
 def discontinuous_simplex(order: int, dim: int) -> ElementBasis:
-    """Discontinuous Pk basis on tets (all dofs cell-local).
+    """Discontinuous Pk basis (all dofs cell-local).
 
     Uses the orthonormal modal basis directly for order 0 (constants) and the
     Lagrange point basis otherwise (so fields remain interpolatory).
     """
-    assert dim == 3, "the port carries the 3D spaces only"
-    if order == 0:
-        def tab(points):
-            v, g = tet_modal(points, 0)
-            return v / v[0, 0], g
-        return ElementBasis(dim=3, order=0, n_basis=1, n_vertex=0, n_edge=0,
-                            n_face=0, n_cell=1, _tabulate=tab,
-                            nodes=np.array([[0.25, 0.25, 0.25]]), name="P0dc-tet")
-    base = lagrange_tet(order)
+    if dim == 2:
+        if order == 0:
+            def tab(points):
+                v, g = triangle_modal(points, 0)
+                return v / v[0, 0], g  # constant 1
+            return ElementBasis(dim=2, order=0, n_basis=1, n_vertex=0, n_edge=0,
+                                n_face=0, n_cell=1, _tabulate=tab,
+                                nodes=np.array([[1 / 3, 1 / 3]]), name="P0dc-tri")
+        base = lagrange_triangle(order)
+    elif dim == 3:
+        if order == 0:
+            def tab(points):
+                v, g = tet_modal(points, 0)
+                return v / v[0, 0], g
+            return ElementBasis(dim=3, order=0, n_basis=1, n_vertex=0, n_edge=0,
+                                n_face=0, n_cell=1, _tabulate=tab,
+                                nodes=np.array([[0.25, 0.25, 0.25]]), name="P0dc-tet")
+        base = lagrange_tet(order)
+    else:
+        raise ValueError(dim)
     return ElementBasis(
         dim=dim, order=order, n_basis=base.n_basis, n_vertex=0, n_edge=0,
         n_face=0, n_cell=base.n_basis, _tabulate=base._tabulate,
         nodes=base.nodes, name=f"P{order}dc-{'tri' if dim == 2 else 'tet'}",
     )
-
-

@@ -180,9 +180,8 @@ def _continuous_dof_table(mesh: Mesh, b: ref.ElementBasis) -> tuple[int, np.ndar
 
 
 def H1(mesh: Mesh, order: int, dirichlet: str = "") -> FunctionSpace:
-    """Continuous Pk Lagrange space on tets (NGSolve H1 equivalent)."""
-    assert mesh.dim == 3, "the port carries the 3D spaces only"
-    b = ref.lagrange_tet(order)
+    """Continuous Pk Lagrange space (NGSolve H1 equivalent)."""
+    b = ref.lagrange_triangle(order) if mesh.dim == 2 else ref.lagrange_tet(order)
     ndof, table = _continuous_dof_table(mesh, b)
     return FunctionSpace(mesh, b, ndof, table, dirichlet, name=f"H1_{order}")
 
@@ -194,3 +193,49 @@ def L2(mesh: Mesh, order: int) -> FunctionSpace:
     return FunctionSpace(mesh, b, ndof, table, "", name=f"L2_{order}")
 
 
+@dataclass
+class VectorSpace:
+    """ncomp stacked copies of a scalar space, component-major dof layout:
+    dof (c, i) -> c * scalar.ndof + i  (matches the reference's
+    FESpace([V, V]) component layout, run.py:99-104)."""
+
+    scalar: FunctionSpace
+    ncomp: int
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.scalar.mesh
+
+    @property
+    def ndof(self) -> int:
+        return self.ncomp * self.scalar.ndof
+
+    @property
+    def order(self) -> int:
+        return self.scalar.order
+
+    @cached_property
+    def free_mask(self) -> np.ndarray:
+        return np.tile(self.scalar.free_mask, self.ncomp)
+
+    def boundary_dof_mask(self, names: str) -> np.ndarray:
+        return np.tile(self.scalar.boundary_dof_mask(names), self.ncomp)
+
+    def interpolate(self, f: Callable[[np.ndarray], np.ndarray]) -> np.ndarray:
+        """f maps points (n,dim) -> (n, ncomp); returns stacked dof vector."""
+        comps = []
+        for c in range(self.ncomp):
+            comps.append(self.scalar.interpolate(lambda p, c=c: f(p)[:, c]))
+        return np.concatenate(comps)
+
+    def interpolate_boundary(self, f, names: str) -> np.ndarray:
+        mask = self.scalar.boundary_dof_mask(names)
+        comps = []
+        for c in range(self.ncomp):
+            u = self.scalar.interpolate(lambda p, c=c: f(p)[:, c])
+            comps.append(np.where(mask, u, 0.0))
+        return np.concatenate(comps)
+
+
+def VectorH1(mesh: Mesh, order: int, dirichlet: str = "") -> VectorSpace:
+    return VectorSpace(H1(mesh, order, dirichlet), mesh.dim)

@@ -1,4 +1,13 @@
-from .generators import channel_with_cylinder_mesh, channel_with_cylinder_mesh_3d
+from .generators import (
+    cavity_mesh,
+    channel_with_cylinder_mesh,
+    channel_with_cylinder_mesh_3d,
+    polygon_mesh,
+    rectangle_mesh,
+    unit_square_mesh,
+)
 from .mesh import Mesh
 
-__all__ = ["Mesh", "channel_with_cylinder_mesh", "channel_with_cylinder_mesh_3d"]
+__all__ = ["Mesh", "cavity_mesh", "channel_with_cylinder_mesh",
+           "channel_with_cylinder_mesh_3d", "polygon_mesh", "rectangle_mesh",
+           "unit_square_mesh"]

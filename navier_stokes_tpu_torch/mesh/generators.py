@@ -1,9 +1,11 @@
-"""Mesh generator for the 3D channel-with-cylinder benchmark geometry.
+"""Mesh generators for the reference benchmark geometries.
 
-The port's own copy of ``navier_stokes_tpu/mesh/generators.py``, trimmed to
-the straight 3D path: the 2D Schaefer-Turek channel, its extrusion to tets,
-and ``channel_with_cylinder_mesh_3d`` (reference
-templates/NavierStokesSIMPLE_test_3D.py:8-16).  Host-side numpy/scipy.
+The port's own copy of ``navier_stokes_tpu/mesh/generators.py``: the unit
+square, the channel rectangle and the lid-driven cavity, the 2D
+Schaefer-Turek channel with its cylinder (reference run.py:22-29), its
+extrusion to tets and ``channel_with_cylinder_mesh_3d`` (reference
+templates/NavierStokesSIMPLE_test_3D.py:8-16), and the general polygon
+frontend ``polygon_mesh``.  Host-side numpy/scipy.
 """
 
 from __future__ import annotations
@@ -13,6 +15,86 @@ import numpy as np
 from .mesh import Mesh
 
 _TOL = 1e-9
+
+
+def unit_square_mesh(maxh: float = 0.1) -> Mesh:
+    """Structured triangulation of (0,1)^2 with NGSolve boundary names.
+
+    Boundary names match netgen's unit_square: bottom, right, top, left.
+    """
+    n = max(1, round(1.0 / maxh))
+    xs = np.linspace(0.0, 1.0, n + 1)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (n + 1) + j
+
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            v00, v10 = vid(i, j), vid(i + 1, j)
+            v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+            # alternate the diagonal for isotropy
+            if (i + j) % 2 == 0:
+                tris += [[v00, v10, v11], [v00, v11, v01]]
+            else:
+                tris += [[v00, v10, v01], [v10, v11, v01]]
+    mesh = Mesh(pts, np.array(tris, dtype=np.int32))
+    mesh.ensure_positive_orientation()
+    mesh.tag_boundary_by_predicate("bottom", lambda p: np.abs(p[:, :, 1]) < _TOL)
+    mesh.tag_boundary_by_predicate("right", lambda p: np.abs(p[:, :, 0] - 1) < _TOL)
+    mesh.tag_boundary_by_predicate("top", lambda p: np.abs(p[:, :, 1] - 1) < _TOL)
+    mesh.tag_boundary_by_predicate("left", lambda p: np.abs(p[:, :, 0]) < _TOL)
+    return mesh
+
+
+def rectangle_mesh(
+    maxh: float = 0.1, length: float = 2.0, height: float = 0.41
+) -> Mesh:
+    """Structured channel rectangle: inlet (x=0), outlet (x=length),
+    wall (y=0, y=height)."""
+    nx = max(1, round(length / maxh))
+    ny = max(1, round(height / maxh))
+    xs = np.linspace(0.0, length, nx + 1)
+    ys = np.linspace(0.0, height, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    tris = []
+    for i in range(nx):
+        for j in range(ny):
+            v00, v10 = vid(i, j), vid(i + 1, j)
+            v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+            if (i + j) % 2 == 0:
+                tris += [[v00, v10, v11], [v00, v11, v01]]
+            else:
+                tris += [[v00, v10, v01], [v10, v11, v01]]
+    mesh = Mesh(pts, np.array(tris, dtype=np.int32))
+    mesh.ensure_positive_orientation()
+    mesh.tag_boundary_by_predicate("inlet", lambda p: np.abs(p[:, :, 0]) < _TOL)
+    mesh.tag_boundary_by_predicate(
+        "outlet", lambda p: np.abs(p[:, :, 0] - length) < _TOL
+    )
+    mesh.tag_boundary_by_predicate(
+        "wall",
+        lambda p: (np.abs(p[:, :, 1]) < _TOL) | (np.abs(p[:, :, 1] - height) < _TOL),
+    )
+    return mesh
+
+
+def cavity_mesh(maxh: float = 0.05) -> Mesh:
+    """Unit-square lid-driven cavity: lid (top) + wall (other three sides)."""
+    mesh = unit_square_mesh(maxh)
+    mesh.tag_boundary_by_predicate("lid", lambda p: np.abs(p[:, :, 1] - 1) < _TOL)
+    wall = np.concatenate(
+        [mesh.boundary_tags[k] for k in ("bottom", "left", "right")]
+    )
+    mesh.boundary_tags["wall"] = np.unique(wall).astype(np.int32)
+    return mesh
 
 
 def extrude_to_tets(mesh2d: Mesh, z_levels: np.ndarray) -> Mesh:
@@ -229,4 +311,179 @@ def channel_with_cylinder_mesh(
         "cyl",
         lambda p: np.abs(np.hypot(p[:, :, 0] - cx, p[:, :, 1] - cy) - r) < 1e-6 * (1 + r),
     )
+    return mesh
+
+
+# ----------------------------------------------------------------------
+# General 2D polygon frontend (the reference meshes arbitrary 2D spline
+# geometries through Netgen, reference run.py:22-29; this is the
+# rectilinear-and-polygonal slice of that capability: simple polygons
+# with polygonal holes, per-edge boundary names, Delaunay + smoothing —
+# combined with ``extrude_to_tets`` it also covers extruded 3D solids)
+# ----------------------------------------------------------------------
+
+
+def _points_in_polygon(q: np.ndarray, poly: np.ndarray) -> np.ndarray:
+    """Vectorized crossing-number test: q (n, 2) inside poly (m, 2)."""
+    x, y = q[:, 0:1], q[:, 1:2]
+    x0, y0 = poly[:, 0][None, :], poly[:, 1][None, :]
+    x1 = np.roll(poly[:, 0], -1)[None, :]
+    y1 = np.roll(poly[:, 1], -1)[None, :]
+    cross = ((y0 > y) != (y1 > y)) & (
+        x < x0 + (y - y0) * (x1 - x0) / np.where(y1 == y0, np.inf, y1 - y0)
+    )
+    return (cross.sum(axis=1) % 2).astype(bool)
+
+
+def _dist_to_segments(q: np.ndarray, poly: np.ndarray) -> np.ndarray:
+    """Min distance from each q (n, 2) to the polygon's edges."""
+    a = poly
+    b = np.roll(poly, -1, axis=0)
+    ab = b - a  # (m, 2)
+    ab2 = np.maximum((ab * ab).sum(axis=1), 1e-300)
+    aq = q[:, None, :] - a[None, :, :]  # (n, m, 2)
+    t = np.clip((aq * ab[None]).sum(axis=2) / ab2[None, :], 0.0, 1.0)
+    proj = a[None] + t[:, :, None] * ab[None]
+    d = np.linalg.norm(q[:, None, :] - proj, axis=2)
+    return d.min(axis=1)
+
+
+def _sample_polygon_edges(poly: np.ndarray, maxh: float):
+    """Boundary points at spacing <= maxh + per-point edge ids."""
+    pts, eid = [], []
+    m = len(poly)
+    for i in range(m):
+        a, b = poly[i], poly[(i + 1) % m]
+        n = max(1, int(np.ceil(np.linalg.norm(b - a) / maxh)))
+        t = np.arange(n) / n
+        pts.append(a[None] + t[:, None] * (b - a)[None])
+        eid.append(np.full(n, i))
+    return np.concatenate(pts), np.concatenate(eid)
+
+
+def polygon_mesh(
+    vertices,
+    maxh: float = 0.1,
+    holes=None,
+    names=None,
+    hole_names=None,
+    smooth_rounds: int = 4,
+) -> Mesh:
+    """Unstructured triangulation of a simple polygon with polygonal holes.
+
+    ``vertices``: (m, 2) outer boundary, counter-clockwise.  ``holes``:
+    optional list of (k, 2) hole polygons (any orientation).  ``names``:
+    per-outer-edge boundary names (list of m strings, edge i = vertices
+    i -> i+1), default all "boundary"; ``hole_names``: one name per hole,
+    default "hole0", "hole1", ...  Construction mirrors
+    ``channel_with_cylinder_mesh``: boundary sampling at spacing <= maxh,
+    interior grid filtered by point-in-polygon + boundary clearance,
+    Delaunay, centroid-based hole/outside removal, Laplacian smoothing
+    with fixed boundary points.
+    """
+    from scipy.spatial import Delaunay
+
+    outer = np.asarray(vertices, np.float64)
+    holes = [np.asarray(h, np.float64) for h in (holes or [])]
+    if names is None:
+        names = ["boundary"] * len(outer)
+    assert len(names) == len(outer), "one name per outer edge"
+    if hole_names is None:
+        hole_names = [f"hole{i}" for i in range(len(holes))]
+
+    bpts, beid = _sample_polygon_edges(outer, maxh)
+    hole_pts = []
+    hole_eids = []
+    for h in holes:
+        hp, _ = _sample_polygon_edges(h, maxh)
+        hole_pts.append(hp)
+    all_b = np.concatenate([bpts] + hole_pts) if hole_pts else bpts
+
+    lo, hi = outer.min(axis=0), outer.max(axis=0)
+    nx = max(2, int(np.ceil((hi[0] - lo[0]) / maxh)))
+    ny = max(2, int(np.ceil((hi[1] - lo[1]) / maxh)))
+    gx = np.linspace(lo[0], hi[0], nx + 1)
+    gy = np.linspace(lo[1], hi[1], ny + 1)
+    GX, GY = np.meshgrid(gx, gy, indexing="ij")
+    grid = np.stack([GX.ravel(), GY.ravel()], axis=1)
+    inside = _points_in_polygon(grid, outer)
+    for h in holes:
+        inside &= ~_points_in_polygon(grid, h)
+    clear = _dist_to_segments(grid, outer) > 0.45 * maxh
+    for h in holes:
+        clear &= _dist_to_segments(grid, h) > 0.45 * maxh
+    pts = np.concatenate([all_b, grid[inside & clear]])
+    n_fixed = len(all_b)
+
+    def triangulate(p):
+        els = Delaunay(p).simplices
+        cent = p[els].mean(axis=1)
+        keep = _points_in_polygon(cent, outer)
+        for h in holes:
+            keep &= ~_points_in_polygon(cent, h)
+        els = els[keep]
+        v = p[els]
+        area2 = np.abs(
+            (v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
+            - (v[:, 2, 0] - v[:, 0, 0]) * (v[:, 1, 1] - v[:, 0, 1])
+        )
+        return els[area2 > 1e-10 * maxh * maxh]
+
+    fixed = np.zeros(len(pts), bool)
+    fixed[:n_fixed] = True
+    els = triangulate(pts)
+    for _ in range(smooth_rounds):
+        nbr_sum = np.zeros_like(pts)
+        nbr_cnt = np.zeros(len(pts))
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            np.add.at(nbr_sum, els[:, a], pts[els[:, b]])
+            np.add.at(nbr_cnt, els[:, a], 1.0)
+            np.add.at(nbr_sum, els[:, b], pts[els[:, a]])
+            np.add.at(nbr_cnt, els[:, b], 1.0)
+        new = nbr_sum / np.maximum(nbr_cnt, 1.0)[:, None]
+        cand = np.where(fixed[:, None], pts, new)
+        ok = _points_in_polygon(cand, outer)
+        for h in holes:
+            ok &= ~_points_in_polygon(cand, h)
+        pts = np.where((fixed | ~ok)[:, None], pts, cand)
+        els = triangulate(pts)
+
+    used = np.unique(els)
+    remap = -np.ones(len(pts), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    mesh = Mesh(pts[used], remap[els].astype(np.int32))
+    mesh.ensure_positive_orientation()
+
+    tol = 1e-7 * (1.0 + np.abs(hi - lo).max())
+
+    def seg_predicate(poly, i):
+        a, b = poly[i], poly[(i + 1) % len(poly)]
+
+        def pred(p):
+            # p: (nbf, 2, 2) facet vertex coords; near-segment test
+            q = p.reshape(-1, 2)
+            ab = b - a
+            ab2 = max(float(ab @ ab), 1e-300)
+            t = np.clip(((q - a) @ ab) / ab2, 0.0, 1.0)
+            d = np.linalg.norm(q - (a + t[:, None] * ab), axis=1)
+            return (d < tol).reshape(p.shape[:2])
+
+        return pred
+
+    # group outer edges by name so repeated names merge into one tag
+    by_name: dict[str, list[int]] = {}
+    for i, nm in enumerate(names):
+        by_name.setdefault(nm, []).append(i)
+    for nm, idxs in by_name.items():
+        preds = [seg_predicate(outer, i) for i in idxs]
+        mesh.tag_boundary_by_predicate(
+            nm, lambda p, preds=preds: np.any([pr(p) for pr in preds],
+                                              axis=0)
+        )
+    for h, nm in zip(holes, hole_names):
+        preds = [seg_predicate(h, i) for i in range(len(h))]
+        mesh.tag_boundary_by_predicate(
+            nm, lambda p, preds=preds: np.any([pr(p) for pr in preds],
+                                              axis=0)
+        )
     return mesh

@@ -1,17 +1,25 @@
-"""Navier-Stokes on the MCS discretization in 3D — the flagship model.
+"""Navier-Stokes on the MCS discretization in 2D and 3D — the reference's
+centerpiece and the flagship model.
 
-Counterpart of ``navier_stokes_tpu/models/navier_stokes_mcs.py``, 3D only:
-V = BDM_k H(div) velocity on tets, tangential facet velocity of order k-1,
-H(curl,div) stress sigma and the vector vorticity multiplier W, with sigma
-and W eliminated per element by batched static condensation.  The condensed
-[H(div) | facet] operator A, the pressure coupling B (L2 order k-1) and the
-pressure-mass preconditioner preM are built here; element assembly and
-condensation run once on the host in f64 numpy, the face-major operator
-tables live on ``device`` in the model's ``dtype`` (f64 unless asked).
+Counterpart of ``navier_stokes_tpu/models/navier_stokes_mcs.py``, one class
+for both dimensions as there: V = BDM_k H(div) velocity, tangential facet
+velocity of order k-1, H(curl,div) stress sigma (triangles:
+fem/hcurldiv.py, tets: fem/hcurldiv3d.py) and the vorticity multiplier W
+(scalar in 2D, a vector in 3D), with sigma and W eliminated per element by
+batched static condensation.  The condensed [H(div) | facet] operator A,
+the pressure coupling B (L2 order k-1) and the pressure-mass
+preconditioner preM are built here; element assembly and condensation run
+once on the host in f64 numpy, the operator tables live on ``device`` in
+the model's ``dtype`` (f64 unless asked).  In 3D the tables ship face-major
+for the scatter-free face-block applies (ops/faceblock.py); in 2D the
+applies are gather -> element product -> deterministic scatter
+(ops/assembly.ScatterPlan), every square element product -- A, the mass,
+M* and Mv -- through the hand-written ``batched_local_matvec``.
 
-With ``geometry=`` (mesh/curved.curve_to_cylinder_3d) the curved-layer
-element rows are re-assembled isoparametrically, as the bench's default
-order-3 curved cylinder.
+With ``geometry=`` (mesh/curved.curve_to_circle in 2D,
+curve_to_cylinder_3d in 3D) the curved elements are assembled
+isoparametrically: in 2D every element through the curved assembler, in 3D
+the curved-layer rows as the bench's default order-3 curved cylinder.
 
 The transient SIMPLE step (``make_step_fn``, ``DoTimeStep``, ``Project``,
 ``SolveInitial(timesteps=n)``): explicit upwind-DG convection
@@ -28,11 +36,14 @@ convection tables are built lazily: the steady solve never touches them.
 
 The model's own initial Stokes solve, ``SolveInitial()``: Bramble-Pasciak
 CG (solvers/bpcg.py, the optimized v2) in the model's precision with one of
-the JAX model's three 3D A-preconditioners (``preconditioner=`` and
-``GS=``): the skeleton preconditioner (models/auxspace3d.py) at f64, its
-additive or multicolor-GS variant, or the face blocks of the hybrid space,
-additive (``build_faceblock_preconditioner_3d``) or multicolor block-GS
-(precond/multicolor.MulticolorGS).  The bench's flagship solve is
+the JAX model's A-preconditioners (``preconditioner=`` and ``GS=``).  3D:
+the skeleton preconditioner (models/auxspace3d.py) at f64, its additive or
+multicolor-GS variant, or the face blocks of the hybrid space, additive
+(``build_faceblock_preconditioner_3d``) or multicolor block-GS
+(precond/multicolor.MulticolorGS).  2D: ``jacobi``, ``edgeblock``,
+``vertexstar`` or ``auxspace`` (vertex stars + vector-P1 coarse), additive
+or multicolor block-GS (models/stokes_hybrid.build_hybrid_preconditioner),
+the f64 star blocks through ``batched_local_matvec``.  The bench's flagship solve is
 ``flagship.FlagshipSolve``.  Enclosed flow (``outflow=""``) demeans the
 pressure; ``AddForce`` / ``volumeforce`` load the right-hand side, and
 ``reconstruct_stress`` recovers the eliminated fields per element.
@@ -46,14 +57,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..fem.hcurldiv import hcurldiv_triangle
 from ..fem.hcurldiv3d import hcurldiv_tet
+from ..fem.hdiv import HDiv, VectorFacet, legendre_01
 from ..fem.hdiv3d import HDiv3D
-from ..fem.quadrature import tetrahedron_rule
+from ..fem.quadrature import tetrahedron_rule, triangle_rule
 from ..fem.reference import TET_FACES, TET_VERTICES, triangle_modal
 from ..fem.spaces import H1, L2
-from ..ops.assembly import ScatterPlan, mass_diagonal
+from ..mesh.curved import geometry_hessian, geometry_tables
+from ..ops.assembly import ScatterPlan, apply_local_matrices, mass_diagonal
+from ..ops.convection import build_upwind_convection
 from ..ops.convection3d import build_upwind_convection_3d
 from ..ops.faceblock import FaceBlockLayout
+from ..ops.facets import facet_geometry
 from ..ops.facets3d import facet_geometry_3d
 from ..ops.local_mv import batched_local_matvec
 from ..precond.chebyshev import chebyshev_preconditioner
@@ -68,6 +84,12 @@ from ..solvers.bpcg import bp_scale_factor, bramble_pasciak_cg_opt
 from ..solvers.cg import cg
 from ..utils.timers import Timer
 from .auxspace3d import build_skeleton_preconditioner_3d
+from .stokes_hybrid import (
+    A_PRECONDITIONERS,
+    HybridVelocitySpace,
+    build_hybrid_preconditioner,
+    interpolate_hybrid_boundary,
+)
 from .stokes_hybrid3d import (
     HybridVelocitySpace3D,
     VectorFacet3D,
@@ -79,6 +101,265 @@ from .stokes_hybrid3d import (
 __all__ = ["NavierStokesMCS", "load_host_tables"]
 
 _CACHE_KEYS = {"tabs3d": 5, "cond": 2, "tabs3d_curved": 5, "cond_curved": 2}
+
+
+def _assemble_mcs_ns_local(mesh, V, facet_space, sigma_basis, W_space, nu):
+    """Element-local 4-field matrices, split into retained [u | uhat] and
+    eliminated [sigma | W] blocks.
+
+    Returns (A_ret, A_rc, A_cc, A_cr) with shapes over
+    n_ret = nbv + 3*nfd and n_el = nbs + nbw, signs folded on the retained
+    and eliminated sides.
+    """
+    hb, sb = V.basis, sigma_basis
+    k = hb.order
+    nbv, nbs = hb.n_basis, sb.n_basis
+    nfd = facet_space.n_edge
+    nfac = 3 * nfd
+    qb = W_space.basis
+    nbw = qb.n_basis
+
+    J, detJ, Jinv = mesh.element_jacobians
+    ne = mesh.ne
+    vol = triangle_rule(2 * k + 2)
+    w = vol.weights
+
+    v_val, v_grad = hb.tabulate(vol.points)
+    s_val, s_grad = sb.tabulate(vol.points)
+    w_val, _ = qb.tabulate(vol.points)
+
+    # physical sigma and its divergence (see stokes_mcs.py derivation)
+    sp = np.einsum("eai,qnab,ejb->eqnij", Jinv, s_val, J, optimize=True) / detJ[:, None, None, None, None]
+    div_s_ref = np.einsum("qnabb->qna", s_grad)
+    v_p = np.einsum("ecA,qiA->eqic", J, v_val, optimize=True) / detJ[:, None, None, None]
+
+    n_ret = nbv + nfac
+    n_el = nbs + nbw
+    A_ret = np.zeros((ne, n_ret, n_ret))
+    A_rc = np.zeros((ne, n_ret, n_el))
+    A_cc = np.zeros((ne, n_el, n_el))
+
+    # -(1/(2 nu)) sigma:tau
+    A_cc[:, :nbs, :nbs] += -(0.5 / nu) * np.einsum(
+        "q,eqnij,eqmij,e->enm", w, sp, sp, detJ
+    , optimize=True)
+    # vorticity multiplier: W skw(tau) + R skw(sigma); skw(m) = m10 - m01
+    skw_s = sp[..., 1, 0] - sp[..., 0, 1]  # (ne, nq, nbs)
+    wr = np.einsum("q,qn,eqm,e->enm", w, w_val, skw_s, detJ, optimize=True)
+    A_cc[:, nbs:, :nbs] += wr
+    A_cc[:, :nbs, nbs:] += wr.transpose(0, 2, 1)
+    # div(sigma).v + div(tau).u  (ref-frame pairing / detJ)
+    dsv = np.einsum("q,qma,qia,e->eim", w, div_s_ref, v_val, 1.0 / detJ, optimize=True)
+    A_rc[:, :nbv, :nbs] += dsv
+    # facet terms
+    fg = facet_geometry(mesh, k + 3)
+    for le in range(3):
+        pts = fg.ref_points[le]
+        tv, _ = hb.tabulate(pts)
+        ts, _ = sb.tabulate(pts)
+        v_tp = np.einsum("ecA,qiA->eqic", J, tv, optimize=True) / detJ[:, None, None, None]
+        s_tp = np.einsum("eai,qnab,ejb->eqnij", Jinv, ts, J, optimize=True) / detJ[:, None, None, None, None]
+        nrm = fg.normal[:, le]
+        vn = np.einsum("eqic,ec->eqi", v_tp, nrm, optimize=True)
+        sn = np.einsum("eqnij,ej->eqni", s_tp, nrm, optimize=True)
+        snn = np.einsum("eqni,ei->eqn", sn, nrm, optimize=True)
+        ds = fg.elen[:, le]
+        # -(sigma n.n)(v.n)
+        blk = np.einsum("q,eqm,eqi,e->eim", fg.w, snn, vn, ds, optimize=True)
+        A_rc[:, :nbv, :nbs] -= blk
+        # -(sigma n).tang(uhat): facet basis = L_j(t_g) tau_g (tangential)
+        tgl = fg.t_global[:, le]
+        leg = np.stack([legendre_01(tgl, j) for j in range(nfd)], axis=2)
+        fvals = leg[..., None] * fg.tau_global[:, le][:, None, None, :]
+        sn_t = sn - snn[..., None] * nrm[:, None, None, :]
+        blk2 = np.einsum("q,eqmc,eqjc,e->ejm", fg.w, sn_t, fvals, ds, optimize=True)
+        A_rc[:, nbv + le * nfd: nbv + (le + 1) * nfd, :nbs] -= blk2
+
+    # grad-div: 2 nu div(u) div(v)
+    div_v_ref = np.einsum("qnaa->qn", v_grad)
+    A_ret[:, :nbv, :nbv] += 2.0 * nu * np.einsum(
+        "q,qn,qm,e->enm", w, div_v_ref, div_v_ref, 1.0 / detJ
+    , optimize=True)
+
+    # fold signs: retained = [hdiv signs | +1 facet], eliminated = [sigma
+    # parity signs | +1]
+    s_ret = np.concatenate(
+        [V.element_signs, np.ones((ne, nfac))], axis=1
+    )
+    # sigma element-local -> no sharing, signs irrelevant (identity)
+    A_ret = A_ret * s_ret[:, :, None] * s_ret[:, None, :]
+    A_rc = A_rc * s_ret[:, :, None]
+    return A_ret, A_rc, A_cc, v_p, vol
+
+
+def _mcs_mass_coupling_2d(mesh, V, Q_basis, v_p, vol, n_ret):
+    """The affine 2D velocity mass on the retained block (u block only,
+    signs folded) and the pressure coupling B_loc (pressure x retained):
+    int div(u) q dx = sum_q w divhat q -- the Piola divergence and detJ
+    cancel, so B is one reference-frame block for every element, up to
+    signs."""
+    nbv = V.basis.n_basis
+    sv = v_p * V.element_signs[:, None, :, None]
+    M_u = np.einsum("q,eqic,eqjc,e->eij", vol.weights, sv, sv,
+                    mesh.element_jacobians[1], optimize=True)
+    M_full = np.zeros((mesh.ne, n_ret, n_ret))
+    M_full[:, :nbv, :nbv] = M_u
+    q_val, _ = Q_basis.tabulate(vol.points)
+    _, v_grad = V.basis.tabulate(vol.points)
+    div_v_ref = np.einsum("qnaa->qn", v_grad)
+    B_loc = np.zeros((mesh.ne, Q_basis.n_basis, n_ret))
+    B_ref = np.einsum("q,qp,qi->pi", vol.weights, q_val, div_v_ref,
+                      optimize=True)
+    B_loc[:, :, :nbv] = B_ref[None] * V.element_signs[:, None, :]
+    return M_full, B_loc
+
+
+def _assemble_mcs_ns_local_curved(mesh, V, facet_space, sigma_basis,
+                                  W_space, nu, geometry):
+    """Curved-geometry (isoparametric) 2D MCS assembly (VERDICT round-2
+    item 5: the reference curves the cylinder for every benchmark,
+    run.py:28 / NavierStokesSIMPLE_test.py:12).
+
+    With a non-affine map the stress pullback sigma = (1/detJ) J^{-T}
+    sigmahat J^T acquires curvature terms in its divergence:
+
+      d_B sigma_ij = (1/detJ) [ (d_B Jinv)_ai shat_ab J_jb
+                                + Jinv_ai ghat_abB J_jb
+                                + Jinv_ai shat_ab H_jbB ]
+                     - (d_B detJ / detJ^2) Jinv_ai shat_ab J_jb,
+      (div sigma)_i = d_B sigma_ij Jinv_Bj,
+      (d_B Jinv)_ai = - Jinv_ac H_cdB Jinv_di,
+
+    while ``div u = divhat/detJ`` (H(div) Piola identity) keeps the
+    grad-div and pressure-coupling terms curvature-free.  Facet integrals
+    use the exact curved scaled normal detJ J^{-T} nhat.  Returns
+    (A_ret, A_rc, A_cc, M_full, B_loc) with signs folded like the affine
+    2D path.
+    """
+    hb, sb = V.basis, sigma_basis
+    k = hb.order
+    nbv, nbs = hb.n_basis, sb.n_basis
+    nfd = facet_space.n_edge
+    nfac = 3 * nfd
+    qb = W_space.basis
+    nbw = qb.n_basis
+    ne = mesh.ne
+
+    vol = triangle_rule(2 * k + 4)
+    w = vol.weights
+    J, detJ, Jinv, xq = geometry_tables(geometry, vol.points)
+    H = geometry_hessian(geometry, vol.points)
+    ddet = (
+        H[..., 0, 0, :] * J[..., 1, 1, None]
+        + J[..., 0, 0, None] * H[..., 1, 1, :]
+        - H[..., 0, 1, :] * J[..., 1, 0, None]
+        - J[..., 0, 1, None] * H[..., 1, 0, :]
+    )  # (ne, nq, 2B)
+    dJinv = -np.einsum(
+        "eqac,eqcdB,eqdi->eqaiB", Jinv, H, Jinv, optimize=True
+    )
+
+    v_val, v_grad = hb.tabulate(vol.points)
+    s_val, s_grad = sb.tabulate(vol.points)
+    w_val, _ = qb.tabulate(vol.points)
+
+    n_ret = nbv + nfac
+    n_el = nbs + nbw
+    A_ret = np.zeros((ne, n_ret, n_ret))
+    A_rc = np.zeros((ne, n_ret, n_el))
+    A_cc = np.zeros((ne, n_el, n_el))
+
+    # physical stress values
+    sp = np.einsum(
+        "eqai,qnab,eqjb->eqnij", Jinv, s_val, J, optimize=True
+    ) / detJ[..., None, None, None]
+    A_cc[:, :nbs, :nbs] += -(0.5 / nu) * np.einsum(
+        "q,eqnij,eqmij,eq->enm", w, sp, sp, detJ, optimize=True
+    )
+    skw_s = sp[..., 1, 0] - sp[..., 0, 1]
+    wr = np.einsum("q,qn,eqm,eq->enm", w, w_val, skw_s, detJ, optimize=True)
+    A_cc[:, nbs:, :nbs] += wr
+    A_cc[:, :nbs, nbs:] += wr.transpose(0, 2, 1)
+
+    # div(sigma) with curvature terms
+    T = (
+        np.einsum("eqaiB,qnab,eqjb->eqnijB", dJinv, s_val, J, optimize=True)
+        + np.einsum("eqai,qnabB,eqjb->eqnijB", Jinv, s_grad, J, optimize=True)
+        + np.einsum("eqai,qnab,eqjbB->eqnijB", Jinv, s_val, H, optimize=True)
+    ) / detJ[..., None, None, None, None]
+    T -= sp[..., None] * (ddet / detJ[..., None])[:, :, None, None, None, :]
+    div_s = np.einsum("eqnijB,eqBj->eqni", T, Jinv, optimize=True)
+    del T
+    # pairing with v_phys * detJ = J vhat
+    Jv = np.einsum("eqcA,qnA->eqnc", J, v_val, optimize=True)
+    A_rc[:, :nbv, :nbs] += np.einsum(
+        "q,eqmi,eqni->enm", w, div_s, Jv, optimize=True
+    )
+
+    # facet terms (curved normals)
+    fg = facet_geometry(mesh, k + 4)
+    ref_n_sc = {
+        0: np.array([0.0, -1.0]),
+        1: np.array([1.0, 1.0]),
+        2: np.array([-1.0, 0.0]),
+    }
+    for le in range(3):
+        pts = fg.ref_points[le]
+        Jf, detf, Jinvf, _ = geometry_tables(geometry, pts)
+        tv, _ = hb.tabulate(pts)
+        ts, _ = sb.tabulate(pts)
+        v_tp = np.einsum(
+            "eqcA,qiA->eqic", Jf, tv, optimize=True
+        ) / detf[..., None, None]
+        s_tp = np.einsum(
+            "eqai,qnab,eqjb->eqnij", Jinvf, ts, Jf, optimize=True
+        ) / detf[..., None, None, None]
+        nsc = np.einsum(
+            "eq,eqBc,B->eqc", detf, Jinvf, ref_n_sc[le], optimize=True
+        )
+        dsq = np.linalg.norm(nsc, axis=-1)
+        n_unit = nsc / dsq[..., None]
+        vn = np.einsum("eqic,eqc->eqi", v_tp, n_unit, optimize=True)
+        sn = np.einsum("eqnij,eqj->eqni", s_tp, n_unit, optimize=True)
+        snn = np.einsum("eqni,eqi->eqn", sn, n_unit, optimize=True)
+        blk = np.einsum("q,eqm,eqi,eq->eim", fg.w, snn, vn, dsq, optimize=True)
+        A_rc[:, :nbv, :nbs] -= blk
+        tgl = fg.t_global[:, le]
+        leg = np.stack([legendre_01(tgl, j) for j in range(nfd)], axis=2)
+        fvals = leg[..., None] * fg.tau_global[:, le][:, None, None, :]
+        sn_t = sn - snn[..., None] * n_unit[:, :, None, :]
+        blk2 = np.einsum(
+            "q,eqmc,eqjc,eq->ejm", fg.w, sn_t, fvals, dsq, optimize=True
+        )
+        A_rc[:, nbv + le * nfd: nbv + (le + 1) * nfd, :nbs] -= blk2
+
+    # grad-div (Piola identity: div u = divhat/detJ)
+    div_v_ref = np.einsum("qnaa->qn", v_grad)
+    A_ret[:, :nbv, :nbv] += 2.0 * nu * np.einsum(
+        "q,qn,qm,eq->enm", w, div_v_ref, div_v_ref, 1.0 / detJ, optimize=True
+    )
+
+    # signs
+    s_ret = np.concatenate([V.element_signs, np.ones((ne, nfac))], axis=1)
+    A_ret = A_ret * s_ret[:, :, None] * s_ret[:, None, :]
+    A_rc = A_rc * s_ret[:, :, None]
+
+    # velocity mass on the retained block: u.v dx = vhat^T (J^T J) vhat/detJ
+    G = np.einsum("eqca,eqcb->eqab", J, J, optimize=True)
+    M_u = np.einsum(
+        "q,qia,eqab,qjb,eq->eij", w, v_val, G, v_val, 1.0 / detJ,
+        optimize=True,
+    )
+    M_u *= V.element_signs[:, :, None] * V.element_signs[:, None, :]
+    M_full = np.zeros((ne, n_ret, n_ret))
+    M_full[:, :nbv, :nbv] = M_u
+
+    # pressure coupling (exact Piola identity, element-independent frame)
+    q_val, _ = W_space.basis.tabulate(vol.points)
+    B_ref = np.einsum("q,qp,qi->pi", w, q_val, div_v_ref, optimize=True)
+    B_loc = np.zeros((ne, q_val.shape[1], n_ret))
+    B_loc[:, :, :nbv] = B_ref[None] * V.element_signs[:, None, :]
+    return A_ret, A_rc, A_cc, M_full, B_loc
 
 
 def _assemble_mcs_ns_local_3d(mesh, V, facet_space, sigma_basis, Wq_basis,
@@ -439,7 +720,9 @@ def load_host_tables(arrays: dict) -> dict:
     State carried across: ``u`` and ``p`` (dof vectors of another model of
     the same spaces) and ``cheb_bounds`` = (alpha, beta) of its Chebyshev
     mass inverse, where present, go into a ``state`` entry that the model
-    takes up at construction (:meth:`NavierStokesMCS.load_state`)."""
+    takes up at construction (:meth:`NavierStokesMCS.load_state`).  A 2D
+    model has no table keys (the JAX 2D model caches none): its entry is
+    the state alone, and the condensation (``cond``) where given."""
     out = {}
     state = {k: np.asarray(arrays[k], np.float64)
              for k in ("u", "p", "cheb_bounds") if k in arrays}
@@ -455,31 +738,35 @@ def load_host_tables(arrays: dict) -> dict:
         if len(tup) != n:
             raise ValueError(f"{key}: expected {n} arrays, got {len(tup)}")
         out[key] = tuple(np.asarray(a, np.float64) for a in tup)
-    if not set(out) - {"state"}:
-        raise ValueError(f"no assembly tables among {sorted(arrays)}")
+    if not out:
+        raise ValueError(f"no assembly tables or state among {sorted(arrays)}")
     return out
 
 
 class NavierStokesMCS:
-    """3D MCS model: spaces, condensed operators, the initial-solve
-    right-hand side and the transient SIMPLE step.
+    """MCS model on triangles or tets (``mesh.dim``): spaces, condensed
+    operators, the initial-solve right-hand side and the transient SIMPLE
+    step.
 
     ``device``: where the operator tables live; CUDA unless the caller
     passes ``device="cpu"``.  ``dtype``: the model's working precision
     (tables, state and every operator): float64, or float32 for a stepping
     model as the bench's transient metric (the flagship initial solve needs
     the float64 model).  ``geometry``: a
-    :class:`~navier_stokes_tpu_torch.mesh.curved.CurvedGeometry3D` whose
-    curved elements are assembled isoparametrically (None: straight).
+    :class:`~navier_stokes_tpu_torch.mesh.curved.CurvedGeometry` (2D) or
+    ``CurvedGeometry3D`` whose curved elements are assembled
+    isoparametrically (None: straight).
     ``assembly_cache``: a dict (see :func:`load_host_tables`) whose
     ``tabs3d`` / ``cond`` entries (``tabs3d_curved`` / ``cond_curved`` with
     a geometry) replace host assembly and condensation; filled in when they
     are missing, so that a second model of the same mesh, order and nu
     (the f32 stepping twin of an f64 model) skips both.
+    The 2D model caches only the condensation (``cond``), as the JAX one.
     ``preconditioner``: the A-preconditioner of ``SolveInitial`` and
-    ``preA``, ``"auxspace"`` (the skeleton preconditioner) or
-    ``"faceblock"``.  ``volumeforce``: a callable (points (N, 3) -> (N, 3))
-    loaded into ``f`` by :meth:`AddForce`.  ``outflow=""``: enclosed flow,
+    ``preA``; 3D: ``"auxspace"`` (the skeleton preconditioner) or
+    ``"faceblock"``; 2D: ``"jacobi"``, ``"edgeblock"``, ``"vertexstar"`` or
+    ``"auxspace"``.  ``volumeforce``: a callable (points (N, dim) ->
+    (N, dim)) loaded into ``f`` by :meth:`AddForce`.  ``outflow=""``: enclosed flow,
     the constant pressure deflated from B, B^T and preM."""
 
     def __init__(self, mesh, nu: float, inflow: str, outflow: str,
@@ -487,15 +774,15 @@ class NavierStokesMCS:
                  volumeforce=None, dtype=torch.float64,
                  preconditioner: str = "auxspace", geometry=None,
                  assembly_cache: dict | None = None, device=None):
-        if mesh.dim != 3:
-            raise NotImplementedError(
-                "the port carries the 3D model only (2D: ROADMAP Queue 1 "
-                "item 13)")
+        if mesh.dim not in (2, 3):
+            raise ValueError(f"mesh of dimension {mesh.dim}")
         if dtype not in (torch.float64, torch.float32):
             raise TypeError(f"dtype {dtype} is neither float64 nor float32")
-        if preconditioner not in ("auxspace", "faceblock"):
-            raise ValueError(f"unknown preconditioner {preconditioner!r}: "
-                             "'auxspace' or 'faceblock'")
+        pre_ok = (A_PRECONDITIONERS if mesh.dim == 2
+                  else ("auxspace", "faceblock"))
+        if preconditioner not in pre_ok:
+            raise ValueError(f"unknown preconditioner {preconditioner!r} in "
+                             f"{mesh.dim}D: one of {pre_ok}")
         self.device = dev = resolve_device(device)
         self.dtype = dtype
         self.nu, self.timestep, self.uin = nu, timestep, uin
@@ -507,30 +794,13 @@ class NavierStokesMCS:
         self._dirich = dirich
         self.Wspace = L2(mesh, order - 1)
         self.Q = L2(mesh, order - 1)
-        self.V = HDiv3D(mesh, order, dirichlet=dirich)
-        self.Vhat = VectorFacet3D(
-            mesh, order - 1, dirichlet=dirich + "|" + outflow
-        )
-        self.Xv = HybridVelocitySpace3D(self.V, self.Vhat)
-        self.sigma_basis = hcurldiv_tet(order, order_trace=order - 1)
         self.geometry = geometry
-        tkey = "tabs3d" if geometry is None else "tabs3d_curved"
-        if assembly_cache is not None and tkey in assembly_cache:
-            A_ret, A_rc, A_cc, M_full_np, B_loc_np = assembly_cache[tkey]
+        if mesh.dim == 2:
+            A_ret, A_rc, A_cc, M_full_np, B_loc_np = self._spaces_2d(
+                dirich, geometry)
         else:
-            A_ret, A_rc, A_cc, M_full_np, B_loc_np = _assemble_mcs_ns_local_3d(
-                mesh, self.V, self.Vhat, self.sigma_basis,
-                self.Wspace.basis, self.Q.basis, nu,
-            )
-            if geometry is not None:
-                # isoparametric overwrite of the curved-layer rows
-                _assemble_mcs_ns_local_curved_3d(
-                    self.V, self.Vhat, self.sigma_basis, self.Wspace.basis,
-                    self.Q.basis, nu, geometry, A_ret, A_rc, A_cc, M_full_np,
-                    B_loc_np)
-            if assembly_cache is not None:
-                assembly_cache[tkey] = (A_ret, A_rc, A_cc, M_full_np,
-                                        B_loc_np)
+            A_ret, A_rc, A_cc, M_full_np, B_loc_np = self._spaces_3d(
+                dirich, geometry, assembly_cache)
         # static condensation: batched dense elimination of (sigma, W)
         ckey = "cond" if geometry is None else "cond_curved"
         if assembly_cache is not None and ckey in assembly_cache:
@@ -554,28 +824,59 @@ class NavierStokesMCS:
         def ship(a):
             return torch.as_tensor(a, device=dev).to(dtype)
 
-        # scatter-free face-block applies; element tables ship face-major
-        self.fb = FaceBlockLayout(self.Xv, dev)
-        self._A_cond = ship(self.fb.permute_blocks(self.A_cond_np))
-        self._B_perm = ship(self.fb.permute_cols(self.B_loc_np))
-        self._M_loc_t = None  # face-major mass table, shipped at first use
-        _A_apply = self.fb.elem_apply(self._A_cond)
-        # the transient step's route: the same table through the kernel
-        _A_step = self.fb.elem_apply(self._A_cond, use_kernel=True)
-        _B_apply, _BT_apply = self.fb.rect_apply(self._B_perm,
-                                                  self.Q.element_dofs)
+        self._M_loc_t = None  # velocity mass table, shipped at first use
+        if mesh.dim == 3:
+            # scatter-free face-block applies; element tables ship
+            # face-major
+            self.fb = FaceBlockLayout(self.Xv, dev)
+            self._A_cond = ship(self.fb.permute_blocks(self.A_cond_np))
+            self._B_perm = ship(self.fb.permute_cols(self.B_loc_np))
+            _A_apply = self.fb.elem_apply(self._A_cond)
+            # the transient step's route: the same table through the kernel
+            _A_step = self.fb.elem_apply(self._A_cond, use_kernel=True)
+            _B_apply, _BT_apply = self.fb.rect_apply(self._B_perm,
+                                                      self.Q.element_dofs)
 
-        def A_raw(u):
-            return _A_apply(u)
+            def A_raw(u):
+                return _A_apply(u)
 
-        def mass_raw(u):
-            return self.fb.elem_apply(self._M_loc, use_kernel=True)(u)
+            def mass_raw(u):
+                return self.fb.elem_apply(self._M_loc, use_kernel=True)(u)
 
-        def B_raw(u):
-            return _B_apply(u)
+            def B_raw(u):
+                return _B_apply(u)
 
-        def BT(p):
-            return torch.where(free, _BT_apply(p), 0.0)
+            def BT(p):
+                return torch.where(free, _BT_apply(p), 0.0)
+        else:
+            # gather -> element product -> deterministic scatter; every
+            # square element product through the kernel
+            self.fb = None
+            self._A_cond = ship(self.A_cond_np).contiguous()
+            B_loc_t = ship(self.B_loc_np)
+            plan_v = ScatterPlan(torch.as_tensor(
+                self.Xv.element_dofs.astype(np.int64), device=dev), n)
+            plan_p = ScatterPlan(torch.as_tensor(
+                self.Q.element_dofs.astype(np.int64), device=dev),
+                self.Q.ndof)
+
+            def A_raw(u):
+                return apply_local_matrices(self._A_cond, plan_v, n, u,
+                                            use_kernel=True)
+
+            _A_step = A_raw
+
+            def mass_raw(u):
+                return apply_local_matrices(self._M_loc, plan_v, n, u,
+                                            use_kernel=True)
+
+            def B_raw(u):
+                return plan_p(torch.einsum("epi,ei->ep", B_loc_t,
+                                           u[plan_v.index]))
+
+            def BT(p):
+                ue = torch.einsum("epi,ep->ei", B_loc_t, p[plan_p.index])
+                return torch.where(free, plan_v(ue), 0.0)
 
         def A(u):
             uf = torch.where(free, u, 0.0)
@@ -643,7 +944,9 @@ class NavierStokesMCS:
         self.f = torch.zeros(n, dtype=dtype, device=dev)
         if volumeforce is not None:
             self.AddForce(volumeforce)
-        u_bc = interpolate_hybrid_boundary_3d(self.Xv, self._uin_np, inflow)
+        interp = (interpolate_hybrid_boundary if mesh.dim == 2
+                  else interpolate_hybrid_boundary_3d)
+        u_bc = interp(self.Xv, self._uin_np, inflow)
         self.u_bc = ship(u_bc)
         self.u = self.u_bc
         self.p = torch.zeros(self.Q.ndof, dtype=dtype, device=dev)
@@ -655,17 +958,61 @@ class NavierStokesMCS:
 
     # ------------------------------------------------------------------
 
+    def _spaces_2d(self, dirich, geometry):
+        """The triangle spaces and the host tables (A_ret, A_rc, A_cc,
+        M_full, B_loc) of the 2D model: BDM_k, the order k-1 tangential
+        facet space, the trace-free stress with nt-trace degree k-1."""
+        mesh, order, nu = self.mesh, self.order, self.nu
+        self.V = HDiv(mesh, order, dirichlet=dirich, RT=False)
+        self.Vhat = VectorFacet(
+            mesh, order - 1, dirichlet=dirich + "|" + self.outflow)
+        self.Xv = HybridVelocitySpace(self.V, self.Vhat)
+        self.sigma_basis = hcurldiv_triangle(order, order_trace=order - 1)
+        if geometry is not None:
+            return _assemble_mcs_ns_local_curved(
+                mesh, self.V, self.Vhat, self.sigma_basis, self.Wspace, nu,
+                geometry)
+        A_ret, A_rc, A_cc, v_p, vol = _assemble_mcs_ns_local(
+            mesh, self.V, self.Vhat, self.sigma_basis, self.Wspace, nu)
+        M_full, B_loc = _mcs_mass_coupling_2d(
+            mesh, self.V, self.Q.basis, v_p, vol, A_ret.shape[1])
+        return A_ret, A_rc, A_cc, M_full, B_loc
+
+    def _spaces_3d(self, dirich, geometry, assembly_cache):
+        """The tet spaces and the host tables of the 3D model, from
+        ``assembly_cache`` where it holds them."""
+        mesh, order, nu = self.mesh, self.order, self.nu
+        self.V = HDiv3D(mesh, order, dirichlet=dirich)
+        self.Vhat = VectorFacet3D(
+            mesh, order - 1, dirichlet=dirich + "|" + self.outflow)
+        self.Xv = HybridVelocitySpace3D(self.V, self.Vhat)
+        self.sigma_basis = hcurldiv_tet(order, order_trace=order - 1)
+        tkey = "tabs3d" if geometry is None else "tabs3d_curved"
+        if assembly_cache is not None and tkey in assembly_cache:
+            return assembly_cache[tkey]
+        tabs = _assemble_mcs_ns_local_3d(
+            mesh, self.V, self.Vhat, self.sigma_basis, self.Wspace.basis,
+            self.Q.basis, nu)
+        if geometry is not None:
+            # isoparametric overwrite of the curved-layer rows
+            _assemble_mcs_ns_local_curved_3d(
+                self.V, self.Vhat, self.sigma_basis, self.Wspace.basis,
+                self.Q.basis, nu, geometry, *tabs)
+        if assembly_cache is not None:
+            assembly_cache[tkey] = tabs
+        return tabs
+
     def load_state(self, u=None, p=None, cheb_bounds=None):
         """Take up another model's state, given as numpy: the velocity and
         pressure dof vectors and the (alpha, beta) bounds of its Chebyshev
         mass inverse (which then replace the Lanczos estimate)."""
         if u is not None:
-            u = np.asarray(u)
+            u = np.array(u)
             if u.shape != (self.n,):
                 raise ValueError(f"u of shape {u.shape}, expected {(self.n,)}")
             self.u = torch.as_tensor(u, device=self.device).to(self.dtype)
         if p is not None:
-            p = np.asarray(p)
+            p = np.array(p)
             if p.shape != (self.Q.ndof,):
                 raise ValueError(
                     f"p of shape {p.shape}, expected {(self.Q.ndof,)}")
@@ -680,9 +1027,11 @@ class NavierStokesMCS:
         """The face-major velocity mass table on the device, shipped at
         first use (the steady solve never touches it)."""
         if self._M_loc_t is None:
+            M = self._M_loc_np
+            if self.fb is not None:
+                M = self.fb.permute_blocks(M)
             self._M_loc_t = torch.as_tensor(
-                self.fb.permute_blocks(self._M_loc_np),
-                device=self.device).to(self.dtype)
+                M, device=self.device).to(self.dtype).contiguous()
         return self._M_loc_t
 
     def _timed(self, key, build):
@@ -697,8 +1046,10 @@ class NavierStokesMCS:
         """Materialize the convection tables (the largest setup artifact;
         built lazily because the steady solve never needs them)."""
         if self._conv_v is None:
+            build = (build_upwind_convection if self.mesh.dim == 2
+                     else build_upwind_convection_3d)
             self._conv_v = self._timed(
-                "convection", lambda: build_upwind_convection_3d(
+                "convection", lambda: build(
                     self.V, self._uin_np, dtype=self.dtype,
                     device=self.device))
         return self._conv_v
@@ -709,10 +1060,12 @@ class NavierStokesMCS:
         return torch.cat([conv(u[:nhd]), u.new_zeros(self.n - nhd)])
 
     def _wrap_uin(self, uin):
+        dim = self.mesh.dim
+
         def f(p):
             out = np.asarray(uin(p))
             if out.ndim == 1:
-                full = np.zeros((len(p), 3))
+                full = np.zeros((len(p), dim))
                 full[:, 0] = out
                 return full
             return out
@@ -730,22 +1083,33 @@ class NavierStokesMCS:
 
     def AddForce(self, force):
         """Add the load of the volume force ``force`` (a callable, points
-        (N, 3) -> values (N, 3)) to the right-hand side ``f``."""
+        (N, dim) -> values (N, dim)) to the right-hand side ``f``."""
         self.f = self.f + torch.as_tensor(
             self._force_local(force), device=self.device).to(self.dtype)
 
     def _force_local(self, force) -> np.ndarray:
         """int f . v dx over the H(div) basis, assembled on the host."""
         mesh = self.mesh
+        dim = mesh.dim
         J, detJ, _ = mesh.element_jacobians
-        vol = tetrahedron_rule(2 * self.V.order + 2)
-        v_val, _ = self.V.tabulate_elements(vol.points)
-        v_p = np.einsum("ecA,eqiA->eqic", J, v_val,
-                        optimize=True) / detJ[:, None, None, None]
-        nbv = self.V.n_basis
+        if dim == 2:
+            hb = self.V.basis
+            vol = triangle_rule(2 * hb.order + 2)
+            v_val, _ = hb.tabulate(vol.points)
+            v_p = np.einsum("ecA,qiA->eqic", J, v_val,
+                            optimize=True) / detJ[:, None, None, None]
+            v_p = v_p * self.V.element_signs[:, None, :, None]
+            nbv = hb.n_basis
+        else:
+            vol = tetrahedron_rule(2 * self.V.order + 2)
+            v_val, _ = self.V.tabulate_elements(vol.points)
+            v_p = np.einsum("ecA,eqiA->eqic", J, v_val,
+                            optimize=True) / detJ[:, None, None, None]
+            nbv = self.V.n_basis
         qpts = mesh.points[mesh.elements[:, 0]][:, None, :] + np.einsum(
             "eab,qb->eqa", J, vol.points, optimize=True)
-        fq = np.asarray(force(qpts.reshape(-1, 3))).reshape(mesh.ne, -1, 3)
+        fq = np.asarray(force(qpts.reshape(-1, dim))).reshape(mesh.ne, -1,
+                                                              dim)
         fe_v = np.einsum("q,eqc,eqic,e->ei", vol.weights, fq, v_p, detJ,
                          optimize=True)
         fe = np.zeros((mesh.ne, self.A_cond_np.shape[1]))
@@ -771,16 +1135,25 @@ class NavierStokesMCS:
     def _preA_for(self, GS: bool):
         """The A-preconditioner, additive (``GS=False``) or symmetric
         multicolor block-GS (``GS=True``), built once per variant in the
-        model's precision.  ``auxspace``: the skeleton preconditioner with
-        the JAX model's settings -- every table stored in the model's
-        dtype, coarse damping target 0.9 and the tables as computed
-        (``symmetrize=False``); ``faceblock``: the face and cell blocks of
+        model's precision.  2D: ``build_hybrid_preconditioner``
+        (models/stokes_hybrid.py) with the model's ``preconditioner``;
+        ``auxspace`` is the vertex stars with the vector-P1 coarse
+        correction, damped for the GS sweep.  3D ``auxspace``: the
+        skeleton preconditioner with the JAX model's settings -- every
+        table stored in the model's dtype, coarse damping target 0.9 and
+        the tables as computed (``symmetrize=False``); 3D ``faceblock``:
+        the face and cell blocks of
         the hybrid space (:func:`~.stokes_hybrid3d.hybrid_blocks_3d`),
         additive or swept by :class:`~navier_stokes_tpu_torch.precond.
         multicolor.MulticolorGS` around no coarse correction."""
         if GS not in self._preA_cache:
             dt, dev = self.dtype, self.device
-            if self.preconditioner == "auxspace":
+            if self.mesh.dim == 2:
+                pre = build_hybrid_preconditioner(
+                    self.Xv, self.A_cond_np, self.preconditioner,
+                    self._dirich, dt, coarse_coefficient=self.nu, gs=GS,
+                    A_apply=self.A if GS else None, device=dev)
+            elif self.preconditioner == "auxspace":
                 pre = build_skeleton_preconditioner_3d(
                     self.Xv, self.A_cond_np, self._dirich, dev, dt,
                     coarse_coefficient=self.nu, gs=GS, ext_dtype=dt,
@@ -910,7 +1283,8 @@ class NavierStokesMCS:
 
         mesh = self.mesh
         qb = self.Q.basis
-        rule = tetrahedron_rule(2 * max(self.Q.order, 1) + 1)
+        rule = (tetrahedron_rule if mesh.dim == 3 else triangle_rule)(
+            2 * max(self.Q.order, 1) + 1)
         q_val, _ = qb.tabulate(rule.points)  # (nq, m)
         lam = np.concatenate(
             [1 - rule.points.sum(1, keepdims=True), rule.points], axis=1

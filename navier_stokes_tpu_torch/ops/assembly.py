@@ -3,10 +3,13 @@ gather -> local matvec -> scatter apply (torch).
 
 The parts of ``navier_stokes_tpu/ops/assembly.py`` that the port uses:
 global CSR assembly of element matrices (the P1 coarse stiffness,
-precond/twolevel.py), the P1 stiffness element tables, the pressure mass
-diagonal behind ``preM`` (models/navier_stokes_mcs.py), and
-``gather`` / ``scatter_add`` / ``diagonal_of_local`` /
-``apply_local_matrices``.
+precond/twolevel.py), the stiffness element tables, the pressure mass
+diagonal behind ``preM`` (models/navier_stokes_mcs.py), the tables of a
+(space, quadrature) pair with their element forms (``SpaceTables``,
+``make_tables``, ``mass_local``, ``stiffness_local``, ``phys_grad``,
+``divergence_local``, ``linear_form_local``: torch on the tables' device,
+as the Taylor-Hood model uses them), and ``gather`` / ``scatter_add`` /
+``diagonal_of_local`` / ``apply_local_matrices``.
 
 Every scatter-add of the port goes through :class:`ScatterPlan`: the
 destinations of one index table are sorted once (stably), and each apply
@@ -18,9 +21,12 @@ changes).  The JAX package's scatters are deterministic on the TPU.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..fem.quadrature import simplex_rule
 from ..fem.spaces import FunctionSpace
 from .local_mv import batched_local_matvec
@@ -41,8 +47,103 @@ def assemble_csr(a_local, eldofs, ndof: int, ndof_col: int | None = None):
     return mat.tocsr()
 
 
-def stiffness_local(space: FunctionSpace) -> np.ndarray:
-    """(ne, nb, nb): int grad(phi_i) . grad(phi_j) on affine elements."""
+@dataclass(frozen=True)
+class SpaceTables:
+    """Static tables for one (space, quadrature) pair, as torch tensors on
+    one device: affine geometry gives detj (ne,) and jinv (ne, d, d), an
+    isoparametric one detj (ne, nq) and jinv (ne, nq, d, d)."""
+
+    qw: torch.Tensor  # (nq,) quadrature weights
+    val: torch.Tensor  # (nq, nb) basis values at quad points
+    grad: torch.Tensor  # (nq, nb, d) reference gradients
+    detj: torch.Tensor  # (ne,) or (ne, nq)
+    jinv: torch.Tensor  # (ne, d, d) or (ne, nq, d, d)
+    eldofs: torch.Tensor  # (ne, nb) int64
+    qpts: torch.Tensor  # (ne, nq, d) physical quadrature points
+    ndof: int
+
+
+def make_tables(space: FunctionSpace, quad_degree: int | None = None,
+                dtype=torch.float64, geometry=None,
+                device=None) -> SpaceTables:
+    """Tabulate basis + geometry for ``space`` at a shared quadrature rule,
+    in ``dtype`` on ``device``.
+
+    ``geometry``: optional mesh.curved.CurvedGeometry -- switches to
+    isoparametric per-quadrature-point Jacobians."""
+    device = resolve_device(device)
+    mesh = space.mesh
+    if quad_degree is None:
+        quad_degree = 2 * max(space.order, 1)
+        if geometry is not None:
+            quad_degree += 2 * (geometry.order - 1)
+    rule = simplex_rule(mesh.dim, quad_degree)
+    vals, grads = space.basis.tabulate(rule.points)
+    if geometry is not None:
+        from ..mesh.curved import geometry_tables
+
+        _, detJ, Jinv, qpts = geometry_tables(geometry, rule.points)
+    else:
+        J, detJ, Jinv = mesh.element_jacobians
+        v0 = mesh.points[mesh.elements[:, 0]]
+        qpts = v0[:, None, :] + np.einsum("eab,qb->eqa", J, rule.points)
+
+    def ship(a):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    return SpaceTables(
+        qw=ship(rule.weights), val=ship(vals), grad=ship(grads),
+        detj=ship(detJ), jinv=ship(Jinv),
+        eldofs=torch.as_tensor(space.element_dofs.astype(np.int64),
+                               device=device),
+        qpts=ship(qpts), ndof=space.ndof)
+
+
+def mass_local(t: SpaceTables) -> torch.Tensor:
+    """(ne, nb, nb): integral phi_i phi_j per element."""
+    if t.detj.dim() == 1:  # affine
+        m_ref = torch.einsum("q,qi,qj->ij", t.qw, t.val, t.val)
+        return t.detj[:, None, None] * m_ref[None]
+    return torch.einsum("q,qi,qj,eq->eij", t.qw, t.val, t.val, t.detj)
+
+
+def phys_grad(t: SpaceTables) -> torch.Tensor:
+    """(ne, nq, nb, d): physical basis gradients at quadrature points,
+    (grad_x phi)_a = Jinv[b,a] d_b phi, for affine (ne,d,d) and
+    isoparametric (ne,nq,d,d) Jacobians."""
+    if t.jinv.dim() == 3:
+        return torch.einsum("eba,qib->eqia", t.jinv, t.grad)
+    return torch.einsum("eqba,qib->eqia", t.jinv, t.grad)
+
+
+def divergence_local(tp: SpaceTables, tu: SpaceTables) -> torch.Tensor:
+    """(ne, nbp, nbu, d): integral psi_i d_c(phi_j) per element; contracting
+    with velocity component c gives the coupling b = integral div(u) q of
+    reference run.py:80-81.  tp and tu share the mesh and the rule."""
+    gu = phys_grad(tu)
+    if tp.detj.dim() == 1:
+        return torch.einsum("q,qi,eqjc,e->eijc", tp.qw, tp.val, gu, tp.detj)
+    return torch.einsum("q,qi,eqjc,eq->eijc", tp.qw, tp.val, gu, tp.detj)
+
+
+def linear_form_local(t: SpaceTables, f_qvals: torch.Tensor) -> torch.Tensor:
+    """(ne, nb): integral f phi_i with f given at the physical quadrature
+    points (ne, nq)."""
+    if t.detj.dim() == 1:
+        return torch.einsum("q,eq,qi,e->ei", t.qw, f_qvals, t.val, t.detj)
+    return torch.einsum("q,eq,qi,eq->ei", t.qw, f_qvals, t.val, t.detj)
+
+
+def stiffness_local(space):
+    """(ne, nb, nb): int grad(phi_i) . grad(phi_j) per element -- from a
+    :class:`SpaceTables` (torch, as the JAX package's tables form) or from
+    a space on affine elements (numpy, host setup)."""
+    if isinstance(space, SpaceTables):
+        t = space
+        g = phys_grad(t)
+        if t.detj.dim() == 1:
+            return torch.einsum("q,eqia,eqja,e->eij", t.qw, g, g, t.detj)
+        return torch.einsum("q,eqia,eqja,eq->eij", t.qw, g, g, t.detj)
     mesh = space.mesh
     rule = simplex_rule(mesh.dim, 2 * max(space.order - 1, 1))
     _, grads = space.basis.tabulate(rule.points)

@@ -181,4 +181,6 @@ def two_level_preconditioner(space: FunctionSpace, a_local: np.ndarray,
         y = smooth(xf) + P(coarse(PT(xf)))
         return torch.where(free, y, x)
 
+    # the patch smoother's stored block inverses (None for Jacobi)
+    pre.table = getattr(smooth, "table", None)
     return pre

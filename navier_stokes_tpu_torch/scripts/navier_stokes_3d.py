@@ -4,11 +4,11 @@ dt=2e-3, inlet profile 16 y (0.41-y) z (0.41-z) / 0.41^4.
 
 Counterpart of the JAX package's ``scripts/navier_stokes_3d.py``.  The
 default model is the MCS ``NavierStokesMCS`` (the reference demo's model);
-``--hdg`` selects the interior-penalty H(div) model ``NavierStokesHDG3D``;
-``--th`` (Taylor-Hood) is not ported yet and exits with an error.  Runs on
-the card; ``--device cpu`` for a small check on the CPU.
+``--hdg`` selects the interior-penalty H(div) model ``NavierStokesHDG3D``,
+``--th`` the Taylor-Hood model ``NavierStokes``.  Runs on the card;
+``--device cpu`` for a small check on the CPU.
 
-    python -m navier_stokes_tpu_torch.scripts.navier_stokes_3d [--hdg]
+    python -m navier_stokes_tpu_torch.scripts.navier_stokes_3d [--hdg | --th]
         [steps] [maxh] [--device cpu] [--out ns3d_state.npz]
 """
 
@@ -21,7 +21,7 @@ import numpy as np
 
 from ..flagship import uin
 from ..mesh.generators import channel_with_cylinder_mesh_3d
-from ..models import NavierStokesHDG3D, NavierStokesMCS
+from ..models import NavierStokes, NavierStokesHDG3D, NavierStokesMCS
 
 
 def main(argv=None) -> int:
@@ -31,15 +31,13 @@ def main(argv=None) -> int:
     ap.add_argument("--hdg", "--hdiv", action="store_true",
                     help="the interior-penalty H(div) model NavierStokesHDG3D")
     ap.add_argument("--th", action="store_true",
-                    help="the Taylor-Hood model (not ported yet)")
+                    help="the Taylor-Hood model NavierStokes")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, required)")
     ap.add_argument("--out", default="ns3d_state.npz")
     args = ap.parse_args(argv)
-    if args.th:
-        print("navier_stokes_3d: the Taylor-Hood model (--th) is not ported "
-              "yet: ROADMAP Queue 1 item 13 part 4", file=sys.stderr)
-        return 2
+    if args.th and args.hdg:
+        ap.error("--th and --hdg exclude each other")
 
     mesh = channel_with_cylinder_mesh_3d(args.maxh)
     print(f"mesh: {mesh.nv} vertices, {mesh.ne} tets")
@@ -48,6 +46,9 @@ def main(argv=None) -> int:
     if args.hdg:
         ns = NavierStokesHDG3D(mesh, **kw)
         print(f"ndofs: V={ns.Xv.ndof} Q={ns.Q.ndof}")
+    elif args.th:
+        ns = NavierStokes(mesh, **kw)
+        print(f"ndofs: V={ns.V.ndof} Q={ns.Q.ndof}")
     else:
         ns = NavierStokesMCS(mesh, **kw)
         print(f"ndofs: X={ns.n} Q={ns.Q.ndof}")

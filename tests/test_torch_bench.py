@@ -26,6 +26,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from navier_stokes_tpu.mesh.generators import extrude_to_tets, rectangle_mesh
 from navier_stokes_tpu_torch import bench
@@ -39,11 +40,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One intra-op thread: the suite runs several workers at once, and
-    PyTorch's thread pool beside them oversubscribes the cores."""
+    """One intra-op thread for PyTorch and one for numpy's BLAS: the
+    suite runs several workers at once, and a thread pool per worker
+    beside them oversubscribes the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -651,3 +651,77 @@ def test_transient_step_repeats_bitwise_on_card():
     assert bool(torch.isfinite(u1).all())
     assert torch.equal(u1, u2)
     assert counts == m.last_iterations
+
+
+# kernel 8 on the 2D models' tables: the condensed MCS operator (18 x 18 per
+# triangle), the Taylor-Hood viscous table (12 x 12) and P2 mass (6 x 6),
+# the MCS vertex stars (up to 64 dofs at maxh 0.05, 72 at 0.01)
+TABLES_2D = [(762, 18, 0), (17002, 18, 1), (762, 12, 0), (762, 6, 2),
+             (130, 64, 0), (57, 72, 3), (33, 41, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_local_matvec_2d_tables_on_card(dtype):
+    """On the card: kernel 8 at the 2D models' table shapes, against its
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for ne, nb, off in TABLES_2D:
+        fa = torch.randn(off + ne * nb * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        fu = torch.randn(off + ne * nb, generator=gen, device="cuda",
+                         dtype=dt)
+        A, u = fa[off:].view(ne, nb, nb), fu[off:].view(ne, nb)
+        y = batched_local_matvec(A, u)
+        scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
+        d = (y - batched_local_matvec_plain(A, u)).abs().double()
+        assert float((d / scale).max()) <= TOL[dtype]
+
+
+def _uin_2d(p):
+    out = np.zeros((len(p), 2))
+    out[:, 0] = 1.5 * 4 * p[:, 1] * (0.41 - p[:, 1]) / 0.41**2
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mcs", "taylor-hood"])
+def test_2d_models_on_card_match_cpu(model):
+    """On the card: the 2D MCS and Taylor-Hood models at maxh 0.3 -- the
+    operators, the GS A-preconditioner (MCS) and one f64 step -- against
+    the same models on the CPU (plain versions) within 1e-11, kernel 8
+    launched; two steps from one state bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from navier_stokes_tpu_torch.mesh import channel_with_cylinder_mesh
+    from navier_stokes_tpu_torch.models import NavierStokes, NavierStokesMCS
+
+    cls = NavierStokesMCS if model == "mcs" else NavierStokes
+    kw = dict(nu=1e-3, inflow="inlet", outflow="outlet", wall="wall|cyl",
+              uin=_uin_2d, timestep=1e-3, order=2)
+    mesh = channel_with_cylinder_mesh(0.3)
+    mc, mg = cls(mesh, device="cpu", **kw), cls(mesh, device="cuda", **kw)
+    x = np.random.default_rng(5).standard_normal(mc.u.numel())
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).cuda()
+    ops = ["A", "mstar", "B"]
+    if model == "mcs":
+        ops.append("_preA_for")
+    bm.reset_launches()
+    for op in ops:
+        fc, fg = getattr(mc, op), getattr(mg, op)
+        if op == "_preA_for":
+            fc, fg = fc(True), fg(True)
+        want = fc(xc).numpy()
+        got = fg(xg).cpu().numpy()
+        assert np.linalg.norm(got - want) <= 1e-11 * np.linalg.norm(want)
+    assert bm.LAUNCHES["batched_local_matvec_f64"] > 0
+    mc.load_state(cheb_bounds=mg._mass_chebyshev().bounds)
+    uc = mc.make_step_fn()(mc.u)
+    step = mg.make_step_fn()
+    u1, u2 = step(mg.u), step(mg.u)
+    assert torch.equal(u1, u2)
+    incr = np.linalg.norm(uc.numpy() - mc.u.numpy())
+    assert np.linalg.norm(u1.cpu().numpy() - uc.numpy()) <= 1e-6 * incr

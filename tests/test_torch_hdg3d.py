@@ -36,6 +36,7 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
+from threadpoolctl import threadpool_limits
 
 from navier_stokes_tpu.fem.quadrature import tetrahedron_rule
 from navier_stokes_tpu.linalg.lanczos import (
@@ -89,13 +90,15 @@ BOX_KW = dict(nu=0.01, inflow="inlet", outflow="outlet", wall="wall",
               timestep=2e-3, order=2)
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One intra-op thread: the suite runs several workers at once, and
-    PyTorch's thread pool beside them oversubscribes the cores."""
+    """One intra-op thread for PyTorch and one for numpy's BLAS: the
+    suite runs several workers at once, and a thread pool per worker
+    beside them oversubscribes the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
@@ -415,6 +418,22 @@ def test_rt0_space_reproduces_rt_fields():
     assert np.abs(recon - f).max() < 1e-8
 
 
-def test_demo_refuses_taylor_hood(capsys):
-    assert demo.main(["--th", "--device", "cpu"]) != 0
-    assert "item 13 part 4" in capsys.readouterr().err
+def test_demo_refuses_taylor_hood(capsys, tmp_path, monkeypatch):
+    """The demo refuses ``--th`` together with ``--hdg``; ``--th`` alone
+    runs the port's Taylor-Hood model (here on a shortened channel)."""
+    with pytest.raises(SystemExit) as exc:
+        demo.main(["--th", "--hdg", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "exclude each other" in capsys.readouterr().err
+    short = demo.channel_with_cylinder_mesh_3d
+    monkeypatch.setattr(demo, "channel_with_cylinder_mesh_3d",
+                        lambda maxh: short(maxh, length=0.6,
+                                           circle_resolution=6))
+    out = tmp_path / "th.npz"
+    assert demo.main(["1", "0.6", "--th", "--device", "cpu", "--out",
+                      str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "BPCG iterations" in text and "ndofs: V=" in text
+    state = np.load(out)
+    assert state["velocity"].shape[0] == 3
+    assert np.isfinite(state["velocity"]).all()

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from navier_stokes_tpu.ops import assembly as jax_asm
 from navier_stokes_tpu.ops.pallas_kernels import (
@@ -47,10 +48,13 @@ EDGE_LOCAL = [(700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One intra-op thread: the suite runs several workers at once."""
+    """One intra-op thread for PyTorch and one for numpy's BLAS: the
+    suite runs several workers at once, and a thread pool per worker
+    beside them oversubscribes the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from navier_stokes_tpu.mesh import channel_with_cylinder_mesh_3d
 from navier_stokes_tpu.models.auxspace3d import (
@@ -47,11 +48,13 @@ MAXH = 0.6
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One intra-op thread: the suite runs several workers at once, and
-    PyTorch's thread pool beside them oversubscribes the cores."""
+    """One intra-op thread for PyTorch and one for numpy's BLAS: the
+    suite runs several workers at once, and a thread pool per worker
+    beside them oversubscribes the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

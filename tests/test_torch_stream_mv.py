@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from navier_stokes_tpu.fem.hdiv3d import HDiv3D as JaxHDiv3D
 from navier_stokes_tpu.mesh import (
@@ -61,10 +62,13 @@ TILE = 8
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One intra-op thread: the suite runs several workers at once."""
+    """One intra-op thread for PyTorch and one for numpy's BLAS: the
+    suite runs several workers at once, and a thread pool per worker
+    beside them oversubscribes the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
