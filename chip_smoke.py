@@ -129,7 +129,33 @@ phases; any failed phase ends the run with a non-zero exit:
     mass and patch-inverse tables, ``SolveInitial`` with the JAX k (count
     held the same way), 20 steps.  Kernel 8 must launch in each solve and
     each run of steps; the counters are set to 0 just before each solve
-    and before each run of steps.
+    and before each run of steps;
+18. stokes, heat: the Stokes catalog and the heat model.  ``[stokes]``:
+    the active configuration of scripts/run_stokes.py ("HDG BDM 2", alpha
+    10, edgeblock, order-3 curved cylinder, Bramble-Pasciak CG to 1e-7)
+    through the port's ``run`` harness as the script calls it at maxh 0.1
+    (410 triangles, 5,112 + 1,230 dofs; its CSV under build/stokes/), then
+    with the port's own k; the same system at maxh 0.01 (17,002
+    triangles, 205,740 + 51,006 dofs); the mixed pairs at maxh 0.1 (TH2,
+    TH3, mini, P2-P0, P1nc-P0, P2+-P1; Jacobi) and TH2 with MINRES; each
+    solve given the JAX package's Bramble-Pasciak k
+    (tools/jax_stokes_reference.py), its inlet velocity held to the
+    boundary values; each mixed solve held to JAX's count
+    (``count_matches``) and its true residual to within a factor 2 of
+    JAX's; each HDG solve, whose count roundoff decides (its
+    Bramble-Pasciak form is indefinite at JAX's k), held to the head of
+    JAX's error history within 1e-8 and its true residual to within a
+    factor 10, the count printed beside JAX's; the MCS triple as
+    scripts/stokes_hcurldiv.py runs it at maxh 0.06 (direct solve, then
+    MINRES to 1e-8, which stops at its 50,000 cap in both packages: held to
+    the cap and to JAX's final error and distance from the direct solution
+    within 10%).  ``[heat]``: ``HeatEquation`` at the reference's literals
+    (maxh 0.1, order 10: 200 triangles, 10,201 dofs), the first three time
+    steps of the study (8 large steps; tools/smoke_phases.py runs all
+    five), each L2 error held to JAX's within 1e-10 of the solution's L2
+    norm, the CG count of every solve and the seconds per step.  Kernel 8 is checked on every new table (HDG, mixed, MCS element
+    tables, the edgeblock inverses, heat's mass and stiffness) and must
+    launch in each solve; the counters are set to 0 just before each.
 
 The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
@@ -205,7 +231,7 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
-CUDA_TEST_CASES = 33  # 21 tests, 33 cases with their parameters
+CUDA_TEST_CASES = 38  # 23 tests, 38 cases with their parameters
 # [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
 # curved model at maxh=0.09, and the two faceblock variants on the shortened
 # channel of tests/test_navier_stokes_mcs3d.py:_channel3d
@@ -262,6 +288,75 @@ MCS2D_JAX = {MCS2D_MAXH: (172, 26.24155445117038),
 MCS2D_PLATEAU = 4
 # the Taylor-Hood count and k there (tools/jax_bpcg_reference_2d.py --th)
 TH2D_JAX = (126, 1.711092508702795)
+# [stokes] / [heat]: the Stokes catalog at the reference's sizes
+# (scripts/run_stokes.py, scripts/stokes_hcurldiv.py) and the heat model at
+# the reference's literals (scripts/run_heat.py)
+STOKES_TOL, STOKES_MAXSTEPS, STOKES_PLATEAU = 1e-7, 10000, 4
+STOKES_MAXH, STOKES_FINE, MCS_MAXH = 0.1, 0.01, 0.06
+# the JAX package's figures on the CPU in f64 (tools/jax_stokes_reference.py)
+# per solve: (count, Bramble-Pasciak k, true relative residual at the
+# solution, its error history at iterations 10, 20, 30 or None).  The port
+# solves with that k.  The mixed solves are held to the count by
+# count_matches and to the true residual within STOKES_RES_FACTOR (their
+# counts equal JAX's on 1, 2, 4 and 8 CPU threads).  The HDG solves are
+# not: at JAX's k their Bramble-Pasciak form is indefinite (rho < 0 at 8
+# of the 742 iterations at maxh 0.1, at 72 of 5,610 at 0.01) and the
+# stopping test sqrt|rho| < tol is decided by roundoff -- at maxh 0.1 the
+# port reads 742 on 1, 4 and 8 CPU threads and 574 on 2 (true residual
+# 3.97e-4, JAX's 1.04e-4); at 0.01 5,610 on 4 CPU threads and 5,206 on the
+# card, where JAX reads 5,293.  They are held to the head of JAX's error
+# history within STOKES_HEAD_TOL (before roundoff parts the two
+# iterations: 1e-11 apart at iteration 30 on the CPU), to convergence and
+# to a true residual within STOKES_HDG_RES_FACTOR of JAX's (3.8 and 4.2
+# times it in the two early stops seen); the count is printed
+STOKES_HDG_JAX = {
+    STOKES_MAXH: (742, 375.6217354993172, 1.0389046064492299e-04,
+                  {10: 0.003686898597745731, 20: 0.0008079561640962657,
+                   30: 0.0006035949908023865}),
+    # maxh 0.01: 138-149 s of BPCG on the CPU
+    STOKES_FINE: (5293, 467.6351552864316, 1.3747435331407066e-04,
+                  {10: 0.007900375429870958, 20: 0.002022812031121947,
+                   30: 0.0011456802069514736})}
+STOKES_MIXED_JAX = {
+    "taylor hood 2": (268, 102.03653457734538, 1.7450566541873335e-07, None),
+    "taylor hood 3": (503, 196.97768165621892, 7.289699680133806e-07, None),
+    "mini": (158, 20.9315008249787, 7.28922920848893e-08, None),
+    "P2, P0": (355, 102.03653457734538, 1.7859467553748402e-07, None),
+    "P1nc, P0": (405, 83.49157634201809, 1.5581604477491897e-07, None),
+    "P2+, P1": (392, 81.07783223211216, 3.0633587174639774e-06, None)}
+# Taylor-Hood 2 with block-preconditioned MINRES (no k)
+STOKES_MINRES_JAX = (279, None, 1.0701715975517797e-07, None)
+STOKES_RES_FACTOR, STOKES_HDG_RES_FACTOR, STOKES_HEAD_TOL = 2.0, 10.0, 1e-8
+# MCS MINRES at maxh 0.06 (1e-8, at most 50,000 steps): the Jacobi
+# preconditioner (1 on the zero velocity diagonal) does not reach the
+# tolerance in either package; the JAX package stops at the cap with a
+# relative error of 2.459e-3, 297.7 off the direct solution at its worst
+# dof (the port on the CPU: 2.442e-3 and 297.65).  The port is held to the
+# cap and to those two within MCS_BAND
+MCS_JAX = dict(iterations=50000, final_error=0.0024594948320921114,
+               max_diff_direct=297.69703229027084)
+MCS_MAXSTEPS, MCS_BAND = 50000, 0.10
+# HeatEquation(maxh 0.1, order 10, 10 Gauss stages, subspace 5, CG to
+# 1e-13): the L2 errors of the first five time steps of the study (end
+# time 0.05) on the CPU in f64.  [heat] runs the first HEAT_RUN of them
+# (8 large steps, 101,000 CG iterations): the inner CG is host-bound on
+# the card (one host read and about 27 launches per iteration: 0.36-0.43
+# ms on one host, 0.49-0.62 on another), so that the five took 170.8 s
+# and the fourth's 16 steps alone 72.5 s; `python3 tools/smoke_phases.py
+# --heat-steps 5` runs all five, and scripts/run_heat.py the whole study
+# with dt 3.16e-4 and 1e-4 (659 more steps).  Each error is held to JAX's
+# within
+# HEAT_TOL times the exact solution's L2 norm at the final time: the
+# states of the two packages agree to about 1e-12 (each CG stops at a
+# relative 1e-13 at its own iterate), and an error can move by no more
+# than the state does.  Relative to the error itself the two part by
+# 3.2e-8 at dt 0.01 already (the port on the CPU against JAX), and the
+# error at dt 0.001, 1.1e-8, lies 14 orders below the state
+HEAT_STEPS = (0.1, 0.03162277660168379, 0.01, 0.0031622776601683794, 0.001)
+HEAT_JAX = (0.004531476446483092, 0.00017125506665474163,
+            1.2568817807744234e-05, 1.1420201716659314e-07,
+            1.121995294735825e-08)
+HEAT_TOL, HEAT_RUN = 1e-10, 3
 # the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
 # the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
 # * k not a multiple of 4 floats or 8 bf16 entries (ragged tails of up to 7
@@ -2151,6 +2246,359 @@ def th2d_phase(torch, bm, lm, timer, gen, reports):
     return secs, launches
 
 
+def stokes_true_rel(torch, system, u, p):
+    """||r|| / ||(f, g)|| of a StokesSystem's saddle system at (u - u_bc,
+    p), through its f64 operators."""
+    du = u - system.u_bc
+    r0 = system.f - system.A(du) - system.BT(p)
+    r1 = system.g - system.B(du)
+    return float(torch.sqrt(torch.dot(r0, r0) + torch.dot(r1, r1))
+                 / torch.sqrt(torch.dot(system.f, system.f)
+                              + torch.dot(system.g, system.g)))
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def stokes_solve_check(torch, tag, system, res, u, p, jax, launches):
+    """A solve of the Stokes catalog given the JAX k, against the JAX
+    figures ``jax`` = (count, k, true residual, errors at iterations 10,
+    20, 30 or None): converged; the true residual within STOKES_RES_FACTOR
+    of JAX's; the count held to JAX's by :func:`count_matches` -- or,
+    where ``jax`` carries the error history's head (the HDG solves, whose
+    Bramble-Pasciak form is indefinite at JAX's k, so that the count is
+    decided by roundoff), that head within STOKES_HEAD_TOL of JAX's, the
+    true residual within STOKES_HDG_RES_FACTOR and the count only printed;
+    the inlet velocity equal to its boundary values; kernel 8 launched."""
+    import numpy as np
+
+    n_jax, _, res_jax, head = jax
+    true_rel = stokes_true_rel(torch, system, u, p)
+    ok, err = count_matches(res, n_jax, STOKES_TOL, STOKES_PLATEAU)
+    log(f"{tag}: {res.iterations} iterations (JAX {n_jax}; converged "
+        f"{res.converged}), true rel residual {true_rel:.4e} (JAX "
+        f"{res_jax:.4e}, x{true_rel / res_jax:.3f}); errors at iterations "
+        f"{n_jax - 2}..: " + ", ".join(f"{e:.3e}" for e in err)
+        + "; launches " + str({k: v for k, v in launches.items() if v}))
+    check(res.converged, f"{tag} did not converge")
+    if head is None:
+        check(ok, f"{tag} {res.iterations} iterations with the JAX k, JAX "
+              f"{n_jax}")
+        check(true_rel <= STOKES_RES_FACTOR * res_jax,
+              f"{tag} true residual {true_rel:.3e}, JAX {res_jax:.3e}")
+    else:
+        rel = {i: abs(float(res.errors[i]) / e - 1) for i, e in head.items()}
+        log(f"{tag}: error history at iterations {list(head)} off JAX's by "
+            + ", ".join(f"{r:.2e}" for r in rel.values()) + " (relative)")
+        check(max(rel.values()) <= STOKES_HEAD_TOL,
+              f"{tag} error history off JAX's: {rel}")
+        check(true_rel <= STOKES_HDG_RES_FACTOR * res_jax,
+              f"{tag} true residual {true_rel:.3e}, JAX {res_jax:.3e}")
+    V = system.V
+    if hasattr(V, "scalar"):
+        inlet = V.boundary_dof_mask("inlet")
+    else:
+        inlet = np.concatenate([V.hdiv.boundary_dof_mask("inlet"),
+                                V.facet.boundary_dof_mask("inlet")])
+    inlet = torch.as_tensor(inlet, device=u.device)
+    check(bool(inlet.any()) and torch.equal(u[inlet], system.u_bc[inlet]),
+          f"{tag} the inlet velocity differs from its boundary values")
+    check(launches.get("batched_local_matvec_f64", 0) > 0,
+          f"{tag} kernel 8 never launched")
+    return true_rel
+
+
+def stokes_phase(torch, bm, lm, timer, gen, reports, here):
+    """[stokes]: the Stokes catalog on the card at the reference's sizes.
+
+    1. the active configuration of scripts/run_stokes.py ("HDG BDM 2",
+       alpha 10, edgeblock, order-3 curved cylinder, BPCG to 1e-7) through
+       the port's ``run`` harness as the script calls it, at maxh 0.1,
+       with the JAX k, its CSV written under build/stokes/; then the
+       port's own k;
+    2. the same system at maxh 0.01 (setup seconds, JAX's k);
+    3. the mixed pairs at maxh 0.1 (Jacobi, BPCG to 1e-7 with JAX's k)
+       and Taylor-Hood 2 with block-preconditioned MINRES;
+    4. the MCS triple as scripts/stokes_hcurldiv.py runs it (maxh 0.06):
+       the direct solve on the host, MINRES to 1e-8 on the card;
+    5. kernel 8 against its plain version on each new table.
+    Each solve is held to JAX's figures by :func:`stokes_solve_check`.
+    The launch counters are set to 0 just before each solve and read just
+    after.  Returns (seconds, launches summed over the solves)."""
+    import csv as csv_mod
+
+    import numpy as np
+
+    from navier_stokes_tpu_torch.mesh.curved import curve_to_circle
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh,
+    )
+    from navier_stokes_tpu_torch.models import discretizations as disc
+    from navier_stokes_tpu_torch.models import stokes as st
+    from navier_stokes_tpu_torch.models.stokes_hybrid import (
+        build_hybrid_stokes_system,
+    )
+    from navier_stokes_tpu_torch.models.stokes_mcs import (
+        assemble_mcs_stokes,
+        mcs_discretization,
+        solve_mcs_direct,
+        solve_mcs_minres,
+    )
+    from navier_stokes_tpu_torch.scripts import run_stokes
+
+    t_phase = time.perf_counter()
+    rep = reports["batched_local_matvec_f64_stokes"]
+    total = {}
+
+    # 1. run_stokes.py's active configuration through the harness
+    jax = STOKES_HDG_JAX[STOKES_MAXH]
+    k_jax = jax[1]
+    got = {}
+
+    def bpcg_jax_k(system):
+        got["system"] = system
+        return st.solve_with_bramble_pasciak_cg(
+            system, tolerance=STOKES_TOL, max_steps=STOKES_MAXSTEPS,
+            scale_k=k_jax, result=got)
+
+    out_dir = os.path.join(here, "build", "stokes")
+    os.makedirs(out_dir, exist_ok=True)
+    csv_path = os.path.join(out_dir, "errors.csv")
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = st.run(run_stokes.mesh_sizes, run_stokes.methods("cuda"),
+                  {"bramble pasciak cg": bpcg_jax_k}, csv_path)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    add_launches(total, launches)
+    system, res = got["system"], got["result"]
+    u, p = system.lift(res.x[0]), res.x[1]
+    tag = f"[stokes] HDG BDM 2 maxh={STOKES_MAXH} (run_stokes.py, run())"
+    log(f"{tag}: ndof {system.V.ndof}+{system.Q.ndof}, harness {t_run:.2f} s"
+        f" (setup and solve), BPCG {rows[-1]['solver_time']:.3f} s")
+    check(run_stokes.mesh_sizes == [STOKES_MAXH]
+          and system.V.ndof == 5112 and system.Q.ndof == 1230,
+          f"{tag}: unexpected size {system.V.ndof}+{system.Q.ndof}")
+    stokes_solve_check(torch, tag, system, res, u, p, jax, launches)
+    with open(csv_path, newline="") as fh:
+        table = list(csv_mod.reader(fh))
+    check(table[0] == [""] + list(st.CSV_COLUMNS)
+          and len(table) == len(rows) + 1 == res.iterations + 2
+          and table[1][2] == "HDG BDM 2" and table[-1][-1] == "hybrid_dg",
+          f"{tag}: the CSV does not hold the run's rows")
+    log(f"{tag}: wrote {len(rows)} rows to {os.path.relpath(csv_path, here)}")
+    for tname, A in system.tables.items():
+        check_local_mv(torch, lm, timer, rep, f"stokes hdg {STOKES_MAXH} "
+                       f"{tname}", A, gen)
+    own = {}
+    bm.reset_launches()
+    st.solve_with_bramble_pasciak_cg(system, tolerance=STOKES_TOL,
+                                     max_steps=STOKES_MAXSTEPS, result=own)
+    torch.cuda.synchronize()
+    add_launches(total, bm.LAUNCHES)
+    log(f"{tag} with the port's own k {own['scale_k']:.6g} (JAX "
+        f"{k_jax:.6g}): {own['result'].iterations} iterations (JAX k: "
+        f"{res.iterations}; converged {own['result'].converged})")
+    check(own["result"].converged, f"{tag} with its own k did not converge")
+    del system, got, own
+
+    # 2. the same at maxh 0.01
+    jax = STOKES_HDG_JAX[STOKES_FINE]
+    k_jax = jax[1]
+    tag = f"[stokes] HDG BDM 2 maxh={STOKES_FINE}"
+    t0 = time.perf_counter()
+    mesh = channel_with_cylinder_mesh(STOKES_FINE)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geo = curve_to_circle(mesh, "cyl", (0.2, 0.2), 0.05, 3)
+    system = build_hybrid_stokes_system(
+        mesh, disc.bdm_hybrid(2, 10)[0], uin=st.default_inlet_profile(),
+        geometry=geo, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    log(f"{tag}: {mesh.ne} triangles, ndof {system.V.ndof}+{system.Q.ndof}; "
+        f"mesh {t_mesh:.1f} s, setup (curve, assembly, edgeblock inverses) "
+        f"{t_setup:.1f} s; A_loc "
+        f"{system.tables['A_loc'].numel() * 8 / 1e6:.1f} MB")
+    check(mesh.ne == 17002 and system.V.ndof == 205740
+          and system.Q.ndof == 51006, f"{tag}: unexpected size")
+    for tname, A in system.tables.items():
+        check_local_mv(torch, lm, timer, rep, f"stokes hdg {STOKES_FINE} "
+                       f"{tname}", A, gen)
+    got = {}
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.solve_with_bramble_pasciak_cg(system, tolerance=STOKES_TOL,
+                                     max_steps=STOKES_MAXSTEPS, scale_k=k_jax,
+                                     result=got)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    add_launches(total, launches)
+    res = got["result"]
+    log(f"{tag}: BPCG {t_solve:.3f} s "
+        f"({1e3 * t_solve / max(res.iterations, 1):.3f} ms per iteration)")
+    stokes_solve_check(torch, tag, system, res, system.lift(res.x[0]),
+                       res.x[1], jax, launches)
+    del system, got, res, mesh, geo
+
+    # 3. the mixed family at maxh 0.1 (Jacobi A-preconditioner)
+    mesh = channel_with_cylinder_mesh(STOKES_MAXH)
+    catalog = {
+        "taylor hood 2": disc.taylor_hood(2),
+        "taylor hood 3": disc.taylor_hood(3),
+        "mini": disc.mini(),
+        "P2, P0": disc.P2_velocity_constant_pressure(),
+        "P1nc, P0": disc.P1_nonconforming_velocity_constant_pressure(),
+        "P2+, P1": disc.P2_velocity_with_cubic_bubbles_linear_pressure(),
+    }
+    for name, jax in STOKES_MIXED_JAX.items():
+        tag = f"[stokes] mixed {name} maxh={STOKES_MAXH}"
+        system = st.build_stokes_system(mesh, catalog[name][0],
+                                        uin=st.default_inlet_profile(),
+                                        device="cuda")
+        check_local_mv(torch, lm, timer, rep, f"stokes {name} K_loc",
+                       system.tables["K_loc"], gen)
+        got = {}
+        bm.reset_launches()
+        u, p, _, secs, _ = st.solve_with_bramble_pasciak_cg(
+            system, tolerance=STOKES_TOL, max_steps=STOKES_MAXSTEPS,
+            scale_k=jax[1], result=got)
+        launches = dict(bm.LAUNCHES)
+        add_launches(total, launches)
+        log(f"{tag}: ndof {system.V.ndof}+{system.Q.ndof}, BPCG {secs:.3f} s")
+        stokes_solve_check(torch, tag, system, got["result"], u, p, jax,
+                           launches)
+        if name == "taylor hood 2":
+            got = {}
+            bm.reset_launches()
+            u, p, _, secs, _ = st.solve_with_min_res(
+                system, tolerance=STOKES_TOL, max_steps=STOKES_MAXSTEPS,
+                result=got)
+            launches = dict(bm.LAUNCHES)
+            add_launches(total, launches)
+            log(f"{tag} MINRES: {secs:.3f} s")
+            stokes_solve_check(torch, f"{tag} MINRES", system, got["result"],
+                               u, p, STOKES_MINRES_JAX, launches)
+
+    # 4. MCS as scripts/stokes_hcurldiv.py runs it
+    tag = f"[stokes] MCS RT 2 maxh={MCS_MAXH} (stokes_hcurldiv.py)"
+    mesh = channel_with_cylinder_mesh(MCS_MAXH)
+    V, S, Q = mcs_discretization(2)[0](
+        mesh, velocity_dirichlet="wall|inlet|cyl", velocity_neumann="outlet")
+    t0 = time.perf_counter()
+    system = assemble_mcs_stokes(mesh, V, S, Q, st.default_volume_force,
+                                 st.default_inlet_profile())
+    t_asm = time.perf_counter() - t0
+    x, t_direct = solve_mcs_direct(system)
+    A_mcs = torch.as_tensor(system.A_loc, device="cuda")
+    check_local_mv(torch, lm, timer, rep, "stokes mcs A_loc", A_mcs, gen)
+    del A_mcs
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x2, res = solve_mcs_minres(system, tol=1e-8, maxsteps=MCS_MAXSTEPS,
+                               device="cuda")
+    t_minres = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    add_launches(total, launches)
+    final = float(res.errors[res.iterations])
+    diff = float(np.abs(x - x2).max())
+    log(f"{tag}: {mesh.ne} triangles, ndofs V={V.ndof} S={S.ndof} "
+        f"Q={Q.ndof}; assembly {t_asm:.2f} s, direct solve {t_direct:.3f} s; "
+        f"MINRES {res.iterations} iterations (converged {res.converged}; JAX "
+        f"{MCS_JAX['iterations']}, not converged) in {t_minres:.2f} s "
+        f"({1e3 * t_minres / res.iterations:.4f} ms per iteration), final "
+        f"relative error {final:.4e} (JAX {MCS_JAX['final_error']:.4e}), "
+        f"agree to {diff:.4e} (JAX {MCS_JAX['max_diff_direct']:.4e}); "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}")
+    check(res.iterations == MCS_JAX["iterations"] and not res.converged,
+          f"{tag}: {res.iterations} MINRES iterations, JAX "
+          f"{MCS_JAX['iterations']} (not converged)")
+    check(abs(final / MCS_JAX["final_error"] - 1) <= MCS_BAND
+          and abs(diff / MCS_JAX["max_diff_direct"] - 1) <= MCS_BAND,
+          f"{tag}: final error {final:.3e} or difference {diff:.3e} off "
+          "JAX's by more than the band")
+    check(launches.get("batched_local_matvec_f64", 0) > 0,
+          f"{tag} kernel 8 never launched")
+    secs = time.perf_counter() - t_phase
+    log(f"[stokes] phase {secs:.1f} s")
+    return secs, total
+
+
+def heat_phase(torch, bm, lm, timer, gen, reports, n_steps=HEAT_RUN):
+    """[heat]: ``HeatEquation`` at the reference's literals (maxh 0.1,
+    order 10: 200 triangles, 10,201 dofs, 66 x 66 element tables; 10 Gauss
+    stages, subspace 5, inner CG to 1e-13): kernel 8 on the mass and
+    stiffness tables against its plain version; the first ``n_steps`` time
+    steps of the convergence study (3: 8 large steps; 5: 74), each L2
+    error held to the JAX package's within HEAT_TOL of the solution's norm;
+    the CG count of every solve (each below its 4,000 cap) and the wall
+    seconds per step.  The launch counters are set to 0 just before each
+    solve and read just after.  Returns (seconds, launches summed over the
+    solves)."""
+    from navier_stokes_tpu_torch.models.heat import (
+        DEFAULT_KL,
+        HeatEquation,
+        exact_solution,
+        sum_of_unit_square_laplace_eigenfunctions,
+    )
+
+    t_phase = time.perf_counter()
+    rep = reports["batched_local_matvec_f64_heat"]
+    t0 = time.perf_counter()
+    m = HeatEquation(maxh=0.1, order=10, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[heat] maxh 0.1, order 10: {m.mesh.ne} triangles, {m.ndof} dofs, "
+        f"tables {tuple(m.mass_local.shape)}; setup "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(m.mesh.ne == 200 and m.ndof == 10201,
+          f"[heat] unexpected size {m.mesh.ne}, {m.ndof}")
+    for tname, A in (("mass_local", m.mass_local),
+                     ("stiff_local", m.stiff_local)):
+        check_local_mv(torch, lm, timer, rep, f"heat {tname}", A, gen)
+    initial = sum_of_unit_square_laplace_eigenfunctions(DEFAULT_KL)
+    total = {}
+    for dt, e_jax in list(zip(HEAT_STEPS, HEAT_JAX))[:n_steps]:
+        bm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T, final_time = m.solve(initial, 0.05, dt)
+        secs = time.perf_counter() - t0
+        launches = dict(bm.LAUNCHES)
+        add_launches(total, launches)
+        exact = exact_solution(DEFAULT_KL, final_time)
+        err = m.l2_error(T, exact)
+        norm = m.l2_error(torch.zeros_like(T), exact)
+        cg = m.cg_iterations
+        n = len(m.step_seconds)
+        rel = abs(err - e_jax) / e_jax
+        log(f"[heat] dt={dt:.6g}: {n} steps in {secs:.3f} s "
+            f"({secs / n:.3f} s per step, "
+            f"{1e3 * secs / sum(cg):.4f} ms per CG iteration), L2 error "
+            f"{err:.10e} (JAX {e_jax:.10e}: {rel:.2e} of the error, "
+            f"{abs(err - e_jax) / norm:.2e} of the state's norm); CG per "
+            f"solve {min(cg)}-{max(cg)}, mean {sum(cg) / len(cg):.1f}, "
+            f"{sum(cg)} in all; launches per step "
+            f"{dict((k, v / n) for k, v in launches.items() if v)}")
+        check(bool(torch.isfinite(T).all()), f"[heat] dt={dt}: non-finite")
+        check(max(cg) < m.inner_maxsteps,
+              f"[heat] dt={dt}: a CG solve reached {max(cg)} iterations")
+        check(abs(err - e_jax) <= HEAT_TOL * norm,
+              f"[heat] dt={dt}: L2 error {err:.6e}, JAX {e_jax:.6e}, "
+              f"{abs(err - e_jax) / norm:.2e} of the state's norm")
+        check(launches.get("batched_local_matvec_f64", 0) > 0,
+              f"[heat] dt={dt}: kernel 8 never launched")
+    secs = time.perf_counter() - t_phase
+    log(f"[heat] phase {secs:.1f} s")
+    return secs, total
+
+
 def redesign_order(entries, reports):
     """The order in which the kernels are worth redesigning: first those
     slower than the one PyTorch call for the same function, by the factor;
@@ -2333,6 +2781,15 @@ def run():
         "batched_local_matvec_f64_th2d": KernelReport(
             "batched_local_matvec_f64_th2d", f"{PALLAS_LOCAL}:26",
             SRC_LOCAL, F64_FLOPS_PER_S),
+        # the Stokes catalog's and the heat model's tables ([stokes],
+        # [heat]): kernel 8 in f64 on the HDG, mixed and MCS element tables
+        # and the edgeblock inverses, and on heat's mass and stiffness
+        "batched_local_matvec_f64_stokes": KernelReport(
+            "batched_local_matvec_f64_stokes", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
+        "batched_local_matvec_f64_heat": KernelReport(
+            "batched_local_matvec_f64_heat", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -2512,6 +2969,13 @@ def run():
     t_mcs2d, launches_mcs2d = mcs2d_phase(torch, bm, lm, timer, gen, reports)
     t_th2d, launches_th2d = th2d_phase(torch, bm, lm, timer, gen, reports)
 
+    # 18. the Stokes catalog and the heat model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_stokes, launches_stokes = stokes_phase(torch, bm, lm, timer, gen,
+                                             reports, here)
+    t_heat, launches_heat = heat_phase(torch, bm, lm, timer, gen, reports)
+
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
               **{k: launches_k[k] for k in ("block_mv_splitk",
@@ -2533,15 +2997,20 @@ def run():
               "batched_local_matvec_f64_mcs2d":
                   launches_mcs2d.get("batched_local_matvec_f64", 0),
               "batched_local_matvec_f64_th2d":
-                  launches_th2d.get("batched_local_matvec_f64", 0)}
+                  launches_th2d.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_f64_stokes":
+                  launches_stokes.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_f64_heat":
+                  launches_heat.get("batched_local_matvec_f64", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
     log(f"[time] phases: cuda-tests {t_cuda_tests:.1f} s, bpcg "
         f"{t_bpcg:.1f} s, bench {t_bench:.1f} s, repeat {t_repeat:.1f} s, "
-        f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s; new: mcs2d "
-        f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s (together "
-        f"{t_mcs2d + t_th2d:.1f} s); whole run "
+        f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s, mcs2d "
+        f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s; new: stokes "
+        f"{t_stokes:.1f} s, heat {t_heat:.1f} s (together "
+        f"{t_stokes + t_heat:.1f} s); whole run "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)

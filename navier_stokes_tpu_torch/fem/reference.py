@@ -408,3 +408,59 @@ def discontinuous_simplex(order: int, dim: int) -> ElementBasis:
         n_face=0, n_cell=base.n_basis, _tabulate=base._tabulate,
         nodes=base.nodes, name=f"P{order}dc-{'tri' if dim == 2 else 'tet'}",
     )
+
+
+def crouzeix_raviart_triangle() -> ElementBasis:
+    """P1 nonconforming (Crouzeix-Raviart) basis: dofs at edge midpoints.
+
+    Replaces NGSolve's FESpace('nonconforming') used by reference
+    discretizations.py:14-20.  phi_e = 1 - 2*lambda_opp(e).
+    """
+    mids = np.array([[0.5, 0.0], [0.5, 0.5], [0.0, 0.5]])
+
+    def tab(points):
+        x, y = points[:, 0], points[:, 1]
+        lam = np.stack([1.0 - x - y, x, y], axis=1)  # barycentric
+        # edge e connects (v_e, v_{e+1}); opposite vertex is (e+2) % 3
+        vals = np.stack([1.0 - 2.0 * lam[:, (e + 2) % 3] for e in range(3)],
+                        axis=1)
+        dlam = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
+        grads = np.stack(
+            [np.broadcast_to(-2.0 * dlam[(e + 2) % 3], (len(points), 2))
+             for e in range(3)],
+            axis=1,
+        )
+        return vals, grads
+
+    return ElementBasis(dim=2, order=1, n_basis=3, n_vertex=0, n_edge=1,
+                        n_face=0, n_cell=0, _tabulate=tab, nodes=mids,
+                        name="CR-tri")
+
+
+def bubble_enriched_triangle(order: int) -> ElementBasis:
+    """Pk Lagrange + cubic cell bubble (27*l0*l1*l2).
+
+    Replaces NGSolve's ``SetOrder(TRIG, 3)`` enrichment used by the MINI
+    (order 1) and P2+ elements, reference discretizations.py:39-56.
+    """
+    base = lagrange_triangle(order)
+
+    def tab(points):
+        v, g = base.tabulate(points)
+        x, y = points[:, 0], points[:, 1]
+        l0, l1, l2 = 1.0 - x - y, x, y
+        bub = 27.0 * l0 * l1 * l2
+        dbub = 27.0 * np.stack(
+            [-l1 * l2 + l0 * l2, -l1 * l2 + l0 * l1], axis=1
+        )
+        vals = np.concatenate([v, bub[:, None]], axis=1)
+        grads = np.concatenate([g, dbub[:, None, :]], axis=1)
+        return vals, grads
+
+    nodes = np.concatenate([base.nodes, np.array([[1 / 3, 1 / 3]])])
+    return ElementBasis(
+        dim=2, order=max(order, 3), n_basis=base.n_basis + 1,
+        n_vertex=base.n_vertex, n_edge=base.n_edge, n_face=0,
+        n_cell=base.n_cell + 1, _tabulate=tab, nodes=nodes,
+        name=f"P{order}+bubble-tri", nodal=False,
+    )

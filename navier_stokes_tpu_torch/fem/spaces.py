@@ -186,11 +186,31 @@ def H1(mesh: Mesh, order: int, dirichlet: str = "") -> FunctionSpace:
     return FunctionSpace(mesh, b, ndof, table, dirichlet, name=f"H1_{order}")
 
 
+def H1_with_bubble(mesh: Mesh, order: int, dirichlet: str = "") -> FunctionSpace:
+    """Pk + cubic cell bubble (NGSolve SetOrder(TRIG,3) enrichment,
+    reference discretizations.py:39-56)."""
+    if mesh.dim != 2:
+        raise NotImplementedError("bubble enrichment only in 2D")
+    b = ref.bubble_enriched_triangle(order)
+    ndof, table = _continuous_dof_table(mesh, b)
+    return FunctionSpace(mesh, b, ndof, table, dirichlet, name=f"H1_{order}+b")
+
+
 def L2(mesh: Mesh, order: int) -> FunctionSpace:
     """Discontinuous Pk space (cell-local dofs)."""
     b = ref.discontinuous_simplex(order, mesh.dim)
     ndof, table = _continuous_dof_table(mesh, b)
     return FunctionSpace(mesh, b, ndof, table, "", name=f"L2_{order}")
+
+
+def Nonconforming(mesh: Mesh, dirichlet: str = "") -> FunctionSpace:
+    """Crouzeix-Raviart P1 nonconforming space
+    (NGSolve FESpace('nonconforming'), reference discretizations.py:14-20)."""
+    if mesh.dim != 2:
+        raise NotImplementedError("Crouzeix-Raviart only in 2D")
+    b = ref.crouzeix_raviart_triangle()
+    ndof, table = _continuous_dof_table(mesh, b)
+    return FunctionSpace(mesh, b, ndof, table, dirichlet, name="CR")
 
 
 @dataclass

@@ -3,12 +3,13 @@ gather -> local matvec -> scatter apply (torch).
 
 The parts of ``navier_stokes_tpu/ops/assembly.py`` that the port uses:
 global CSR assembly of element matrices (the P1 coarse stiffness,
-precond/twolevel.py), the stiffness element tables, the pressure mass
-diagonal behind ``preM`` (models/navier_stokes_mcs.py), the tables of a
-(space, quadrature) pair with their element forms (``SpaceTables``,
-``make_tables``, ``mass_local``, ``stiffness_local``, ``phys_grad``,
-``divergence_local``, ``linear_form_local``: torch on the tables' device,
-as the Taylor-Hood model uses them), and ``gather`` / ``scatter_add`` /
+precond/twolevel.py; ``assemble_csr_rect`` for a rectangular operator),
+the stiffness element tables, the pressure mass diagonal behind ``preM``
+(models/navier_stokes_mcs.py), the tables of a (space, quadrature) pair
+with their element forms (``SpaceTables``, ``make_tables``,
+``mass_local``, ``stiffness_local``, ``phys_grad``, ``divergence_local``,
+``linear_form_local``: torch on the tables' device, as the Taylor-Hood
+model and the Stokes catalog use them), and ``gather`` / ``scatter_add`` /
 ``diagonal_of_local`` / ``apply_local_matrices``.
 
 Every scatter-add of the port goes through :class:`ScatterPlan`: the
@@ -45,6 +46,20 @@ def assemble_csr(a_local, eldofs, ndof: int, ndof_col: int | None = None):
         (a.ravel(), (rows, cols)), shape=(ndof, ndof_col or ndof)
     )
     return mat.tocsr()
+
+
+def assemble_csr_rect(a_local, row_dofs, col_dofs, nrow: int, ncol: int):
+    """scipy CSR of a rectangular operator from element matrices
+    (ne, nr, nc) with row dofs (ne, nr) and column dofs (ne, nc)."""
+    import scipy.sparse as sp
+
+    a = np.asarray(a_local)
+    rd, cd = np.asarray(row_dofs), np.asarray(col_dofs)
+    ne, nr, nc = a.shape
+    rows = np.repeat(rd[:, :, None], nc, axis=2).ravel()
+    cols = np.repeat(cd[:, None, :], nr, axis=1).ravel()
+    return sp.coo_matrix((a.ravel(), (rows, cols)),
+                         shape=(nrow, ncol)).tocsr()
 
 
 @dataclass(frozen=True)

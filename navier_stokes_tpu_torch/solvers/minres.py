@@ -1,4 +1,4 @@
-"""Preconditioned MINRES on tuples of tensors.
+"""Preconditioned MINRES on tensors and tuples of tensors.
 
 Counterpart of ``navier_stokes_tpu/solvers/minres.py`` (itself the
 reference's hand-written MINRES, after M. Kolmbauer's thesis):
@@ -17,18 +17,20 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..linalg.pytree import taxpy, tdot, tscale, tsub, tzeros_like
+from ..linalg.pytree import _leaves, taxpy, tdot, tscale, tsub, tzeros_like
 
 __all__ = ["SolverResult", "minres"]
 
 
 @dataclass
 class SolverResult:
-    """x: solution tuple; iterations: int; errors: (maxsteps+1,) relative
-    error history (NaN past convergence); err0: initial error; converged."""
+    """x: solution (a tensor for a bare-tensor rhs, else a tuple);
+    iterations: int; errors: (maxsteps+1,) relative error history (NaN
+    past convergence); err0: initial error; converged."""
 
-    x: tuple
+    x: tuple | torch.Tensor
     iterations: int
     errors: np.ndarray
     err0: float
@@ -40,21 +42,25 @@ def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
            abs_test: bool = True) -> SolverResult:
     """Solve mat x = rhs (symmetric, possibly indefinite) with PMINRES.
 
-    ``mat``/``pre`` act on tuples of tensors; ``pre`` must be SPD.
+    ``mat``/``pre`` act on a tensor or on tuples of tensors, as ``rhs``
+    is one; ``pre`` must be SPD.
     ``initialize=False`` keeps ``sol`` as the initial guess.
     ``abs_test=False`` drops the absolute stopping test ``res_norm <= tol``
     (a correction solve whose rhs is already tiny would otherwise stop at
     iteration one without contracting anything)."""
     if pre is None:
         pre = lambda v: v
-    rhs = tuple(rhs)
+    # a bare tensor is one block (the solution is then a tensor); any
+    # other sequence of blocks is taken as a tuple
+    if not isinstance(rhs, torch.Tensor):
+        rhs = tuple(rhs)
     if sol is None or initialize:
         u = tzeros_like(rhs) if sol is None else tzeros_like(sol)
         v = rhs
     else:
-        u = tuple(sol)
+        u = sol if isinstance(sol, torch.Tensor) else tuple(sol)
         v = tsub(rhs, mat(u))
-    sdt = np.dtype(str(rhs[0].dtype).replace("torch.", ""))
+    sdt = np.dtype(str(_leaves(rhs)[0].dtype).replace("torch.", ""))
     one = sdt.type(1.0)
 
     def scalar(t):

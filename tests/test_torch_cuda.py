@@ -725,3 +725,101 @@ def test_2d_models_on_card_match_cpu(model):
     assert torch.equal(u1, u2)
     incr = np.linalg.norm(uc.numpy() - mc.u.numpy())
     assert np.linalg.norm(u1.cpu().numpy() - uc.numpy()) <= 1e-6 * incr
+
+
+# the Stokes catalog's and the heat model's element tables, (ne, nb,
+# offset): Crouzeix-Raviart (3), mini (4), P2 with a bubble (7), HDG BDM 2
+# (21), the MCS triple of order 2 (39), heat at order 10 (66)
+TABLES_CATALOG = [(4001, 3, 0), (3001, 3, 1), (410, 4, 2), (77, 7, 1),
+                  (410, 21, 0), (57, 21, 3), (624, 39, 1), (200, 66, 0),
+                  (33, 66, 1)]
+
+
+@pytest.mark.cuda
+def test_batched_local_matvec_catalog_tables_on_card():
+    """On the card: kernel 8 in f64 at the Stokes catalog's and the heat
+    model's widths (nb = 3 and 4: a few elements per CTA; nb = 66: rows
+    528 bytes apart), against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for ne, nb, off in TABLES_CATALOG:
+        fa = torch.randn(off + ne * nb * nb, generator=gen, device="cuda",
+                         dtype=torch.float64)
+        fu = torch.randn(off + ne * nb, generator=gen, device="cuda",
+                         dtype=torch.float64)
+        A, u = fa[off:].view(ne, nb, nb), fu[off:].view(ne, nb)
+        y = batched_local_matvec(A, u)
+        scale = torch.einsum("eij,ej->ei", A.abs(), u.abs())
+        d = (y - batched_local_matvec_plain(A, u)).abs()
+        assert float((d / scale).max()) <= TOL["float64"]
+
+
+def _catalog_ops(which, device):
+    """(operators, an input size) of one model of the Stokes catalog or the
+    heat model at a small size on ``device``."""
+    from navier_stokes_tpu_torch.mesh import channel_with_cylinder_mesh
+    from navier_stokes_tpu_torch.models import discretizations as disc
+    from navier_stokes_tpu_torch.models import stokes as st
+
+    if which == "heat":
+        from navier_stokes_tpu_torch.models.heat import HeatEquation
+
+        m = HeatEquation(maxh=0.3, order=6, device=device)
+        heat_apply, _ = m._heat_ops(0.002)
+        return [m._apply_mass, m._apply_stiff, heat_apply], m.ndof
+    mesh = channel_with_cylinder_mesh(0.3)
+    if which == "mcs":
+        from navier_stokes_tpu_torch.models.stokes_mcs import (
+            assemble_mcs_stokes,
+            mcs_discretization,
+        )
+        from navier_stokes_tpu_torch.ops.assembly import (
+            ScatterPlan,
+            apply_local_matrices,
+        )
+
+        V, S, Q = mcs_discretization(2)[0](
+            mesh, velocity_dirichlet="wall|inlet|cyl",
+            velocity_neumann="outlet")
+        s = assemble_mcs_stokes(mesh, V, S, Q, st.default_volume_force,
+                                st.default_inlet_profile())
+        A = torch.as_tensor(s.A_loc, device=device)
+        plan = ScatterPlan(torch.as_tensor(s.eldofs.astype(np.int64),
+                                           device=device), s.ndofs)
+        return [lambda x: apply_local_matrices(A, plan, s.ndofs, x,
+                                               use_kernel=True)], s.ndofs
+    if which == "mixed":
+        s = st.build_stokes_system(mesh, disc.mini()[0],
+                                   uin=st.default_inlet_profile(),
+                                   device=device)
+    else:
+        from navier_stokes_tpu_torch.models.stokes_hybrid import (
+            build_hybrid_stokes_system,
+        )
+
+        s = build_hybrid_stokes_system(mesh, disc.bdm_hybrid(2, 10)[0],
+                                       uin=st.default_inlet_profile(),
+                                       device=device)
+    return [s.A, s.preA, s.B], s.f.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mixed", "hdg", "mcs", "heat"])
+def test_catalog_models_on_card_match_cpu(which):
+    """On the card: the mixed (mini) and HDG (BDM 2, edgeblock) Stokes
+    operators, the MCS operator and the heat model's mass, stiffness and
+    M + dt K applies at maxh 0.3 against the same operators on the CPU
+    (plain versions) within 1e-11, kernel 8 launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ops_c, n = _catalog_ops(which, "cpu")
+    ops_g, _ = _catalog_ops(which, "cuda")
+    x = np.random.default_rng(7).standard_normal(n)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).cuda()
+    bm.reset_launches()
+    for fc, fg in zip(ops_c, ops_g):
+        want = fc(xc).numpy()
+        got = fg(xg).cpu().numpy()
+        assert np.linalg.norm(got - want) <= 1e-11 * np.linalg.norm(want)
+    assert bm.LAUNCHES["batched_local_matvec_f64"] > 0

@@ -1,0 +1,88 @@
+"""Run chosen phases of ``chip_smoke.py`` on the card, alone.
+
+Builds the kernels, prints the card's name and power limit, then runs the
+phases named by ``--phases`` (in that order) with chip_smoke.py's own
+phase functions and checks: ``cuda-tests`` (the card-only tests),
+``stokes`` (the Stokes catalog: ``[stokes]``) and ``heat`` (the heat model:
+``[heat]``, with ``--heat-steps`` time steps of the convergence study:
+chip_smoke.py runs 3, this tool can run all 5).  Prints the kernels' JSON
+entries of the phases run.  Exits 1 when a phase fails.
+
+    python3 tools/smoke_phases.py [--phases cuda-tests,stokes,heat]
+        [--heat-steps 5]
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="cuda-tests,stokes,heat")
+    ap.add_argument("--heat-steps", type=int, default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+    from navier_stokes_tpu_torch.ops import block_mv as bm
+    from navier_stokes_tpu_torch.ops import local_mv as lm
+    from navier_stokes_tpu_torch.utils.timers import KernelTimer
+
+    if not torch.cuda.is_available():
+        print("smoke_phases: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    built = bm.build_all()
+    lm.load_library()
+    cs.log("[build] " + ", ".join(f"{p.name}: nvcc {s:.1f} s"
+                                  for p, s in built.values())
+           + f" (with load {time.perf_counter() - t0:.1f} s)")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    cs.log(f"[card] {card}")
+    timer = KernelTimer()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    names = {"stokes": "batched_local_matvec_f64_stokes",
+             "heat": "batched_local_matvec_f64_heat"}
+    reports = {n: cs.KernelReport(n, f"{cs.PALLAS_LOCAL}:26", cs.SRC_LOCAL,
+                                  cs.F64_FLOPS_PER_S)
+               for n in names.values()}
+    entries = []
+    try:
+        for phase in args.phases.split(","):
+            if phase == "cuda-tests":
+                cs.cuda_tests_phase(ROOT)
+                continue
+            if phase == "stokes":
+                secs, launches = cs.stokes_phase(torch, bm, lm, timer, gen,
+                                                 reports, ROOT)
+            elif phase == "heat":
+                n = args.heat_steps or cs.HEAT_RUN
+                secs, launches = cs.heat_phase(torch, bm, lm, timer, gen,
+                                               reports, n_steps=n)
+            else:
+                raise ValueError(f"unknown phase {phase!r}")
+            rep = reports[names[phase]]
+            entries.append(rep.entry(launches.get("batched_local_matvec_f64",
+                                                  0)))
+            cs.log(f"[time] {phase} {secs:.1f} s")
+    except cs.Fail as e:
+        print(f"smoke_phases FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(json.dumps({"kernels": entries}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
