@@ -11,7 +11,7 @@ phases; any failed phase ends the run with a non-zero exit:
    and print the build seconds and the card;
 2. cuda-tests: ``python -m pytest --noconftest -m cuda
    tests/test_torch_cuda.py`` from the repository root -- the card-only
-   tests, which import no JAX -- must pass all 33 cases, none skipped;
+   tests, which import no JAX -- must pass all 40 cases, none skipped;
 3. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
@@ -75,7 +75,24 @@ phases; any failed phase ends the run with a non-zero exit:
     float64 steps (project_tol=1e-9) from the flagship solution, the
     counters read after the first; then repeat: two f32 steps from the
     same state must give bitwise equal increments and equal CG counts
-    (every scatter of the port is a deterministic ``ScatterPlan``);
+    (every scatter of the port is a deterministic ``ScatterPlan``); then
+    sweep: the Reynolds-number ensemble of ``parallel/sweep.py`` (the JAX
+    package's BASELINE config 5) on the curved f64 model from the
+    flagship solution, 8 viscosities geomspace(1e-3, 1e-2) x 2 steps
+    through ``run_reynolds_ensemble_mcs`` with the counters set to 0 just
+    before it (kernel 8 in f64 must launch; it is also checked on the
+    step's nu-split tables G1, G2, G3 and the mass): every state finite,
+    the first and last members apart, each of them run alone bitwise equal
+    to its row, the member at the model's nu within 1e-6 of max |u| of
+    ``DoTimeStep``, the C++ meshkit kernels loaded; the M* and projection
+    CG counts and seconds of every member step; then the same ensemble on
+    the straight channel at maxh 0.35 from u_bc with the JAX model's
+    Chebyshev bounds and the JAX host's element-interior BDM_2 functions
+    (tools/jax_bdm2_cell_bases.npz), held to the JAX package's per-member
+    max |u|, ||u_i - u_0||, ||u_i - u_bc|| and CG counts at the step's own
+    M* CG stop (SWEEP_SMALL_TOL) and with the M* CG to 1e-10
+    (SWEEP_TIGHT_TOL), where the step with its nu-split and mass applies
+    in float32 must break the bound (tools/jax_sweep_reference.py);
 13. bench: the port's bench line (``navier_stokes_tpu_torch.bench.measure``
     on the models already built and the main path's cold and warm flagship
     solves, checked within 460 inner iterations, then calibrated warm f32
@@ -156,6 +173,14 @@ phases; any failed phase ends the run with a non-zero exit:
     norm, the CG count of every solve and the seconds per step.  Kernel 8 is checked on every new table (HDG, mixed, MCS element
     tables, the edgeblock inverses, heat's mass and stiffness) and must
     launch in each solve; the counters are set to 0 just before each.
+19. ns-sweep: the port's scripts/run_ns_sweep.py default subset through
+    its ``main`` (12 initial Stokes solves of the 2D MCS model, h = 2^-3
+    .. 2^-1 x order 3, 2 x GS on / off, to 1e-10; the CSV under
+    build/ns_sweep/ in the JAX schema), the counters set to 0 just before
+    it (kernel 8 in f64 must launch); then each configuration through
+    ``solve`` with the JAX package's Bramble-Pasciak k, its count held to
+    JAX's by ``count_matches`` (tools/jax_sweep_reference.py), the count
+    with the port's own k printed beside it.
 
 The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
@@ -231,7 +256,7 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
-CUDA_TEST_CASES = 38  # 23 tests, 38 cases with their parameters
+CUDA_TEST_CASES = 40  # 25 tests, 40 cases with their parameters
 # [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
 # curved model at maxh=0.09, and the two faceblock variants on the shortened
 # channel of tests/test_navier_stokes_mcs3d.py:_channel3d
@@ -357,6 +382,122 @@ HEAT_JAX = (0.004531476446483092, 0.00017125506665474163,
             1.2568817807744234e-05, 1.1420201716659314e-07,
             1.121995294735825e-08)
 HEAT_TOL, HEAT_RUN = 1e-10, 3
+# [sweep]: the 3D MCS Reynolds-number ensemble (parallel/sweep.py, the JAX
+# package's BASELINE config 5) on the curved f64 model at maxh 0.09: one
+# member per viscosity of geomspace(1e-3, 1e-2, SWEEP_MEMBERS), SWEEP_STEPS
+# fused steps each, from the flagship solution; the member at the model's
+# nu held to DoTimeStep within SWEEP_DTS_TOL of max |u| (the JAX test's
+# bound, tests/test_sweep_checkpoint.py)
+SWEEP_MEMBERS, SWEEP_STEPS, SWEEP_DTS_TOL = 8, 2, 1e-6
+# the same ensemble on the straight channel of that JAX test at maxh 0.35
+# (order 2, dt 2e-3) from u = u_bc, with the JAX model's Chebyshev bounds
+# and the JAX host's element-interior BDM_2 functions
+# (SWEEP_SMALL_BASES, carried_cell_bases), held to the JAX package's
+# numbers (tools/jax_sweep_reference.py on the CPU in f64): per member
+# max |u|, ||u_i - u_0||, ||u_i - u_bc|| and the M* and projection CG
+# counts of each step.  Without the carried functions the card's host
+# (another LAPACK) takes another orthonormal basis of each element's
+# six-dimensional interior null space, and the states lie 1.7e-2 apart
+# (tools/sweep_card_vs_cpu.py)
+SWEEP_SMALL_MAXH = 0.35
+SWEEP_SMALL_BASES = os.path.join("tools", "jax_bdm2_cell_bases.npz")
+SWEEP_SMALL_JAX = dict(
+    ndof=102576, cheb_bounds=(0.1336248977269488,
+                              6.68124488634744),
+    members=[
+        dict(max_abs_u=10.037244925055505, dist_u0=0.0,
+             dist_u_bc=17.470376416239997, mstar=[91, 92],
+             project=[150, 149]),
+        dict(max_abs_u=9.703415978157475, dist_u0=0.6591457529609471,
+             dist_u_bc=17.043207389478034, mstar=[99, 102],
+             project=[150, 149]),
+        dict(max_abs_u=9.262849001644401, dist_u0=1.5206994604736686,
+             dist_u_bc=16.50003099728027, mstar=[103, 109],
+             project=[150, 149]),
+        dict(max_abs_u=8.692012602918108, dist_u0=2.6305408503562844,
+             dist_u_bc=15.834163819331243, mstar=[109, 122],
+             project=[149, 149]),
+        dict(max_abs_u=7.972025012714793, dist_u0=4.030460091291821,
+             dist_u_bc=15.061409996816947, mstar=[116, 132],
+             project=[149, 148]),
+        dict(max_abs_u=7.089803340399039, dist_u0=5.752936843090225,
+             dist_u_bc=14.240196645414956, mstar=[127, 145],
+             project=[149, 148]),
+        dict(max_abs_u=6.047427177612203, dist_u0=7.805872604331231,
+             dist_u_bc=13.495437509275584, mstar=[134, 160],
+             project=[149, 148]),
+        dict(max_abs_u=4.873802067509958, dist_u0=10.169616050631918,
+             dist_u_bc=13.031019941171799, mstar=[144, 175],
+             project=[149, 148])])
+# the bounds at the step's own M* CG stop (1e-4), relative for the three
+# magnitudes, absolute for the CG counts.  Two sound runs part there: the
+# CG paths separate after some 80 iterations and each stops within its
+# 1e-4, so the states differ by up to 1.4e-4 of their norm (the port on
+# the card against the port on the CPU, the same basis); the CPU port reads
+# JAX's max |u| within 8.9e-6, ||u_i - u_0|| 4.7e-4 (member 1 lies 0.66
+# from member 0 in a norm of 17), ||u_i - u_bc|| 3.4e-6, counts 1 apart
+# (members 0, 1, 7), the card 2.5e-6, 3.8e-5, 7.9e-6 and 2 apart (all
+# eight).  The float32 control lands inside that spread (3.5e-6 to 6.5e-6
+# in max |u|): this comparison is coarse, the one below is the sharp one
+SWEEP_SMALL_TOL = dict(max_abs_u=1e-4, dist_u0=5e-3, dist_u_bc=1e-4,
+                       count=4)
+# the same ensemble with the M* CG to SWEEP_TIGHT_CG, where its stop no
+# longer decides the states: the JAX package's numbers
+# (tools/jax_sweep_reference.py --mstar-tol 1e-10) and the bounds.  The
+# card read them within 1.0e-10 (||u_i - u_0||; max |u| 1.3e-11, ||u_i -
+# u_bc|| 5.9e-12) and the counts 3 apart; the control, the step's nu-split
+# and mass applies in float32 as before the repair of elem_apply_multi,
+# lies 3.9e-8 to 3.5e-6 away (members 0, 1, 7; 2.0e-6 on member 1)
+# (tools/sweep_card_vs_cpu.py, tools/smoke_phases.py; NVIDIA H100 80GB
+# HBM3, 700 W).  SWEEP_CONTROL runs that control on one member and must
+# break the bound
+SWEEP_TIGHT_CG, SWEEP_CONTROL = 1e-10, 1
+SWEEP_TIGHT_JAX = [
+    dict(max_abs_u=10.037272450821524, dist_u0=0.0,
+         dist_u_bc=17.470756842713644, mstar=[367, 513],
+         project=[150, 149]),
+    dict(max_abs_u=9.702972368009185, dist_u0=0.6572977516222251,
+         dist_u_bc=17.043819062559653, mstar=[387, 546],
+         project=[150, 149]),
+    dict(max_abs_u=9.262472471052567, dist_u0=1.5184641960331637,
+         dist_u_bc=16.500692508376012, mstar=[414, 586],
+         project=[150, 149]),
+    dict(max_abs_u=8.692533295349513, dist_u0=2.6277438893753287,
+         dist_u_bc=15.834658029670496, mstar=[452, 643],
+         project=[149, 149]),
+    dict(max_abs_u=7.9722464484787094, dist_u0=4.027293327399635,
+         dist_u_bc=15.061582333956736, mstar=[486, 693],
+         project=[149, 148]),
+    dict(max_abs_u=7.089322344908918, dist_u0=5.74832800636092,
+         dist_u_bc=14.23984473443473, mstar=[518, 777],
+         project=[149, 148]),
+    dict(max_abs_u=6.047589867694507, dist_u0=7.801069465563427,
+         dist_u_bc=13.495268429771464, mstar=[585, 868],
+         project=[149, 148]),
+    dict(max_abs_u=4.874105926099992, dist_u0=10.165318712425485,
+         dist_u_bc=13.030731117560205, mstar=[638, 967],
+         project=[149, 148])]
+SWEEP_TIGHT_TOL = dict(max_abs_u=1e-9, dist_u0=1e-9, dist_u_bc=1e-9,
+                       count=6)
+# [ns-sweep]: scripts/run_ns_sweep.py's default subset (the 2D MCS model,
+# h = 2^-3..2^-1 x order 3, 2 x GS on / off, tol 1e-10): the JAX package's
+# count and Bramble-Pasciak k per (h, order, GS), on the CPU in f64
+# (tools/jax_sweep_reference.py --parts ns-sweep); the port solves with
+# that k and is held to the count by count_matches (MCS2D_PLATEAU)
+NS_SWEEP_TOL = 1e-10
+NS_SWEEP_JAX = {
+    (0.125, 3, True): (138, 14.443043112317604),
+    (0.125, 3, False): (167, 2.0864794575080667),
+    (0.125, 2, True): (133, 14.434535981319161),
+    (0.125, 2, False): (173, 2.789604529412123),
+    (0.25, 3, True): (152, 16.0003005158995),
+    (0.25, 3, False): (201, 3.3218083084411996),
+    (0.25, 2, True): (144, 15.994408900773562),
+    (0.25, 2, False): (210, 4.704076255748117),
+    (0.5, 3, True): (167, 17.46316570914815),
+    (0.5, 3, False): (283, 7.702861182173656),
+    (0.5, 2, True): (172, 19.18802715154167),
+    (0.5, 2, False): (289, 8.641780912446647)}
 # the edges of the split-k kernels' (5-7) and kernel 8's CTA stretches, as
 # the card tests (nblk, m, k, tile): stretches across tile boundaries, rows
 # * k not a multiple of 4 floats or 8 bf16 entries (ragged tails of up to 7
@@ -401,6 +542,58 @@ class Fail(Exception):
 def check(cond, msg):
     if not cond:
         raise Fail(msg)
+
+
+class carried_cell_bases:
+    """Within: every BDM_2 tetrahedron basis the port builds takes its
+    element-interior functions from ``path`` (the JAX package's host,
+    tools/jax_sweep_reference.py --parts bases).  They are an orthonormal
+    basis of the SVD null space of the face moments, which is six-
+    dimensional: another host's LAPACK may return another rotation of it,
+    and the dof vectors and Jacobi-preconditioned solves of a model would
+    differ from JAX's by that alone.  ``off_span``: how far the carried
+    functions lie from the port's own null space (must be roundoff);
+    ``apart``: how far they are from the port's own functions."""
+
+    def __init__(self, path):
+        import numpy as np
+
+        data = np.load(path)
+        self.order = int(data["order"])
+        self.table = {tuple(tuple(int(p) for p in f) for f in combo): cells
+                      for combo, cells in zip(data["combos"], data["cells"])}
+        self.combos, self.off_span, self.apart = 0, 0.0, 0.0
+
+    def __enter__(self):
+        import dataclasses
+
+        import numpy as np
+
+        from navier_stokes_tpu_torch.fem import hdiv3d
+
+        self.hdiv3d, own = hdiv3d, hdiv3d.bdm_tet
+        self.own = own
+
+        def carried(order, combo):
+            b = own(order, combo)
+            if order != self.order:
+                return b
+            cells = self.table[tuple(tuple(int(p) for p in f)
+                                     for f in combo)]
+            mine = b.coeffs[b.n_basis - b.n_cell:]  # orthonormal rows
+            off = cells - (cells @ mine.T) @ mine
+            self.off_span = max(self.off_span, float(np.abs(off).max()))
+            self.apart = max(self.apart, float(np.abs(cells - mine).max()))
+            self.combos += 1
+            return dataclasses.replace(b, coeffs=np.concatenate(
+                [b.coeffs[:b.n_basis - b.n_cell], cells]))
+
+        hdiv3d.bdm_tet = carried
+        return self
+
+    def __exit__(self, *exc):
+        self.hdiv3d.bdm_tet = self.own
+        return False
 
 
 # -- kernel checks --------------------------------------------------------------
@@ -2599,6 +2792,262 @@ def heat_phase(torch, bm, lm, timer, gen, reports, n_steps=HEAT_RUN):
     return secs, total
 
 
+def sweep_log(tag, log_, nus):
+    """One line per member of a ``run_reynolds_ensemble_mcs`` log: nu, the
+    M* and projection CG counts of each step, seconds per step."""
+    for i, nu in enumerate(nus):
+        rows = [r for r in log_ if r["member"] == i]
+        log(f"{tag} member {i} nu={nu:.6g}: M* CG "
+            f"{[r['mstar'] for r in rows]}, projection CG "
+            f"{[r['project'] for r in rows]}, "
+            + ", ".join(f"{r['seconds']:.3f}" for r in rows)
+            + " s per step")
+
+
+def sweep_against_jax(tag, out, log_, jax, u_bc, members):
+    """Each row of ``out`` (the members ``members``; row 0 member 0) held to
+    the JAX numbers ``jax`` (one dict per row): one log line per member and
+    the worst relative max |u|, ||u_i - u_0||, ||u_i - u_bc|| and, where
+    ``log_`` holds the CG counts, their largest distance."""
+    import torch
+
+    worst = dict.fromkeys(("max_abs_u", "dist_u0", "dist_u_bc", "count"),
+                          0)
+    for row, (i, jax_i) in enumerate(zip(members, jax)):
+        got = {"max_abs_u": float(out[row].abs().max()),
+               "dist_u0": float(torch.linalg.norm(out[row] - out[0])),
+               "dist_u_bc": float(torch.linalg.norm(out[row] - u_bc))}
+        for k, v in got.items():
+            if jax_i[k]:
+                worst[k] = max(worst[k], abs(v - jax_i[k]) / jax_i[k])
+        line = (f"{tag} member {i}: max |u| {got['max_abs_u']:.12f} (JAX "
+                f"{jax_i['max_abs_u']:.12f}), ||u_i - u_0|| "
+                f"{got['dist_u0']:.10e} (JAX {jax_i['dist_u0']:.10e}), "
+                f"||u_i - u_bc|| {got['dist_u_bc']:.10e} (JAX "
+                f"{jax_i['dist_u_bc']:.10e})")
+        if log_ is not None:
+            rows = [r for r in log_ if r["member"] == i]
+            counts = [r[k] for r in rows for k in ("mstar", "project")]
+            jcounts = [c for pair in zip(jax_i["mstar"], jax_i["project"])
+                       for c in pair]
+            worst["count"] = max(worst["count"], max(
+                abs(a - b) for a, b in zip(counts, jcounts)))
+            line += f"; CG {counts} (JAX {jcounts})"
+        log(line)
+    return worst
+
+
+def sweep_small(torch, sweep, build_model, nus):
+    """[sweep]'s ensemble on the straight channel at SWEEP_SMALL_MAXH, the
+    JAX host's element-interior functions carried in, held to the JAX
+    package's numbers at the step's own M* CG stop and at SWEEP_TIGHT_CG;
+    the float32 control must break the tight bound."""
+    tag = f"[sweep] maxh={SWEEP_SMALL_MAXH}"
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with carried_cell_bases(os.path.join(here, SWEEP_SMALL_BASES)) as cb:
+        ms = build_model(SWEEP_SMALL_MAXH, curved=False, device="cuda")
+    log(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, the "
+        f"JAX host's element-interior BDM_2 functions carried "
+        f"into {cb.combos} combos: off the port's own null space by "
+        f"{cb.off_span:.2e}, apart from the port's own functions by "
+        f"{cb.apart:.2e}")
+    check(cb.combos > 0 and cb.off_span <= 1e-12,
+          f"{tag} the carried functions leave the port's null space "
+          f"({cb.off_span:.2e})")
+    ms.load_state(cheb_bounds=SWEEP_SMALL_JAX["cheb_bounds"])
+    check(ms.n == SWEEP_SMALL_JAX["ndof"], f"{tag} {ms.n} dofs, JAX "
+          f"{SWEEP_SMALL_JAX['ndof']}")
+    runs = {}
+    for tol, jax, bounds in ((1e-4, SWEEP_SMALL_JAX["members"],
+                              SWEEP_SMALL_TOL),
+                             (SWEEP_TIGHT_CG, SWEEP_TIGHT_JAX,
+                              SWEEP_TIGHT_TOL)):
+        log_ = []
+        t1 = time.perf_counter()
+        out = sweep.run_reynolds_ensemble_mcs(ms, nus, SWEEP_STEPS,
+                                              log=log_, mstar_tol=tol)
+        torch.cuda.synchronize()
+        log(f"{tag} M* CG to {tol:g}: {ms.mesh.ne} tets, {ms.n} dofs; "
+            f"ensemble {time.perf_counter() - t1:.1f} s")
+        sweep_log(f"{tag} M* {tol:g}", log_, nus)
+        worst = sweep_against_jax(f"{tag} M* {tol:g}", out, log_, jax,
+                                  ms.u_bc, range(SWEEP_MEMBERS))
+        log(f"{tag} M* CG to {tol:g} against JAX: worst relative max |u| "
+            f"{worst['max_abs_u']:.2e}, ||u_i - u_0|| "
+            f"{worst['dist_u0']:.2e}, ||u_i - u_bc|| "
+            f"{worst['dist_u_bc']:.2e}; CG counts at most "
+            f"{worst['count']} apart (bounds {bounds})")
+        for k, bound in bounds.items():
+            check(worst[k] <= bound,
+                  f"{tag} M* {tol:g}: {k} {worst[k]:.3e} over {bound}")
+        runs[tol] = out
+    # the control: the step's nu-split and mass applies in float32 (the
+    # route of elem_apply_multi before its repair) must break the bound
+    from navier_stokes_tpu_torch.ops.faceblock import FaceBlockLayout
+
+    own = FaceBlockLayout.elem_apply_multi
+
+    def f32_multi(self, mats_and_scales):
+        apply = own(self, [(torch.as_tensor(A).float(), c)
+                           for A, c in mats_and_scales])
+        return lambda u: apply(u.float()).double()
+
+    i = SWEEP_CONTROL
+    FaceBlockLayout.elem_apply_multi = f32_multi
+    try:
+        step = sweep.make_viscosity_step_mcs(ms, SWEEP_TIGHT_CG)
+        ctl = sweep.advance_ensemble(ms, step, nus[i:i + 1], SWEEP_STEPS)
+    finally:
+        FaceBlockLayout.elem_apply_multi = own
+    rows = torch.cat([runs[SWEEP_TIGHT_CG][:1], ctl])
+    worst = sweep_against_jax(f"{tag} control", rows, None,
+                              [SWEEP_TIGHT_JAX[0], SWEEP_TIGHT_JAX[i]],
+                              ms.u_bc, (0, i))
+    off = max(worst[k] for k in ("max_abs_u", "dist_u0", "dist_u_bc"))
+    log(f"{tag} control (member {i}, the applies in float32, M* CG to "
+        f"{SWEEP_TIGHT_CG:g}): {off:.2e} from JAX, bound "
+        f"{SWEEP_TIGHT_TOL['max_abs_u']:g}")
+    check(off > SWEEP_TIGHT_TOL["max_abs_u"],
+          f"{tag} the float32 control stays within the bound ({off:.2e})")
+
+
+def sweep_phase(torch, bm, lm, timer, gen, reports, m, u_start):
+    """[sweep]: the Reynolds-number ensemble of ``parallel/sweep.py`` on the
+    curved f64 model ``m`` (maxh 0.09) from ``u_start``: kernel 8 on the
+    step's nu-split tables G1, G2, G3 and the mass M against its plain
+    version; ``run_reynolds_ensemble_mcs`` with SWEEP_MEMBERS viscosities
+    and SWEEP_STEPS steps, the launch counters set to 0 just before it and
+    read just after (kernel 8 in f64 must launch); every state finite, the
+    first and last members apart; the first and last members run alone
+    ``torch.equal`` to their rows; the member at the model's nu against
+    ``DoTimeStep``; the C++ meshkit kernels loaded.  Then the same ensemble
+    on the straight channel at SWEEP_SMALL_MAXH, built with the JAX host's
+    element-interior functions, held to the JAX package's numbers at the
+    step's own M* CG stop and with the M* CG to SWEEP_TIGHT_CG, where a
+    float32 control must break the bound.  ``m``'s state is put back.  Returns (seconds, launches of the
+    maxh 0.09 ensemble)."""
+    import numpy as np
+
+    from navier_stokes_tpu_torch.flagship import build_model
+    from navier_stokes_tpu_torch.parallel import sweep
+    from navier_stokes_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    tag = f"[sweep] maxh={MAXH}"
+    check(native.available(), "[sweep] the C++ meshkit kernels did not load")
+    nus = np.geomspace(1e-3, 1e-2, SWEEP_MEMBERS)
+    u_keep = m.u
+    m.u = u_start
+    t0 = time.perf_counter()
+    step = sweep.make_viscosity_step_mcs(m)
+    torch.cuda.synchronize()
+    log(f"{tag}: step setup {time.perf_counter() - t0:.1f} s (the nu-split "
+        f"tables in f64 numpy on the host, face-major, shipped); tables "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in step.tables.items()))
+    for tname, A in step.tables.items():
+        check_local_mv(torch, lm, timer,
+                       reports["batched_local_matvec_f64_sweep"],
+                       f"sweep {tname}", A, gen)
+
+    log_ = []
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep.run_reynolds_ensemble_mcs(m, nus, SWEEP_STEPS, log=log_)
+    torch.cuda.synchronize()
+    t_ens = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    n_steps = SWEEP_MEMBERS * SWEEP_STEPS
+    step_secs = sum(r["seconds"] for r in log_)
+    per_step = launches.get("batched_local_matvec_f64", 0) / n_steps
+    log(f"{tag} run_reynolds_ensemble_mcs: {SWEEP_MEMBERS} members x "
+        f"{SWEEP_STEPS} steps in {t_ens:.3f} s (setup {t_ens - step_secs:.1f}"
+        f" s, {step_secs / n_steps:.3f} s per member step); launches "
+        f"{launches} ({per_step:.1f} kernel-8 launches per member step)")
+    sweep_log(tag, log_, nus)
+    check(tuple(out.shape) == (SWEEP_MEMBERS, m.n) and out.is_cuda,
+          f"{tag} ensemble of shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{tag} non-finite states")
+    check(launches.get("batched_local_matvec_f64", 0) > 0,
+          f"{tag} kernel 8 never launched in the ensemble")
+    apart = float((out[0] - out[-1]).abs().max())
+    log(f"{tag} max |u_0 - u_{SWEEP_MEMBERS - 1}| = {apart:.3e}; max |u| "
+        + ", ".join(f"{float(r.abs().max()):.6f}" for r in out))
+    check(apart > 1e-8, f"{tag} the first and last members agree")
+    for i in (0, SWEEP_MEMBERS - 1):
+        alone = sweep.advance_ensemble(m, step, nus[i:i + 1], SWEEP_STEPS)
+        same = torch.equal(alone[0], out[i])
+        log(f"{tag} member {i} run alone: "
+            f"{'bitwise equal' if same else 'DIFFERENT'} to its row")
+        check(same, f"{tag} member {i} alone differs from its row")
+    u1 = step(u_start, m.nu)
+    m.DoTimeStep()
+    dts = float((u1 - m.u).abs().max() / m.u.abs().max())
+    log(f"{tag} one step at the model's nu against DoTimeStep: "
+        f"{dts:.3e} of max |u| (bound {SWEEP_DTS_TOL:g})")
+    m.u = u_keep
+    check(dts <= SWEEP_DTS_TOL, f"{tag} DoTimeStep differs by {dts:.3e}")
+    del step, out, alone, u1
+
+    sweep_small(torch, sweep, build_model, nus)
+    secs = time.perf_counter() - t_phase
+    log(f"[sweep] phase {secs:.1f} s")
+    return secs, launches
+
+
+def ns_sweep_phase(torch, bm, here):
+    """[ns-sweep]: the port's ``scripts/run_ns_sweep.py`` default subset
+    through its ``main`` (12 initial Stokes solves of the 2D MCS model with
+    its own Bramble-Pasciak k, the CSV under build/ns_sweep/), the launch
+    counters set to 0 just before it and read just after (kernel 8 in f64
+    must launch); then each configuration again through ``solve`` with the
+    JAX package's k, its count held to JAX's by :func:`count_matches`.
+    Returns (seconds, launches of ``main``)."""
+    from navier_stokes_tpu_torch.scripts import run_ns_sweep as ns
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(here, "build", "ns_sweep")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "data.csv")
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = ns.main(["--out", path])
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    log(f"[ns-sweep] run_ns_sweep.main: {len(rows)} solves in {t_main:.1f} s"
+        f" (CSV of {len(lines)} lines, header {lines[0]!r}); launches "
+        f"{launches}")
+    check(len(rows) == len(NS_SWEEP_JAX) and len(lines) == len(rows) + 1,
+          f"[ns-sweep] {len(rows)} rows, {len(lines)} CSV lines")
+    check(lines[0] == ",mesh_size,order,iterations,time,"
+          "gauss_seidel_enabled", f"[ns-sweep] CSV header {lines[0]!r}")
+    check(launches.get("batched_local_matvec_f64", 0) > 0,
+          "[ns-sweep] kernel 8 never launched")
+    cache = {}
+    for row in rows:
+        key = (row["mesh_size"], row["order"], row["gauss_seidel_enabled"])
+        n_jax, k_jax = NS_SWEEP_JAX[key]
+        res = []
+        n, secs = ns.solve(*key, cache, True, device="cuda", scale_k=k_jax,
+                           result=res)
+        ok, err = count_matches(res[0], n_jax, NS_SWEEP_TOL, MCS2D_PLATEAU)
+        log(f"[ns-sweep] h={key[0]} p={key[1]} GS={key[2]}: {n} with the "
+            f"JAX k {k_jax:.6g} (JAX {n_jax}), {secs:.3f} s; own k "
+            f"{row['iterations']} in {row['time']:.3f} s; errors at "
+            f"{n_jax - 2}..: " + ", ".join(f"{e:.3e}" for e in err))
+        check(bool(res[0].converged), f"[ns-sweep] {key} did not converge")
+        check(ok, f"[ns-sweep] {key}: {n} iterations with the JAX k, JAX "
+              f"{n_jax}")
+    secs = time.perf_counter() - t_phase
+    log(f"[ns-sweep] phase {secs:.1f} s")
+    return secs, launches
+
+
 def redesign_order(entries, reports):
     """The order in which the kernels are worth redesigning: first those
     slower than the one PyTorch call for the same function, by the factor;
@@ -2790,6 +3239,11 @@ def run():
         "batched_local_matvec_f64_heat": KernelReport(
             "batched_local_matvec_f64_heat", f"{PALLAS_LOCAL}:26",
             SRC_LOCAL, F64_FLOPS_PER_S),
+        # the Reynolds-number ensemble's tables ([sweep]): kernel 8 in f64
+        # on the nu-split tables G1, G2, G3 and the mass of the 3D step
+        "batched_local_matvec_f64_sweep": KernelReport(
+            "batched_local_matvec_f64_sweep", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -2942,6 +3396,10 @@ def run():
     # 12b. the repeatability of the f32 step (every scatter deterministic)
     t_repeat = repeat_phase(torch, m32, step32)
 
+    # 12c. the Reynolds-number ensemble on the curved f64 model
+    t_sweep, launches_sweep = sweep_phase(torch, bm, lm, timer, gen, reports,
+                                          m, m.u_bc + warm.x[0])
+
     # 13. the port's bench line on the models already built
     bench_line, t_bench = bench_phase(bench, m, m32, cold, warm, card)
 
@@ -2976,6 +3434,9 @@ def run():
                                              reports, here)
     t_heat, launches_heat = heat_phase(torch, bm, lm, timer, gen, reports)
 
+    # 19. the parameter-sweep harness run_ns_sweep
+    t_ns_sweep, _ = ns_sweep_phase(torch, bm, here)
+
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
               **{k: launches_k[k] for k in ("block_mv_splitk",
@@ -3001,16 +3462,18 @@ def run():
               "batched_local_matvec_f64_stokes":
                   launches_stokes.get("batched_local_matvec_f64", 0),
               "batched_local_matvec_f64_heat":
-                  launches_heat.get("batched_local_matvec_f64", 0)}
+                  launches_heat.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_f64_sweep":
+                  launches_sweep.get("batched_local_matvec_f64", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
     log(f"[time] phases: cuda-tests {t_cuda_tests:.1f} s, bpcg "
         f"{t_bpcg:.1f} s, bench {t_bench:.1f} s, repeat {t_repeat:.1f} s, "
         f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s, mcs2d "
-        f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s; new: stokes "
-        f"{t_stokes:.1f} s, heat {t_heat:.1f} s (together "
-        f"{t_stokes + t_heat:.1f} s); whole run "
+        f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s, stokes {t_stokes:.1f} s, "
+        f"heat {t_heat:.1f} s; new: sweep {t_sweep:.1f} s, ns-sweep "
+        f"{t_ns_sweep:.1f} s (together {t_sweep + t_ns_sweep:.1f} s); whole run "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)

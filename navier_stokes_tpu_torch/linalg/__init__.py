@@ -1,5 +1,5 @@
-from .lanczos import lanczos_eigenvalues
-from .pytree import tadd, taxpy, tdot, tscale, tsub, tzeros_like
+from .lanczos import condition_estimate, lanczos_eigenvalues
+from .pytree import tadd, taxpy, tdot, tmask, tnorm, tscale, tsub, tzeros_like
 
-__all__ = ["lanczos_eigenvalues", "tadd", "taxpy", "tdot", "tscale", "tsub",
-           "tzeros_like"]
+__all__ = ["condition_estimate", "lanczos_eigenvalues", "tadd", "taxpy",
+           "tdot", "tmask", "tnorm", "tscale", "tsub", "tzeros_like"]

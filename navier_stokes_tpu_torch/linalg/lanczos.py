@@ -2,7 +2,8 @@
 
 Counterpart of ``navier_stokes_tpu/linalg/lanczos.py``: Ritz values of
 pre @ A (equivalently of A in the pre^{-1} inner product) for the Chebyshev
-bounds of the transient step's mass inverse.
+bounds of the transient step's mass inverse, and the condition estimate of
+pre @ A built on them.
 
 Full reorthogonalization is essential: the plain three-term recurrence loses
 orthogonality once Ritz values converge and can report spurious (even
@@ -23,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lanczos_eigenvalues"]
+__all__ = ["lanczos_eigenvalues", "condition_estimate"]
 
 
 def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
@@ -81,3 +82,14 @@ def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
     T = np.diag(diag) + np.diag(offd[: m - 1], 1) + np.diag(offd[: m - 1], -1)
     return np.linalg.eigvalsh(T)
 
+
+def condition_estimate(A, pre, example_vec: torch.Tensor,
+                       iterations: int = 40,
+                       v0: torch.Tensor | None = None
+                       ) -> tuple[float, float, float]:
+    """(lambda_min, lambda_max, cond) of pre @ A from
+    :func:`lanczos_eigenvalues` (the same start vector: ``v0`` or the
+    port's seeded draw)."""
+    lams = lanczos_eigenvalues(A, pre, example_vec, iterations, v0)
+    lmin, lmax = float(lams.min()), float(lams.max())
+    return lmin, lmax, lmax / lmin

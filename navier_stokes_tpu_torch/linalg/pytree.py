@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tdot", "tadd", "tsub", "tscale", "taxpy", "tzeros_like"]
+__all__ = ["tdot", "tadd", "tsub", "tscale", "taxpy", "tzeros_like", "tnorm",
+           "tmask"]
 
 
 def _map(fn, *xs):
@@ -52,3 +53,14 @@ def taxpy(a, x, y):
 
 def tzeros_like(x):
     return _map(torch.zeros_like, x)
+
+
+def tnorm(x) -> torch.Tensor:
+    """sqrt(tdot(x, x)) as a 0-d device tensor."""
+    return torch.sqrt(tdot(x, x))
+
+
+def tmask(mask, x):
+    """Zero out the entries where ``mask`` is False (``mask`` of the same
+    structure as ``x``)."""
+    return _map(lambda m, v: torch.where(m, v, 0.0), mask, x)

@@ -1,9 +1,10 @@
 """Mesh generators for the reference benchmark geometries.
 
 The port's own copy of ``navier_stokes_tpu/mesh/generators.py``: the unit
-square, the channel rectangle and the lid-driven cavity, the 2D
-Schaefer-Turek channel with its cylinder (reference run.py:22-29), its
-extrusion to tets and ``channel_with_cylinder_mesh_3d`` (reference
+square, the channel rectangle and the lid-driven cavity, the unit cube
+(``unit_cube_mesh``), the 2D Schaefer-Turek channel with its cylinder
+(reference run.py:22-29), its extrusion to tets and
+``channel_with_cylinder_mesh_3d`` (reference
 templates/NavierStokesSIMPLE_test_3D.py:8-16), and the general polygon
 frontend ``polygon_mesh``.  Host-side numpy/scipy.
 """
@@ -130,6 +131,22 @@ def extrude_to_tets(mesh2d: Mesh, z_levels: np.ndarray) -> Mesh:
                 tets += [[b0, b1, b2, t1], [b0, t1, b2, t2], [b0, t1, t2, t0]]
     mesh = Mesh(pts, np.array(tets, dtype=np.int32))
     mesh.ensure_positive_orientation()
+    return mesh
+
+
+def unit_cube_mesh(maxh: float = 0.25) -> Mesh:
+    """Structured tet mesh of (0,1)^3 with netgen unit_cube boundary names:
+    left (x=0), right (x=1), front (y=0), back (y=1), bottom (z=0), top (z=1)."""
+    sq = unit_square_mesh(maxh)
+    n = max(1, round(1.0 / maxh))
+    mesh = extrude_to_tets(sq, np.linspace(0.0, 1.0, n + 1))
+    for name, axis, val in [
+        ("left", 0, 0.0), ("right", 0, 1.0), ("front", 1, 0.0),
+        ("back", 1, 1.0), ("bottom", 2, 0.0), ("top", 2, 1.0),
+    ]:
+        mesh.tag_boundary_by_predicate(
+            name, lambda p, a=axis, v=val: np.abs(p[:, :, a] - v) < _TOL
+        )
     return mesh
 
 

@@ -230,15 +230,33 @@ class FaceBlockLayout:
         return out
 
     def elem_apply_multi(self, mats_and_scales):
-        """y = sum_k c_k * (A_k u) sharing one gather/scatter round trip,
-        each term a :func:`block_mv` of an f32 table (numpy or tensor)."""
-        tabs = [(self.pack_elem_tables([A])[0], c)
-                for A, c in mats_and_scales]
+        """y = sum_k c_k * (A_k u) sharing one gather/scatter round trip, in
+        the tables' dtype, as the JAX package's einsums: float64 tables
+        (numpy or tensor) each through :func:`batched_local_matvec` in
+        float64 (kernel 8), any other each through :func:`block_mv` of its
+        f32 device copy (kernel 1).  A scale ``c_k`` is None, a Python
+        float or a 0-d tensor (never read on the host)."""
+        kinds = {A.dtype in (np.float64, torch.float64)
+                 for A, _ in mats_and_scales}
+        if len(kinds) != 1:
+            raise ValueError("elem_apply_multi: no tables, or float64 "
+                             "tables mixed with other dtypes")
+        f64 = kinds.pop()
+        if f64:
+            tabs = [(torch.as_tensor(A, device=self.device).to(
+                torch.float64).contiguous(), c) for A, c in mats_and_scales]
+            product = batched_local_matvec
+        else:
+            tabs = [(self.pack_elem_tables([A])[0], c)
+                    for A, c in mats_and_scales]
+            product = block_mv
 
         def kernel(ue):
+            if f64:
+                ue = ue.to(torch.float64)
             ye = None
             for A, c in tabs:
-                t = block_mv(A, ue)
+                t = product(A, ue)
                 t = t if c is None else c * t
                 ye = t if ye is None else ye + t
             return ye

@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..ops.assembly import ScatterPlan, assemble_csr
 from ..ops.block_mv import make_table_apply
 from ..ops.local_mv import batched_local_matvec
+from ..utils import native
 
 __all__ = ["jacobi", "block_jacobi", "block_jacobi_inverses",
            "block_inverses", "padded_blocks", "extract_blocks_from_local",
@@ -169,7 +170,12 @@ def extract_blocks_from_local(a_local: np.ndarray, eldofs: np.ndarray,
                               blocks: list[np.ndarray],
                               ndof: int) -> tuple[np.ndarray, np.ndarray]:
     """Host-side: padded (dofs, dense block) pairs for :func:`block_jacobi`
-    by restricting the globally assembled operator to each dof block."""
+    by restricting the globally assembled operator to each dof block.
+
+    Uses the C++ meshkit kernel when available, as the JAX package does
+    (``utils/native.py``), the numpy route :func:`extract_blocks_csr`
+    otherwise; tools/meshkit_setup_ab.py times the two inside real
+    setups."""
     A = assemble_csr(a_local, eldofs, ndof)
     dofs = padded_blocks(blocks)
-    return dofs, extract_blocks_csr(A, dofs)
+    return dofs, native.extract_blocks_csr(A, dofs)

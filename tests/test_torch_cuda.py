@@ -823,3 +823,91 @@ def test_catalog_models_on_card_match_cpu(which):
         got = fg(xg).cpu().numpy()
         assert np.linalg.norm(got - want) <= 1e-11 * np.linalg.norm(want)
     assert bm.LAUNCHES["batched_local_matvec_f64"] > 0
+
+
+def _plates_mcs(device):
+    """The 24-tet plates of tests/test_navier_stokes_mcs3d.py as a 3D MCS
+    model on ``device`` (nu = 1e-3)."""
+    from navier_stokes_tpu_torch.mesh.generators import (
+        extrude_to_tets,
+        rectangle_mesh,
+    )
+    from navier_stokes_tpu_torch.models import NavierStokesMCS
+
+    mesh = extrude_to_tets(rectangle_mesh(0.5, 1.0, 1.0),
+                           np.linspace(0, 0.5, 2))
+    mesh.tag_boundary_by_predicate(
+        "outlet", lambda p: np.abs(p[:, :, 0] - 1.0) < 1e-9)
+    rest = np.setdiff1d(mesh.boundary_facets, mesh.boundary_tags["outlet"])
+    mesh.boundary_tags["diri"] = rest.astype(np.int32)
+
+    def uin(p):
+        out = np.zeros((len(p), 3))
+        out[:, 0] = p[:, 1] * (1.0 - p[:, 1])
+        return out
+
+    return NavierStokesMCS(mesh, nu=1e-3, inflow="diri", outflow="outlet",
+                           wall="", uin=uin, timestep=1e-3, order=2,
+                           device=device)
+
+
+@pytest.mark.cuda
+def test_elem_apply_multi_f64_route_on_card():
+    """On the card: ``FaceBlockLayout.elem_apply_multi`` on float64 tables
+    launches ``batched_local_matvec_f64`` once per table and matches the
+    plain float64 products within 1e-13 of sum |c a u|; float32 tables
+    still go through ``block_mv``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    m = _plates_mcs("cuda")
+    lay = m.fb
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tabs = [torch.randn((lay.ne, lay.nb, lay.nb), generator=gen,
+                        device="cuda", dtype=torch.float64)
+            for _ in range(3)]
+    u = torch.randn(m.n, generator=gen, device="cuda", dtype=torch.float64)
+    c = torch.tensor(0.37, dtype=torch.float64, device="cuda")
+    scales = (2.5, 1.0, c)
+    bm.reset_launches()
+    y = lay.elem_apply_multi([(tabs[0], 2.5), (tabs[1], None),
+                              (tabs[2], c)])(u)
+    assert bm.LAUNCHES["batched_local_matvec_f64"] == 3
+    assert y.dtype == torch.float64
+    ue = lay.gather_elem(*lay.split(u))
+    ye = sum(s * torch.einsum("eij,ej->ei", A, ue)
+             for A, s in zip(tabs, scales))
+    ye_abs = sum(abs(float(s)) * torch.einsum("eij,ej->ei", A.abs(),
+                                              ue.abs())
+                 for A, s in zip(tabs, scales))
+    want = lay.join(*lay.scatter_elem(ye))
+    scale = lay.join(*lay.scatter_elem(ye_abs))
+    assert float(((y - want).abs() / scale.clamp_min(1e-300)).max()) <= 1e-13
+    bm.reset_launches()
+    lay.elem_apply_multi([(tabs[0].float(), None)])(u.float())
+    assert bm.LAUNCHES["block_mv"] == 1
+    assert bm.LAUNCHES["batched_local_matvec_f64"] == 0
+
+
+@pytest.mark.cuda
+def test_reynolds_ensemble_on_card_matches_cpu():
+    """On the card: the 3D MCS ensemble (``run_reynolds_ensemble_mcs``, 3
+    viscosities, 2 steps) on the plates against the same on the CPU within
+    1e-8 relative per member, kernel 8 (f64) launched; a member run alone
+    equals its row bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from navier_stokes_tpu_torch.parallel import sweep
+
+    mc, mg = _plates_mcs("cpu"), _plates_mcs("cuda")
+    mc.load_state(cheb_bounds=mg._mass_chebyshev().bounds)
+    nus = [1e-3, 3e-3, 1e-2]
+    want = sweep.run_reynolds_ensemble_mcs(mc, nus, 2)
+    bm.reset_launches()
+    got = sweep.run_reynolds_ensemble_mcs(mg, nus, 2)
+    assert bm.LAUNCHES["batched_local_matvec_f64"] > 0
+    assert got.is_cuda and got.shape == (3, mg.n)
+    for i in range(3):
+        w, g = want[i].numpy(), got[i].cpu().numpy()
+        assert np.linalg.norm(g - w) <= 1e-8 * np.linalg.norm(w), i
+    alone = sweep.run_reynolds_ensemble_mcs(mg, nus[2:], 2)
+    assert torch.equal(alone[0], got[2])

@@ -3,13 +3,18 @@
 Builds the kernels, prints the card's name and power limit, then runs the
 phases named by ``--phases`` (in that order) with chip_smoke.py's own
 phase functions and checks: ``cuda-tests`` (the card-only tests),
-``stokes`` (the Stokes catalog: ``[stokes]``) and ``heat`` (the heat model:
+``stokes`` (the Stokes catalog: ``[stokes]``), ``heat`` (the heat model:
 ``[heat]``, with ``--heat-steps`` time steps of the convergence study:
-chip_smoke.py runs 3, this tool can run all 5).  Prints the kernels' JSON
-entries of the phases run.  Exits 1 when a phase fails.
+chip_smoke.py runs 3, this tool can run all 5), ``sweep`` (the
+Reynolds-number ensemble: ``[sweep]`` on the curved f64 model at maxh 0.09,
+built here, from u = u_bc where chip_smoke.py starts from the flagship
+solution) and ``ns-sweep`` (the parameter-sweep harness:
+``[ns-sweep]``).  Prints the kernels' JSON entries of the phases run.
+Exits 1 when a phase fails.
 
     python3 tools/smoke_phases.py [--phases cuda-tests,stokes,heat]
         [--heat-steps 5]
+    python3 tools/smoke_phases.py --phases sweep,ns-sweep
 """
 
 import argparse
@@ -54,7 +59,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     names = {"stokes": "batched_local_matvec_f64_stokes",
-             "heat": "batched_local_matvec_f64_heat"}
+             "heat": "batched_local_matvec_f64_heat",
+             "sweep": "batched_local_matvec_f64_sweep"}
     reports = {n: cs.KernelReport(n, f"{cs.PALLAS_LOCAL}:26", cs.SRC_LOCAL,
                                   cs.F64_FLOPS_PER_S)
                for n in names.values()}
@@ -71,6 +77,21 @@ def main(argv=None) -> int:
                 n = args.heat_steps or cs.HEAT_RUN
                 secs, launches = cs.heat_phase(torch, bm, lm, timer, gen,
                                                reports, n_steps=n)
+            elif phase == "sweep":
+                from navier_stokes_tpu_torch.flagship import build_model
+
+                t0 = time.perf_counter()
+                m = build_model(cs.MAXH, order=cs.ORDER, nu=cs.NU,
+                                device="cuda")
+                cs.log(f"[sweep] curved model at maxh {cs.MAXH}: "
+                       f"{time.perf_counter() - t0:.1f} s")
+                secs, launches = cs.sweep_phase(torch, bm, lm, timer, gen,
+                                                reports, m, m.u_bc)
+                del m
+            elif phase == "ns-sweep":
+                secs, _ = cs.ns_sweep_phase(torch, bm, ROOT)
+                cs.log(f"[time] {phase} {secs:.1f} s")
+                continue
             else:
                 raise ValueError(f"unknown phase {phase!r}")
             rep = reports[names[phase]]
