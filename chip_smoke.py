@@ -78,7 +78,8 @@ phases; any failed phase ends the run with a non-zero exit:
     (every scatter of the port is a deterministic ``ScatterPlan``); then
     sweep: the Reynolds-number ensemble of ``parallel/sweep.py`` (the JAX
     package's BASELINE config 5) on the curved f64 model from the
-    flagship solution, 8 viscosities geomspace(1e-3, 1e-2) x 2 steps
+    flagship solution, 2 viscosities (members 0 and 4 of geomspace(1e-3,
+    1e-2, 8); all 8 through PR 16) x 2 steps
     through ``run_reynolds_ensemble_mcs`` with the counters set to 0 just
     before it (kernel 8 in f64 must launch; it is also checked on the
     step's nu-split tables G1, G2, G3 and the mass): every state finite,
@@ -125,7 +126,8 @@ phases; any failed phase ends the run with a non-zero exit:
     kernel 8 on its f64 element and vertex-star tables against the plain
     version; ``SolveInitial(tol=1e-8)`` (BPCG iterations, seconds, launches
     per iteration, true f64 residual <= 1.01e-8); ``Project`` (||B u|| <
-    1e-7); two steps from the same state bitwise equal; 3 ``DoTimeStep``s
+    1e-7); two steps from the same state bitwise equal; 1 ``DoTimeStep``
+    (3 through PR 16)
     (finite, steps/s, CG counts, launches per step); an f32 twin whose
     kernel-8 and kernel-1 tables are checked the same way, and
     ``solve_initial_refined`` on the pair (its guard: a finite result
@@ -140,11 +142,12 @@ phases; any failed phase ends the run with a non-zero exit:
     package's Bramble-Pasciak k (its count held to the JAX CPU count of
     ``tools/jax_bpcg_reference_2d.py`` by ``count_matches``) and with its
     own, the true f64 residual; two f64 steps from one state bitwise equal
-    (``[repeat]``); 20 ``DoTimeStep``s (steps/s, CG counts); then the same
+    (``[repeat]``); 5 ``DoTimeStep``s (20 through PR 16; steps/s, CG
+    counts); then the same
     at maxh=0.01 (17,002 triangles, 179,951 + 51,006 dofs; JAX 662).
     The Taylor-Hood ``NavierStokes`` at maxh=0.05: kernel 8 on its viscous,
     mass and patch-inverse tables, ``SolveInitial`` with the JAX k (count
-    held the same way), 20 steps.  Kernel 8 must launch in each solve and
+    held the same way), 5 steps.  Kernel 8 must launch in each solve and
     each run of steps; the counters are set to 0 just before each solve
     and before each run of steps;
 18. stokes, heat: the Stokes catalog and the heat model.  ``[stokes]``:
@@ -167,9 +170,10 @@ phases; any failed phase ends the run with a non-zero exit:
     MINRES to 1e-8, which stops at its 50,000 cap in both packages: held to
     the cap and to JAX's final error and distance from the direct solution
     within 10%).  ``[heat]``: ``HeatEquation`` at the reference's literals
-    (maxh 0.1, order 10: 200 triangles, 10,201 dofs), the first three time
-    steps of the study (8 large steps; tools/smoke_phases.py runs all
-    five), each L2 error held to JAX's within 1e-10 of the solution's L2
+    (maxh 0.1, order 10: 200 triangles, 10,201 dofs), the first two time
+    steps of the study (3 large steps; three through PR 16;
+    tools/smoke_phases.py runs all five), each L2 error held to JAX's
+    within 1e-10 of the solution's L2
     norm, the CG count of every solve and the seconds per step.  Kernel 8 is checked on every new table (HDG, mixed, MCS element
     tables, the edgeblock inverses, heat's mass and stiffness) and must
     launch in each solve; the counters are set to 0 just before each.
@@ -181,6 +185,21 @@ phases; any failed phase ends the run with a non-zero exit:
     ``solve`` with the JAX package's Bramble-Pasciak k, its count held to
     JAX's by ``count_matches`` (tools/jax_sweep_reference.py), the count
     with the port's own k printed beside it.
+20. shard (run after sweep): the sharded solves of ``parallel/`` on
+    torch.distributed.  World size 1: NCCL with one rank in this process
+    on an in-memory store, the main path's model sharded with bench.py's
+    tables (kernels 1, 2 and 8 held to their plain versions on the
+    shard's tables), ``sharded_fast_flagship_solve`` with bench.py's inner
+    settings to a true f64 residual <= 1e-8, its inner count within the
+    JAX rule max(10, 0.1 n) of the single-device 358, the launch counters
+    set to 0 just before and read after; world size 2: two gloo ranks on
+    the one card (the port stages each collective through host memory),
+    the face-sharded solve at maxh 0.35 with the JAX package's sharded
+    tables and the dd solve of the 2D vertexstar model at maxh 0.3, each
+    held to the JAX package's count at 2 shards
+    (tools/jax_faceshard_reference.py); setup and solve seconds, inner
+    iterations, passes, halo against owned face rows and collective calls
+    per inner iteration printed.
 
 The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
@@ -256,7 +275,7 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
-CUDA_TEST_CASES = 40  # 25 tests, 40 cases with their parameters
+CUDA_TEST_CASES = 42  # 26 tests, 42 cases with their parameters
 # [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
 # curved model at maxh=0.09, and the two faceblock variants on the shortened
 # channel of tests/test_navier_stokes_mcs3d.py:_channel3d
@@ -291,13 +310,16 @@ BPCG_SMALL_JAX = {False: (931, 213.54712387600733),
 BPCG_SMALL_BAND = 0.02
 # [hdg3d]: NavierStokesHDG3D at the demo's configuration (the reference's
 # NavierStokesSIMPLE_test_3D.py through scripts/navier_stokes_3d.py --hdg)
-HDG_MAXH, HDG_MAXSTEPS = 0.09, 20000
+# (HDG_STEPS DoTimeSteps: 3 through PR 16, cut to 1 to make room for
+# [shard])
+HDG_MAXH, HDG_MAXSTEPS, HDG_STEPS = 0.09, 20000, 1
 # [mcs2d] / [th2d]: the 2D demo (the reference's NavierStokesSIMPLE_test.py
 # through scripts/navier_stokes_2d.py): the channel with cylinder at
 # maxh 0.05 (762 triangles), order 2, nu 1e-3, dt 1e-3, the auxspace GS
-# A-preconditioner, SolveInitial to 1e-10, then 20 f64 steps; the MCS
-# model again at maxh 0.01 (17,002 triangles)
-MCS2D_MAXH, MCS2D_FINE, MCS2D_TOL, MCS2D_STEPS = 0.05, 0.01, 1e-10, 20
+# A-preconditioner, SolveInitial to 1e-10, then MCS2D_STEPS f64 steps
+# (20 through PR 16, cut to make room for [shard]); the MCS model again at
+# maxh 0.01 (17,002 triangles)
+MCS2D_MAXH, MCS2D_FINE, MCS2D_TOL, MCS2D_STEPS = 0.05, 0.01, 1e-10, 5
 # the JAX package's MCS count and Bramble-Pasciak k there, on the CPU in
 # f64 (tools/jax_bpcg_reference_2d.py; 172 with one BLAS thread and with
 # eight; the port on the CPU with that k: 172).  The port solves with that
@@ -364,7 +386,8 @@ MCS_MAXSTEPS, MCS_BAND = 50000, 0.10
 # HeatEquation(maxh 0.1, order 10, 10 Gauss stages, subspace 5, CG to
 # 1e-13): the L2 errors of the first five time steps of the study (end
 # time 0.05) on the CPU in f64.  [heat] runs the first HEAT_RUN of them
-# (8 large steps, 101,000 CG iterations): the inner CG is host-bound on
+# (3 large steps, about 40,000 CG iterations; 3 of them, 8 large steps,
+# through PR 16, cut to make room for [shard]): the inner CG is host-bound on
 # the card (one host read and about 27 launches per iteration: 0.36-0.43
 # ms on one host, 0.49-0.62 on another), so that the five took 170.8 s
 # and the fourth's 16 steps alone 72.5 s; `python3 tools/smoke_phases.py
@@ -381,14 +404,17 @@ HEAT_STEPS = (0.1, 0.03162277660168379, 0.01, 0.0031622776601683794, 0.001)
 HEAT_JAX = (0.004531476446483092, 0.00017125506665474163,
             1.2568817807744234e-05, 1.1420201716659314e-07,
             1.121995294735825e-08)
-HEAT_TOL, HEAT_RUN = 1e-10, 3
+HEAT_TOL, HEAT_RUN = 1e-10, 2
 # [sweep]: the 3D MCS Reynolds-number ensemble (parallel/sweep.py, the JAX
 # package's BASELINE config 5) on the curved f64 model at maxh 0.09: one
 # member per viscosity of geomspace(1e-3, 1e-2, SWEEP_MEMBERS), SWEEP_STEPS
 # fused steps each, from the flagship solution; the member at the model's
 # nu held to DoTimeStep within SWEEP_DTS_TOL of max |u| (the JAX test's
-# bound, tests/test_sweep_checkpoint.py)
+# bound, tests/test_sweep_checkpoint.py).  The run takes every
+# SWEEP_EVERY-th member (0 and 4 of the 8: the cut that makes room for
+# [shard]; all 8 through PR 16)
 SWEEP_MEMBERS, SWEEP_STEPS, SWEEP_DTS_TOL = 8, 2, 1e-6
+SWEEP_EVERY = 4
 # the same ensemble on the straight channel of that JAX test at maxh 0.35
 # (order 2, dt 2e-3) from u = u_bc, with the JAX model's Chebyshev bounds
 # and the JAX host's element-interior BDM_2 functions
@@ -484,6 +510,36 @@ SWEEP_TIGHT_TOL = dict(max_abs_u=1e-9, dist_u0=1e-9, dist_u_bc=1e-9,
 # count and Bramble-Pasciak k per (h, order, GS), on the CPU in f64
 # (tools/jax_sweep_reference.py --parts ns-sweep); the port solves with
 # that k and is held to the count by count_matches (MCS2D_PLATEAU)
+# [shard]: the sharded solves of parallel/ (faceshard.py, ddshard.py) on
+# torch.distributed.  World size 1: NCCL, one rank in this process on an
+# in-memory store, the main path's model at MAXH with bench.py's table
+# settings and inner settings (the first pass's inner tol 5e-7, 800
+# iterations per pass; the 2-phase driver), to a true f64 residual <= TOL,
+# its inner count held to the single-device flagship solve's 358 by the JAX
+# package's rule |d| <= max(10, 0.1 n) (tests/test_faceshard.py).  World
+# size 2: two gloo ranks on the one card (NCCL refuses two ranks on one
+# GPU; the port stages each collective's CUDA tensors through host memory
+# itself), the JAX package's sharded tables (f32, coarse target 0.9, as
+# computed) at SHARD_SMALL_MAXH, MULTICHIP_r05's size, with the JAX host's
+# element-interior functions (SWEEP_SMALL_BASES), at the settings of the
+# JAX package's sharded parity test (SHARD_SMALL_KW, tests/
+# test_faceshard.py: the 2-phase solve to 1e-8 took 125 s of staged
+# exchanges on one host, 908 inner against JAX's 932), and the dd solve of
+# the 2D vertexstar model at SHARD_DD_MAXH with the JAX package's k, each
+# held to the JAX package's count at 2 shards
+# (tools/jax_faceshard_reference.py on the CPU, runs card and dd: the face
+# solve by the same rule, the dd solve within 3)
+SHARD_MAIN_INNER = 358
+SHARD_INNER = dict(inner_tol=5e-7, inner_maxsteps=800)
+SHARD_BENCH_TABLES = dict(symmetrize=True, coarse_target=1.6)
+SHARD_SMALL_MAXH, SHARD_DD_MAXH, SHARD_RANKS = 0.35, 0.3, 2
+SHARD_SMALL_KW = dict(tol=1e-6, inner_tol=5e-7, inner_maxsteps=800,
+                      two_phase=False)
+SHARD_JAX = dict(
+    face=dict(inner=628, passes=2, rel=2.6284053809188047e-08,
+              halo_rows=(2377, 530), own_rows=(3744, 3214)),
+    dd=dict(iterations=311, scale_k=35.6798441458756, tol=1e-9))
+SHARD_DD_DIFF = 1e-6  # velocity against the single-device SolveInitial
 NS_SWEEP_TOL = 1e-10
 NS_SWEEP_JAX = {
     (0.125, 3, True): (138, 14.443043112317604),
@@ -2044,7 +2100,8 @@ def hdg3d_phase(torch, bm, lm, timer, gen, reports):
     vertex-star inverses) against its plain version; ``SolveInitial(tol=
     1e-8)`` (iterations, seconds, true f64 residual <= 1.01e-8);
     ``Project`` (||B u|| < 1e-7); two steps from the same state bitwise
-    equal ([repeat]); 3 ``DoTimeStep``s (finite; steps/s, CG counts);
+    equal ([repeat]); HDG_STEPS ``DoTimeStep``s (finite; steps/s, CG
+    counts);
     then an f32 twin, kernel 8 (f32) and kernel 1 on its tables, and
     ``solve_initial_refined`` (the guard: a finite result whose residual
     is below the start's).  Launches per BPCG iteration and per step.
@@ -2140,7 +2197,7 @@ def hdg3d_phase(torch, bm, lm, timer, gen, reports):
     bm.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(HDG_STEPS):
         m.DoTimeStep()
         counts.append(dict(m.last_iterations))
     torch.cuda.synchronize()
@@ -2149,10 +2206,11 @@ def hdg3d_phase(torch, bm, lm, timer, gen, reports):
     path_launches = {k: solve_launches.get(k, 0) + step_launches.get(k, 0)
                      for k in set(solve_launches) | set(step_launches)}
     finite = bool(torch.isfinite(m.u).all())
-    log(f"[hdg3d] 3 DoTimeSteps in {t_steps:.3f} s ({3 / t_steps:.3f} "
-        f"steps/s), CG counts {counts}, max |u| {float(m.u.abs().max()):.4f}"
-        f", ||B u|| {float(torch.linalg.norm(m.B_raw(m.u))):.3e}; launches "
-        f"per step {dict((k, v / 3) for k, v in step_launches.items() if v)}")
+    log(f"[hdg3d] {HDG_STEPS} DoTimeSteps in {t_steps:.3f} s "
+        f"({HDG_STEPS / t_steps:.3f} steps/s), CG counts {counts}, max |u| "
+        f"{float(m.u.abs().max()):.4f}, ||B u|| "
+        f"{float(torch.linalg.norm(m.B_raw(m.u))):.3e}; launches per step "
+        + str({k: v / HDG_STEPS for k, v in step_launches.items() if v}))
     check(finite, "[hdg3d] the steps blew up")
     check(max(c["project"] for c in counts) < 2000
           and max(c["mstar"] for c in counts) < 2000,
@@ -2266,7 +2324,7 @@ def mcs2d_phase(torch, bm, lm, timer, gen, reports):
     its plain version; ``SolveInitial(iterative=True, GS=True, tol=1e-10)``
     with the JAX package's k (its count held to ``MCS2D_JAX`` by
     :func:`count_matches`) and with its own; the true f64 residual;
-    [repeat]: two f64 steps from the same state bitwise equal; 20
+    [repeat]: two f64 steps from the same state bitwise equal; MCS2D_STEPS
     ``DoTimeStep``s.  The launch counters are set to 0 just before the
     solve and read after the steps (kernel 8 must launch in both).  Then
     the same at ``MCS2D_FINE`` (its count held to JAX's there too).
@@ -2382,7 +2440,7 @@ def th2d_phase(torch, bm, lm, timer, gen, reports):
     tables and the velocity two-level patch inverses against its plain
     version; ``SolveInitial(iterative=True, tol=1e-10)`` with the JAX
     package's k (count ``TH2D_JAX``, by :func:`count_matches`) and true f64
-    residual; 20 ``DoTimeStep``s.  Returns (seconds, launches)."""
+    residual; MCS2D_STEPS ``DoTimeStep``s.  Returns (seconds, launches)."""
     from navier_stokes_tpu_torch.mesh.generators import (
         channel_with_cylinder_mesh,
     )
@@ -2863,6 +2921,7 @@ def sweep_small(torch, sweep, build_model, nus):
                               SWEEP_SMALL_TOL),
                              (SWEEP_TIGHT_CG, SWEEP_TIGHT_JAX,
                               SWEEP_TIGHT_TOL)):
+        jax = jax[::SWEEP_EVERY]  # the JAX rows of the members run
         log_ = []
         t1 = time.perf_counter()
         out = sweep.run_reynolds_ensemble_mcs(ms, nus, SWEEP_STEPS,
@@ -2872,7 +2931,7 @@ def sweep_small(torch, sweep, build_model, nus):
             f"ensemble {time.perf_counter() - t1:.1f} s")
         sweep_log(f"{tag} M* {tol:g}", log_, nus)
         worst = sweep_against_jax(f"{tag} M* {tol:g}", out, log_, jax,
-                                  ms.u_bc, range(SWEEP_MEMBERS))
+                                  ms.u_bc, range(len(nus)))
         log(f"{tag} M* CG to {tol:g} against JAX: worst relative max |u| "
             f"{worst['max_abs_u']:.2e}, ||u_i - u_0|| "
             f"{worst['dist_u0']:.2e}, ||u_i - u_bc|| "
@@ -2902,7 +2961,8 @@ def sweep_small(torch, sweep, build_model, nus):
         FaceBlockLayout.elem_apply_multi = own
     rows = torch.cat([runs[SWEEP_TIGHT_CG][:1], ctl])
     worst = sweep_against_jax(f"{tag} control", rows, None,
-                              [SWEEP_TIGHT_JAX[0], SWEEP_TIGHT_JAX[i]],
+                              [SWEEP_TIGHT_JAX[0],
+                               SWEEP_TIGHT_JAX[SWEEP_EVERY * i]],
                               ms.u_bc, (0, i))
     off = max(worst[k] for k in ("max_abs_u", "dist_u0", "dist_u_bc"))
     log(f"{tag} control (member {i}, the applies in float32, M* CG to "
@@ -2936,7 +2996,8 @@ def sweep_phase(torch, bm, lm, timer, gen, reports, m, u_start):
     t_phase = time.perf_counter()
     tag = f"[sweep] maxh={MAXH}"
     check(native.available(), "[sweep] the C++ meshkit kernels did not load")
-    nus = np.geomspace(1e-3, 1e-2, SWEEP_MEMBERS)
+    nus = np.geomspace(1e-3, 1e-2, SWEEP_MEMBERS)[::SWEEP_EVERY]
+    n_mem = len(nus)
     u_keep = m.u
     m.u = u_start
     t0 = time.perf_counter()
@@ -2958,24 +3019,24 @@ def sweep_phase(torch, bm, lm, timer, gen, reports, m, u_start):
     torch.cuda.synchronize()
     t_ens = time.perf_counter() - t0
     launches = dict(bm.LAUNCHES)
-    n_steps = SWEEP_MEMBERS * SWEEP_STEPS
+    n_steps = n_mem * SWEEP_STEPS
     step_secs = sum(r["seconds"] for r in log_)
     per_step = launches.get("batched_local_matvec_f64", 0) / n_steps
-    log(f"{tag} run_reynolds_ensemble_mcs: {SWEEP_MEMBERS} members x "
+    log(f"{tag} run_reynolds_ensemble_mcs: {n_mem} members x "
         f"{SWEEP_STEPS} steps in {t_ens:.3f} s (setup {t_ens - step_secs:.1f}"
         f" s, {step_secs / n_steps:.3f} s per member step); launches "
         f"{launches} ({per_step:.1f} kernel-8 launches per member step)")
     sweep_log(tag, log_, nus)
-    check(tuple(out.shape) == (SWEEP_MEMBERS, m.n) and out.is_cuda,
+    check(tuple(out.shape) == (n_mem, m.n) and out.is_cuda,
           f"{tag} ensemble of shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), f"{tag} non-finite states")
     check(launches.get("batched_local_matvec_f64", 0) > 0,
           f"{tag} kernel 8 never launched in the ensemble")
     apart = float((out[0] - out[-1]).abs().max())
-    log(f"{tag} max |u_0 - u_{SWEEP_MEMBERS - 1}| = {apart:.3e}; max |u| "
+    log(f"{tag} max |u_0 - u_{n_mem - 1}| = {apart:.3e}; max |u| "
         + ", ".join(f"{float(r.abs().max()):.6f}" for r in out))
     check(apart > 1e-8, f"{tag} the first and last members agree")
-    for i in (0, SWEEP_MEMBERS - 1):
+    for i in (0, n_mem - 1):
         alone = sweep.advance_ensemble(m, step, nus[i:i + 1], SWEEP_STEPS)
         same = torch.equal(alone[0], out[i])
         log(f"{tag} member {i} run alone: "
@@ -3045,6 +3106,233 @@ def ns_sweep_phase(torch, bm, here):
               f"{n_jax}")
     secs = time.perf_counter() - t_phase
     log(f"[ns-sweep] phase {secs:.1f} s")
+    return secs, launches
+
+
+def shard_true_rel(torch, m, u, p):
+    """The true relative residual of the 3D MCS model's initial Stokes
+    system at the correction (u, p), through its plain f64 operators."""
+    f = torch.where(m.free, m.f - m.A_raw(m.u_bc), 0.0)
+    g = -m.B_raw(m.u_bc)
+    r0 = f - m.A(u) - m.BT(p)
+    r1 = g - m.B(u)
+    return float(torch.sqrt(torch.dot(r0, r0) + torch.dot(r1, r1))
+                 / torch.sqrt(torch.dot(f, f) + torch.dot(g, g)))
+
+
+def shard_match(n, n_jax):
+    """The JAX package's rule for a sharded count (tests/test_faceshard.py)."""
+    return abs(n - n_jax) <= max(10, 0.1 * n_jax)
+
+
+def shard_stats(tag, plan, inner, stats):
+    """Print the setup and solve seconds, the halo against the owned face
+    rows and the collective calls per inner iteration of a sharded solve."""
+    halo = [len(h) for h in plan.halo_faces]
+    own = [len(o) for o in plan.own_faces]
+    per = {k: v / max(inner, 1) for k, v in stats["collectives"].items()}
+    host = stats.get("host_seconds", {})
+    log(f"{tag}: host setup {host.get('all', 0.0):.1f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in host.items() if k != "all")
+        + f"), rank setup {stats['setup_seconds']:.1f} s, solve "
+        f"{stats['solve_seconds']:.3f} s; halo face rows {halo} against "
+        f"owned {own} ({sum(halo) / max(sum(own), 1):.1%}); collective "
+        f"calls per inner iteration "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; launches {stats['launches']}")
+    return per
+
+
+def shard_phase(torch, bm, lm, timer, gen, reports, m):
+    """[shard]: the sharded solves of ``parallel/`` on torch.distributed.
+
+    World size 1 (NCCL, this process, an in-memory store): the main path's
+    model ``m`` sharded with bench.py's table settings, kernels 1, 2 and 8
+    held to their plain versions on the shard's tables (every table of the
+    operators and the preconditioner but the GS colors past the first,
+    which are checked untimed), then ``sharded_fast_flagship_solve`` with
+    bench.py's inner settings, the launch counters set to 0 just before it
+    and read just after (kernels 1, 2 and 8 must launch): a true f64
+    residual <= TOL, the inner count within the JAX rule of 358.  World
+    size 2 (two gloo ranks on the one card): the face-sharded solve at
+    SHARD_SMALL_MAXH (SHARD_SMALL_KW) and the dd solve on the 2D
+    vertexstar model at SHARD_DD_MAXH, each held to the JAX package's
+    count, the face solve's true residual <= its tol, the dd velocity
+    within SHARD_DD_DIFF of the single-device SolveInitial.  A failed rank
+    fails the phase.  Returns (seconds, launches of the world size 1
+    solve)."""
+    import torch.distributed as dist
+
+    from navier_stokes_tpu_torch.flagship import build_model
+    from navier_stokes_tpu_torch.mesh import channel_with_cylinder_mesh
+    from navier_stokes_tpu_torch.models import NavierStokesMCS
+    from navier_stokes_tpu_torch.parallel import ddshard, faceshard
+    from navier_stokes_tpu_torch.parallel.sharding import (
+        Ranks,
+        single_rank,
+    )
+    from navier_stokes_tpu_torch.scripts.navier_stokes_2d import uin as uin2
+
+    t_phase = time.perf_counter()
+    tag = f"[shard] world size 1, maxh={MAXH}"
+    bf16 = torch.bfloat16
+    mesh = single_rank("nccl")
+    try:
+        t0 = time.perf_counter()
+        ops = faceshard.build_sharded_fast_ops(
+            m, mesh, gs=True, ext_dtype=bf16, inv_dtype=bf16,
+            **SHARD_BENCH_TABLES)
+        torch.cuda.synchronize()
+        ops32, ops64, D, plan, aux = ops
+        log(f"{tag}: build_sharded_fast_ops {time.perf_counter() - t0:.1f} s"
+            f" (host " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                   aux["host_seconds"].items())
+            + f"; rank {aux['seconds']:.1f} s); {len(aux['tables'])} "
+            f"device tables; coarse theta {aux['coarse_theta']:.4f}")
+        tabs = aux["tables"]
+        log(f"[kernels] {tag}: block_mv, block_mv2, batched_local_matvec "
+            "on the shard's tables")
+        for tname, A in tabs.items():
+            if tname in ("A_hi", "A_lo", "B_hi", "B_lo", "BT_hi", "BT_lo",
+                         "A_64"):
+                continue
+            seg = isinstance(A, bm.SegmentTable)
+            if tname.startswith("GS color") and not tname.startswith(
+                    "GS color 0 "):  # the other colors: checked, not timed
+                P = A.padded() if seg else A
+                x = torch.randn((P.shape[0], P.shape[2]), generator=gen,
+                                device="cuda")
+                y, y_ref = ((bm.block_mv_segments(A, x),
+                             bm.block_mv_segments_plain(A, x)) if seg else
+                            (bm.block_mv(A, x), bm.block_mv_plain(A, x)))
+                scale = torch.einsum("bmk,bk->bm", P.double().abs(),
+                                     x.double().abs())
+                worst = float(((y - y_ref).abs().double()
+                               / scale.clamp_min(1e-300)).max())
+                check(worst <= 1e-5, f"{tag} block_mv {tname}: {worst:.2e}")
+                continue
+            if seg:
+                check_block_mv_segments(torch, bm, timer,
+                                        reports["block_mv_shard"],
+                                        f"shard {tname}", A, gen)
+            else:
+                check_block_mv(torch, bm, timer, reports["block_mv_shard"],
+                               f"shard {tname}", A, gen)
+        for hi, lo in (("A_hi", "A_lo"), ("B_hi", "B_lo"),
+                       ("BT_hi", "BT_lo")):
+            check_block_mv2(torch, bm, timer, reports["block_mv2_shard"],
+                            f"shard {hi[:-3]}", tabs[hi], tabs[lo], gen)
+        check_local_mv(torch, lm, timer,
+                       reports["batched_local_matvec_f64_shard"],
+                       "shard A_64", tabs["A_64"], gen)
+
+        bm.reset_launches()
+        torch.cuda.synchronize()
+        (xu, xp), rel, passes, inner, plan = \
+            faceshard.sharded_fast_flagship_solve(
+                m, mesh, tol=TOL, ops=ops, **SHARD_INNER)
+        torch.cuda.synchronize()
+        launches = dict(bm.LAUNCHES)
+        stats = plan.run_stats
+        stats["host_seconds"] = aux["host_seconds"]
+        true = shard_true_rel(torch, m, torch.as_tensor(xu, device="cuda"),
+                              torch.as_tensor(xp, device="cuda"))
+        log(f"{tag} sharded_fast_flagship_solve: inner {inner}, passes "
+            f"{passes}, driver rel {rel:.3e}, true f64 rel {true:.3e} "
+            f"(single-device flagship: {SHARD_MAIN_INNER} inner)")
+        per = shard_stats(tag, plan, inner, stats)
+        # what one collective costs here: the calls of an inner iteration
+        # against the iteration's wall time
+        row = torch.randn((64, m.fb.nfb), generator=gen, device="cuda")
+        one = torch.ones((), device="cuda", dtype=torch.float64)
+        cost = {}
+        for name, call in (("all_gather", lambda: mesh.all_gather(row)),
+                           ("all_reduce", lambda: mesh.all_reduce(one))):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                call()
+            torch.cuda.synchronize()
+            cost[name] = (time.perf_counter() - t0) / 200
+        it_s = stats["solve_seconds"] / max(inner, 1)
+        share = sum(per[k] * cost[k] for k in cost) / it_s
+        log(f"{tag}: one collective call costs "
+            + ", ".join(f"{k} {v * 1e6:.1f} us" for k, v in cost.items())
+            + f" (NCCL, one rank); an inner iteration {it_s * 1e3:.2f} ms, "
+            f"of which the collectives' calls at that cost {share:.1%}")
+        check(true <= TOL and math.isfinite(true),
+              f"{tag}: true residual {true:.3e}")
+        check(shard_match(inner, SHARD_MAIN_INNER),
+              f"{tag}: {inner} inner iterations, single device "
+              f"{SHARD_MAIN_INNER}")
+        for name in ("block_mv", "block_mv2", "batched_local_matvec_f64"):
+            check(launches.get(name, 0) > 0,
+                  f"{tag}: {name} never launched")
+        del ops, ops32, ops64, D, aux, tabs
+    finally:
+        dist.destroy_process_group()
+
+    # world size 2: gloo, both ranks on cuda:0
+    ranks = Ranks(SHARD_RANKS, backend="gloo", device="cuda:0", threads=2)
+    tag = f"[shard] world size {SHARD_RANKS} (gloo), maxh={SHARD_SMALL_MAXH}"
+    t0 = time.perf_counter()
+    with carried_cell_bases(SWEEP_SMALL_BASES):
+        ms = build_model(SHARD_SMALL_MAXH, order=ORDER, nu=NU,
+                         device="cuda", curved=False)
+    log(f"{tag}: model {time.perf_counter() - t0:.1f} s, ndof "
+        f"{ms.n}+{ms.Q.ndof}")
+    t0 = time.perf_counter()
+    (xu, xp), rel, passes, inner, plan = \
+        faceshard.sharded_fast_flagship_solve(ms, ranks, **SHARD_SMALL_KW)
+    t_call = time.perf_counter() - t0
+    true = shard_true_rel(torch, ms, torch.as_tensor(xu, device="cuda"),
+                          torch.as_tensor(xp, device="cuda"))
+    jf = SHARD_JAX["face"]
+    log(f"{tag} sharded_fast_flagship_solve: inner {inner}, passes "
+        f"{passes}, driver rel {rel:.3e}, true f64 rel {true:.3e}, "
+        f"{t_call:.1f} s with the ranks' start (JAX at 2 shards: inner "
+        f"{jf['inner']}, passes {jf['passes']}, rel {jf['rel']:.3e}, halo "
+        f"{jf['halo_rows']} against owned {jf['own_rows']})")
+    shard_stats(tag, plan, inner, plan.run_stats)
+    check(true <= SHARD_SMALL_KW["tol"] and math.isfinite(true),
+          f"{tag}: true residual {true:.3e}")
+    check(shard_match(inner, jf["inner"]),
+          f"{tag}: {inner} inner iterations, JAX {jf['inner']}")
+    for name in ("block_mv", "block_mv2", "batched_local_matvec_f64"):
+        check(plan.run_stats["launches"].get(name, 0) > 0,
+              f"{tag}: {name} never launched in rank 0")
+    del ms
+
+    tag = (f"[shard] world size {SHARD_RANKS} (gloo), dd, 2D "
+           f"maxh={SHARD_DD_MAXH}")
+    jd = SHARD_JAX["dd"]
+    kw = dict(nu=NU, inflow="inlet", outflow="outlet", wall="wall|cyl",
+              uin=uin2, timestep=1e-3, order=ORDER,
+              preconditioner="vertexstar", device="cuda")
+    ns2 = NavierStokesMCS(channel_with_cylinder_mesh(SHARD_DD_MAXH), **kw)
+    bundles, pu, _ = ddshard.dd_flagship_tables(ns2, SHARD_RANKS)
+    t0 = time.perf_counter()
+    res, dd_launches = ranks.run(ddshard.dd_solve_rank, jd["tol"], 3000,
+                                 jd["scale_k"], rank_args=bundles)
+    t_call = time.perf_counter() - t0
+    single = NavierStokesMCS(channel_with_cylinder_mesh(SHARD_DD_MAXH), **kw)
+    single.SolveInitial(iterative=True, GS=False, tol=jd["tol"],
+                        maxsteps=3000, scale_k=jd["scale_k"])
+    u_sh = torch.as_tensor(pu.to_global(res.x[0].numpy()), device="cuda")
+    diff = float((u_sh + single.u_bc - single.u).abs().max())
+    log(f"{tag} sharded_flagship_solve: {res.iterations} BPCG iterations "
+        f"(JAX {jd['iterations']}, single device "
+        f"{single.stokes_bpcg_iterations}), converged {res.converged}, "
+        f"{t_call:.1f} s with the ranks' start; velocity {diff:.3e} from "
+        f"the single-device solve; launches {dd_launches}")
+    check(res.converged and abs(res.iterations - jd["iterations"]) <= 3,
+          f"{tag}: {res.iterations} iterations, JAX {jd['iterations']}")
+    check(diff <= SHARD_DD_DIFF, f"{tag}: velocity {diff:.3e} off")
+    check(dd_launches.get("batched_local_matvec_f64", 0) > 0,
+          f"{tag}: kernel 8 never launched in rank 0")
+    secs = time.perf_counter() - t_phase
+    log(f"[shard] phase {secs:.1f} s")
     return secs, launches
 
 
@@ -3244,6 +3532,14 @@ def run():
         "batched_local_matvec_f64_sweep": KernelReport(
             "batched_local_matvec_f64_sweep", f"{PALLAS_LOCAL}:26",
             SRC_LOCAL, F64_FLOPS_PER_S),
+        # the face-sharded solve's tables ([shard], world size 1): kernel 1
+        # on the preconditioner's, kernel 2 on the split A, B, B^T pairs,
+        # kernel 8 in f64 on the residual A
+        "block_mv_shard": KernelReport("block_mv_shard", f"{PALLAS}:118"),
+        "block_mv2_shard": KernelReport("block_mv2_shard", f"{PALLAS}:124"),
+        "batched_local_matvec_f64_shard": KernelReport(
+            "batched_local_matvec_f64_shard", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -3400,6 +3696,10 @@ def run():
     t_sweep, launches_sweep = sweep_phase(torch, bm, lm, timer, gen, reports,
                                           m, m.u_bc + warm.x[0])
 
+    # 12d. the sharded solves on torch.distributed
+    t_shard, launches_shard = shard_phase(torch, bm, lm, timer, gen,
+                                          reports, m)
+
     # 13. the port's bench line on the models already built
     bench_line, t_bench = bench_phase(bench, m, m32, cold, warm, card)
 
@@ -3464,7 +3764,11 @@ def run():
               "batched_local_matvec_f64_heat":
                   launches_heat.get("batched_local_matvec_f64", 0),
               "batched_local_matvec_f64_sweep":
-                  launches_sweep.get("batched_local_matvec_f64", 0)}
+                  launches_sweep.get("batched_local_matvec_f64", 0),
+              "block_mv_shard": launches_shard.get("block_mv", 0),
+              "block_mv2_shard": launches_shard.get("block_mv2", 0),
+              "batched_local_matvec_f64_shard":
+                  launches_shard.get("batched_local_matvec_f64", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
@@ -3472,8 +3776,8 @@ def run():
         f"{t_bpcg:.1f} s, bench {t_bench:.1f} s, repeat {t_repeat:.1f} s, "
         f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s, mcs2d "
         f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s, stokes {t_stokes:.1f} s, "
-        f"heat {t_heat:.1f} s; new: sweep {t_sweep:.1f} s, ns-sweep "
-        f"{t_ns_sweep:.1f} s (together {t_sweep + t_ns_sweep:.1f} s); whole run "
+        f"heat {t_heat:.1f} s, sweep {t_sweep:.1f} s, ns-sweep "
+        f"{t_ns_sweep:.1f} s; new: shard {t_shard:.1f} s; whole run "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)

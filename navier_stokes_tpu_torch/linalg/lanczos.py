@@ -29,14 +29,17 @@ __all__ = ["lanczos_eigenvalues", "condition_estimate"]
 
 def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
                         iterations: int = 40,
-                        v0: torch.Tensor | None = None) -> np.ndarray:
+                        v0: torch.Tensor | None = None,
+                        group=None) -> np.ndarray:
     """Ritz values (ascending, numpy) of pre @ A for SPD A and SPD pre.
 
     ``A``/``pre`` are callables on tensors shaped like ``example_vec``,
     which fixes shape, dtype and device.  ``v0``: the start vector;
     otherwise standard normal numbers drawn on the CPU from a generator
     seeded with 0, so that the draw does not depend on the device.
-    min/max are sharp after about 30-40 iterations."""
+    min/max are sharp after about 30-40 iterations.  ``group``: the
+    vectors are each rank's block of vectors split over a process group
+    (``linalg/pytree.tdot``); every inner product is summed over it."""
     shape, dtype, dev = example_vec.shape, example_vec.dtype, example_vec.device
     n = example_vec.numel()
     m = iterations
@@ -47,12 +50,15 @@ def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
     def pref(x):
         return pre(x.reshape(shape)).reshape(-1)
 
+    def reduce(t):
+        return t if group is None else group.all_reduce(t)
+
     if v0 is None:
         v0 = torch.randn(n, generator=torch.Generator().manual_seed(0),
                          dtype=torch.float64)
     z0 = v0.reshape(-1).to(device=dev, dtype=dtype)
     p0 = pref(z0)
-    beta0 = torch.sqrt(torch.abs(torch.dot(z0, p0)))
+    beta0 = torch.sqrt(torch.abs(reduce(torch.dot(z0, p0))))
     v = p0 / beta0
     z = z0 / beta0  # z = pre^{-1} v ; <v_i, v_j>_B = v_i . z_j = delta_ij
 
@@ -64,13 +70,13 @@ def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
     for j in range(m):
         v = Vb[j]
         w = Af(v)
-        alpha = float(torch.dot(v, w))
+        alpha = float(reduce(torch.dot(v, w)))
         # full reorthogonalization in the dual: w -= Z^T (V w); rows past j
         # are zero so they contribute nothing.  Two passes.
         for _ in range(2):
-            w = w - Zb.T @ (Vb @ w)
+            w = w - Zb.T @ reduce(Vb @ w)
         v_new = pref(w)
-        beta = float(torch.sqrt(torch.abs(torch.dot(w, v_new))))
+        beta = float(torch.sqrt(torch.abs(reduce(torch.dot(w, v_new)))))
         diag[j] = alpha
         if beta < 1e-10 * (abs(alpha) + 1.0):  # breakdown: keep offd[j] = 0
             continue

@@ -5,6 +5,13 @@ tensor or a (nested) tuple of tensors -- e.g. the (u, p) pair of a
 saddle-point system -- and these helpers give the axpy / inner-product
 algebra the Krylov solvers need.  A tensor is a leaf, so the helpers act on
 a single block as on a tuple of blocks.
+
+``group``: on vectors split over the ranks of a process group (each rank
+holding its own block, ``parallel/sharding.py``), an object whose
+``all_reduce(t)`` returns the sum of ``t`` over the ranks -- a
+:class:`~navier_stokes_tpu_torch.parallel.sharding.DeviceMesh`.  The inner
+products then sum the local dot over the group (one ``all_reduce`` each);
+``None`` keeps them local.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ def _leaves(x) -> list:
     return [leaf for part in x for leaf in _leaves(part)]
 
 
-def tdot(x, y) -> torch.Tensor:
-    """Global inner product sum_leaves <x_i, y_i> as a 0-d device tensor."""
-    return sum(torch.dot(a.reshape(-1), b.reshape(-1))
-               for a, b in zip(_leaves(x), _leaves(y)))
+def tdot(x, y, group=None) -> torch.Tensor:
+    """Global inner product sum_leaves <x_i, y_i> as a 0-d device tensor,
+    summed over ``group``'s ranks when one is given."""
+    s = sum(torch.dot(a.reshape(-1), b.reshape(-1))
+            for a, b in zip(_leaves(x), _leaves(y)))
+    return s if group is None else group.all_reduce(s)
 
 
 def tadd(x, y):
@@ -55,9 +64,9 @@ def tzeros_like(x):
     return _map(torch.zeros_like, x)
 
 
-def tnorm(x) -> torch.Tensor:
+def tnorm(x, group=None) -> torch.Tensor:
     """sqrt(tdot(x, x)) as a 0-d device tensor."""
-    return torch.sqrt(tdot(x, x))
+    return torch.sqrt(tdot(x, x, group))
 
 
 def tmask(mask, x):

@@ -99,22 +99,14 @@ def _p1_face_moments(V):
     return cjv, cjv_fac, faces, nsc, W
 
 
-def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
-                            split_k: int = 1):
-    """Face-layout P1 transfer for the skeleton coarse correction:
-    ``TF (nv, 3) -> (nface, nfb)`` and its exact transpose ``TFt``.
-
-    yF[f] = M_F[f] @ c[faces[f]] with per-face dense maps from the face's
-    3 vertices x 3 components (hdiv moment rows, then facet frame rows)."""
-    mesh = V.mesh
-    hd = V.hdiv
-    nfd_v = hd.n_face_dofs
+def face_transfer_table(V, nfb: int):
+    """(M_F, faces): the per-face dense maps (nface, nfb, 9) of the
+    face-layout P1 transfer, from the face's 3 vertices x 3 components
+    (hdiv moment rows, then facet frame rows), and the faces' vertices."""
+    nfd_v = V.hdiv.n_face_dofs
     nss = V.facet.n_scalar
-    nface = mesh.nface
-    nfb = lay.nfb
-    dev = lay.device
+    nface = V.mesh.nface
     cjv, cjv_fac, faces, nsc, W = _p1_face_moments(V)
-
     M_F = np.zeros((nface, nfb, 9))
     M_F[:, :nfd_v] = np.einsum(
         "jv,fc->fjvc", cjv[:nfd_v], nsc
@@ -122,6 +114,19 @@ def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
     M_F[:, nfd_v: nfd_v + 2 * nss] = np.einsum(
         "jv,fdc->fjdvc", cjv_fac[:nss], W
     ).reshape(nface, 2 * nss, 9)
+    return M_F, faces
+
+
+def hybrid_h1_face_transfer(V, lay: FaceBlockLayout, dtype=torch.float32,
+                            split_k: int = 1):
+    """Face-layout P1 transfer for the skeleton coarse correction:
+    ``TF (nv, 3) -> (nface, nfb)`` and its exact transpose ``TFt``.
+
+    yF[f] = M_F[f] @ c[faces[f]] (:func:`face_transfer_table`)."""
+    mesh = V.mesh
+    nface = mesh.nface
+    dev = lay.device
+    M_F, faces = face_transfer_table(V, lay.nfb)
 
     MF_apply = make_table_apply(M_F, store_dtype=dtype, device=dev,
                                 split_k=split_k, compute_dtype=dtype)

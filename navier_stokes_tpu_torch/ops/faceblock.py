@@ -657,17 +657,17 @@ class ColorGroup:
     slot: torch.Tensor
 
 
-def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
-                     symmetrize: bool, chunk_bytes: float = 2.5e8):
-    """One bucket's edge-star blocks, gathered from the face-major skeleton
-    table (plus one zero element) and inverted in f64.
+def edge_star_block_plan(faces_b, pos_np, ne: int):
+    """Index plans (E, LI, LJ), each (2, nb_b, fsz, fsz), that gather one
+    bucket's edge-star blocks from the face-major skeleton table S5p (ne
+    elements plus one zero element, index ne): block (i, j) is
+    S5p[E[0], LI[0], :, LJ[0], :] + S5p[E[1], LI[1], :, LJ[1], :].
 
     Diagonal face blocks sum the face's (up to) two adjacent elements;
     off-diagonal blocks come from the one element shared by faces i and j
-    (two distinct tets share at most one face).  Index plans are topology
-    only (host numpy)."""
+    (two distinct tets share at most one face), the second term the zero
+    element.  Topology only (host numpy)."""
     nb_b, fsz = faces_b.shape
-    bdim = fsz * nfb
     p2 = pos_np[faces_b]  # (nb_b, fsz, 2): elem*4+lf, pad ne*4
     el = p2 // 4
     lf = p2 % 4
@@ -693,7 +693,17 @@ def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
     E[0] = np.where(off, e_off, E[0])
     LI[0] = np.where(off, li_off, LI[0])
     LJ[0] = np.where(off, lj_off, LJ[0])
+    return E, LI, LJ
 
+
+def _bucket_inverses(S5p, faces_b, pos_np, freeF_dev, nfb, ne,
+                     symmetrize: bool, chunk_bytes: float = 2.5e8):
+    """One bucket's edge-star blocks, gathered from the face-major skeleton
+    table (plus one zero element, :func:`edge_star_block_plan`) and
+    inverted in f64."""
+    nb_b, fsz = faces_b.shape
+    bdim = fsz * nfb
+    E, LI, LJ = edge_star_block_plan(faces_b, pos_np, ne)
     dev = S5p.device
     faces_t = torch.as_tensor(faces_b, device=dev)
     fmask = freeF_dev[faces_t].reshape(nb_b, bdim).to(torch.float64)

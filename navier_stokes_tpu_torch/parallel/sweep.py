@@ -16,8 +16,10 @@ product of the step goes through the hand-written ``batched_local_matvec``
 (float64 on the float64 models) or, for float32 face-block tables,
 ``block_mv``.
 
-Sharding the ensemble axis over devices (the JAX functions'
-``device_mesh``) comes with the port of ``parallel/sharding.py``.
+With ``device_mesh`` (a :class:`~.sharding.DeviceMesh`: every rank calls
+the function with its own model) each rank advances its contiguous share
+of the members and the final states are gathered in member order on every
+rank, as the JAX functions shard the ensemble axis over a device mesh.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ from ..ops.assembly import (
     diagonal_of_local,
 )
 from ..solvers.cg import cg
+from .sharding import gather_rows, share
 
 __all__ = ["make_viscosity_step", "mcs_nu_split_tables",
            "make_viscosity_step_mcs", "run_reynolds_ensemble_mcs",
-           "run_reynolds_ensemble", "advance_ensemble"]
+           "run_reynolds_ensemble", "advance_ensemble", "ensemble_rank"]
 
 
 def make_viscosity_step(model):
@@ -236,14 +239,19 @@ def make_viscosity_step_mcs(model, mstar_tol: float = 1e-4):
     return step
 
 
-def advance_ensemble(model, step, nus, n_steps: int, log=None):
+def advance_ensemble(model, step, nus, n_steps: int, log=None,
+                     device_mesh=None):
     """(len(nus), n) final states: member i advanced ``n_steps`` times by
     ``step(u, nus[i])`` from the model's state, one member after the other.
     ``log``: a list that receives one dict per member step (member, step,
-    the model's M* and projection CG counts, host seconds)."""
+    the model's M* and projection CG counts, host seconds).
+    ``device_mesh``: advance only this rank's share of the members, then
+    gather every rank's states in member order."""
     nus = torch.as_tensor(nus, dtype=model.dtype, device=model.device)
     batch = model.u.reshape(1, -1).repeat(len(nus), 1)
-    for i in range(len(nus)):
+    lo, hi = (0, len(nus)) if device_mesh is None else share(len(nus),
+                                                             device_mesh)
+    for i in range(lo, hi):
         u = batch[i]
         for k in range(n_steps):
             t0 = time.perf_counter()
@@ -255,24 +263,43 @@ def advance_ensemble(model, step, nus, n_steps: int, log=None):
                                 seconds=time.perf_counter() - t0,
                                 **model.last_iterations))
         batch[i] = u
-    return batch
+    if device_mesh is None:
+        return batch
+    return gather_rows(device_mesh, batch[lo:hi], len(nus))
 
 
 def run_reynolds_ensemble_mcs(model, nus, n_steps: int, log=None,
-                              mstar_tol: float = 1e-4):
+                              mstar_tol: float = 1e-4, device_mesh=None,
+                              axis: str = "shard"):
     """Advance a viscosity ensemble of a ``NavierStokesMCS`` model: one
     member per viscosity, ``n_steps`` fused steps each.  Returns the
-    (len(nus), model.n) final states on the model's device (``log``: see
-    :func:`advance_ensemble`; ``mstar_tol``: see
-    :func:`make_viscosity_step_mcs`)."""
+    (len(nus), model.n) final states on the model's device (``log``,
+    ``device_mesh``: see :func:`advance_ensemble`; ``mstar_tol``: see
+    :func:`make_viscosity_step_mcs`).  ``axis``: the mesh axis (one: the
+    world)."""
+    del axis
     step = make_viscosity_step_mcs(model, mstar_tol)
-    return advance_ensemble(model, step, nus, n_steps, log)
+    return advance_ensemble(model, step, nus, n_steps, log, device_mesh)
 
 
-def run_reynolds_ensemble(model, nus, n_steps: int, log=None):
+def run_reynolds_ensemble(model, nus, n_steps: int, log=None,
+                          device_mesh=None, axis: str = "shard"):
     """Advance one member per viscosity of a Taylor-Hood ``NavierStokes``
     model for ``n_steps`` fused steps.  Returns the (len(nus), d * n) final
-    velocities on the model's device (``log``: see
-    :func:`advance_ensemble`)."""
+    velocities on the model's device (``log``, ``device_mesh``: see
+    :func:`advance_ensemble`; ``axis``: the mesh axis)."""
+    del axis
     step = make_viscosity_step(model)
-    return advance_ensemble(model, step, nus, n_steps, log)
+    return advance_ensemble(model, step, nus, n_steps, log, device_mesh)
+
+
+def ensemble_rank(mesh, build, build_kwargs: dict, nus, n_steps: int,
+                  taylor_hood: bool = False):
+    """Rank body: build the model ``build(**build_kwargs, device=...)`` on
+    this rank's device (``build`` and its arguments picklable: a model
+    class or ``flagship.build_model``, a mesh, a module-level inflow) and
+    run its Reynolds ensemble with ``device_mesh=mesh``.  Returns the
+    (len(nus), n) final states, on every rank."""
+    model = build(**build_kwargs, device=mesh.device)
+    run = run_reynolds_ensemble if taylor_hood else run_reynolds_ensemble_mcs
+    return run(model, nus, n_steps, device_mesh=mesh)

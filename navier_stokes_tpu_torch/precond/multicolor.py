@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..linalg.pytree import tnorm
 from ..ops.assembly import ScatterPlan
 from ..ops.local_mv import batched_local_matvec
 
@@ -145,19 +146,27 @@ def symmetric_gs_preconditioner(gs: MulticolorGS, A_apply, coarse=None,
 
 
 def damped_coarse(coarse, A_apply, example: torch.Tensor,
-                  target: float = 0.9, iters: int = 30):
+                  target: float = 0.9, iters: int = 30, group=None):
     """Scale an auxiliary-space coarse correction for multiplicative use.
 
     Inside the symmetric sweep the correction ``y += C (x - A y)`` keeps the
     preconditioner positive definite only when lambda_max(C A) < 2.  A
     power iteration of ``iters`` steps from ``example`` estimates
     lambda_max(C A), and C is scaled to ``target`` (the JAX package's
-    default 0.9; bench.py passes 1.6; it must stay below 2).  Returns (damped coarse, lambda, theta)."""
-    v = example / torch.linalg.vector_norm(example)
+    default 0.9; bench.py passes 1.6; it must stay below 2).  ``group``:
+    the vectors are each rank's block of a vector split over a process
+    group, whose norms sum over it (``linalg/pytree.tnorm``).  Returns
+    (damped coarse, lambda, theta)."""
+    if group is None:
+        norm = torch.linalg.vector_norm
+    else:
+        def norm(x):
+            return tnorm(x, group)
+    v = example / norm(example)
     lam_t = torch.ones((), dtype=v.dtype)
     for _ in range(iters):
         w = coarse(A_apply(v))
-        lam_t = torch.linalg.vector_norm(w)
+        lam_t = norm(w)
         v = w / torch.clamp(lam_t, min=1e-30)
     lam = float(lam_t)
     theta = min(1.0, target / max(lam, 1e-30))

@@ -44,7 +44,8 @@ def _np_dtype(t: torch.Tensor) -> np.dtype:
 
 def bp_scale_factor(A, preA, example_u: torch.Tensor,
                     lanczos_iterations: int = 40,
-                    v0: torch.Tensor | None = None, safety: float = 0.2):
+                    v0: torch.Tensor | None = None, safety: float = 0.2,
+                    group=None):
     """k = (1+safety)/lambda_min(preA A) + 1e-3 and the condition estimate
     lambda_max/lambda_min, from ``lanczos_iterations`` Lanczos steps.
 
@@ -56,23 +57,26 @@ def bp_scale_factor(A, preA, example_u: torch.Tensor,
     lanczos_eigenvalues`); the JAX package draws it from
     ``jax.random.PRNGKey(0)``, which the port cannot reproduce, so a run
     held to its iteration counts passes that vector here or its k to the
-    solvers."""
-    lams = lanczos_eigenvalues(A, preA, example_u, lanczos_iterations, v0)
+    solvers.  ``group``: see :func:`bramble_pasciak_cg_opt`."""
+    lams = lanczos_eigenvalues(A, preA, example_u, lanczos_iterations, v0,
+                               group)
     lmin, lmax = float(np.min(lams)), float(np.max(lams))
     return (1.0 + safety) / lmin + 1e-3, lmax / lmin
 
 
 def bramble_pasciak_cg(A, B, BT, preA, preM, f, g, C=None, sol=None,
                        tol: float = 1e-12, max_steps: int = 1000,
-                       scale_k=None,
-                       lanczos_iterations: int = 40) -> SolverResult:
+                       scale_k=None, lanczos_iterations: int = 40,
+                       group=None) -> SolverResult:
     """BPCG v1 on K = [[A, BT], [B, C]] (C optional, typically None).
 
     ``scale_k``: the Bramble-Pasciak scaling; from :func:`bp_scale_factor`
     when None.  errors[i] = err_i / err_0 at the top of each iteration,
-    plus the final entry; stop when err < tol * err0."""
+    plus the final entry; stop when err < tol * err0.  ``group``: see
+    :func:`bramble_pasciak_cg_opt`."""
     if scale_k is None:
-        scale_k, _ = bp_scale_factor(A, preA, f, lanczos_iterations)
+        scale_k, _ = bp_scale_factor(A, preA, f, lanczos_iterations,
+                                     group=group)
 
     def preAs(u):
         return tscale(scale_k, preA(u))
@@ -102,7 +106,7 @@ def bramble_pasciak_cg(A, B, BT, preA, preM, f, g, C=None, sol=None,
     res = tsub(AB(apr), t2)
     t1 = PS_full_B(apr)
     p = t1
-    rho = tdot(t1, res)
+    rho = tdot(t1, res, group)
     sdt = _np_dtype(rho)
     rho_h = sdt.type(rho.item())
     err0 = np.sqrt(np.abs(rho_h))
@@ -115,12 +119,12 @@ def bramble_pasciak_cg(A, B, BT, preA, preM, f, g, C=None, sol=None,
         t1 = tscale(-1.0, K(p))
         t2 = tscale(-1.0, PA_full(t1))
         t1 = tadd(t1, AB(t2))
-        alpha = rho / tdot(p, t1)
+        alpha = rho / tdot(p, t1, group)
         sol = taxpy(alpha, p, sol)
         res = taxpy(-alpha, t1, res)
         apr = taxpy(-alpha, t2, apr)
         t1 = PS_full_B(apr)
-        rho_new = tdot(t1, res)
+        rho_new = tdot(t1, res, group)
         beta = rho_new / rho
         p = taxpy(beta, p, t1)
         rho = rho_new
@@ -136,7 +140,7 @@ def bramble_pasciak_cg_opt(A, B, BT, preA, preM, f, g, sol=None,
                            tol: float = 1e-6, maxsteps: int = 100,
                            rel_err: bool = True, scale_k=None,
                            lanczos_iterations: int = 40,
-                           accum_dtype=None) -> SolverResult:
+                           accum_dtype=None, group=None) -> SolverResult:
     """Optimized BPCG (one A / preA / B / BT / preM apply per iteration).
 
     ``accum_dtype``: optional wider dtype (torch.float64) of the two global
@@ -144,9 +148,13 @@ def bramble_pasciak_cg_opt(A, B, BT, preA, preM, f, g, sol=None,
     ``tol``.  Iteration ``it`` records errors[it] from the inner product
     it starts from and sets ``converged`` when that one is below the
     threshold, so the loop runs one iteration past it and reports
-    ``it - 1``, as the JAX package does."""
+    ``it - 1``, as the JAX package does.  ``group``: the vectors are each
+    rank's block of vectors split over a process group; every inner
+    product (and the Lanczos of the scaling) is then summed over it
+    (``linalg/pytree.tdot``)."""
     if scale_k is None:
-        scale_k, _ = bp_scale_factor(A, preA, f, lanczos_iterations)
+        scale_k, _ = bp_scale_factor(A, preA, f, lanczos_iterations,
+                                     group=group)
 
     def preAs(u):
         return tscale(scale_k, preA(u))
@@ -154,9 +162,10 @@ def bramble_pasciak_cg_opt(A, B, BT, preA, preM, f, g, sol=None,
     if accum_dtype is not None:
         def tdot_acc(x, y):
             return tdot(tuple(v.to(accum_dtype) for v in x),
-                        tuple(v.to(accum_dtype) for v in y))
+                        tuple(v.to(accum_dtype) for v in y), group)
     else:
-        tdot_acc = tdot
+        def tdot_acc(x, y):
+            return tdot(x, y, group)
     vdt = f.dtype
 
     # rhs transform: f_new = A preA f - f ; g_new = B preA f - g

@@ -34,12 +34,19 @@ class SolverResult:
 
 def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
        tol: float = 1e-8, maxsteps: int = 200,
-       rel_err: bool = True) -> SolverResult:
+       rel_err: bool = True, group=None) -> SolverResult:
     """Solve A x = b with PCG; ``A``, ``pre`` are callables on tensors.
 
     Same threshold as the JAX package -- sqrt|rho| <= tol * err0 (or
     ``tol`` alone with ``rel_err=False``), tested before each iteration --
-    so iteration counts are comparable."""
+    so iteration counts are comparable.  ``group``: the vectors are each
+    rank's block of a vector split over a process group; every inner
+    product is then summed over it (``linalg/pytree.tdot``)."""
+    if group is None:
+        dot = torch.dot
+    else:
+        def dot(a, c):
+            return group.all_reduce(torch.dot(a, c))
     if pre is None:
         pre = lambda v: v
     if x0 is None:
@@ -50,7 +57,7 @@ def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
         r = b - A(x0)
 
     z = pre(r)
-    rho = torch.dot(r, z)
+    rho = dot(r, z)
     rho_h = float(rho)
     err0 = math.sqrt(abs(rho_h))
     errors = np.full(maxsteps + 1, np.nan)
@@ -61,11 +68,11 @@ def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
     it = 0
     while math.sqrt(abs(rho_h)) > threshold and it < maxsteps:
         q = A(p)
-        alpha = rho / torch.dot(p, q)
+        alpha = rho / dot(p, q)
         x = torch.addcmul(x, p, alpha)
         r = torch.addcmul(r, q, -alpha)
         z = pre(r)
-        rho_new = torch.dot(r, z)
+        rho_new = dot(r, z)
         p = z + (rho_new / rho) * p
         rho = rho_new
         rho_h = float(rho)  # the iteration's one host read

@@ -39,7 +39,7 @@ class SolverResult:
 
 def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
            initialize: bool = True, tol: float = 1e-7,
-           abs_test: bool = True) -> SolverResult:
+           abs_test: bool = True, group=None) -> SolverResult:
     """Solve mat x = rhs (symmetric, possibly indefinite) with PMINRES.
 
     ``mat``/``pre`` act on a tensor or on tuples of tensors, as ``rhs``
@@ -47,7 +47,9 @@ def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
     ``initialize=False`` keeps ``sol`` as the initial guess.
     ``abs_test=False`` drops the absolute stopping test ``res_norm <= tol``
     (a correction solve whose rhs is already tiny would otherwise stop at
-    iteration one without contracting anything)."""
+    iteration one without contracting anything).  ``group``: the vectors
+    are each rank's block of a vector split over a process group, and
+    every inner product is summed over it (``linalg/pytree.tdot``)."""
     if pre is None:
         pre = lambda v: v
     # a bare tensor is one block (the solution is then a tensor); any
@@ -67,7 +69,7 @@ def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
         return sdt.type(t.item())
 
     z = pre(v)
-    gamma = np.sqrt(scalar(tdot(z, v)))
+    gamma = np.sqrt(scalar(tdot(z, v, group)))
     z = tscale(float(one / gamma), z)
     v = tscale(float(one / gamma), v)
 
@@ -83,11 +85,11 @@ def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
     done = False
     while k < maxsteps + 1 and not done:
         mz = mat(z)
-        delta = scalar(tdot(mz, z))
+        delta = scalar(tdot(mz, z, group))
         v_new = taxpy(float(-delta), v, mz)
         v_new = taxpy(float(-gamma), v_old, v_new)
         z_new = pre(v_new)
-        gamma_new = np.sqrt(scalar(tdot(z_new, v_new)))
+        gamma_new = np.sqrt(scalar(tdot(z_new, v_new, group)))
         z_new = tscale(float(one / gamma_new), z_new)
         v_new = tscale(float(one / gamma_new), v_new)
 

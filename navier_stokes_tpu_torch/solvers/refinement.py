@@ -17,7 +17,13 @@ inner solvers' own.
 ``abs_test`` of the MINRES drivers: the inner MINRES's absolute stopping
 test.  :func:`mixed_precision_minres_refinement` keeps the JAX default
 (True); deep-tolerance drivers pass :data:`DEEP_ABS_TEST` (False), the one
-place the value is named: the 2-phase driver now, the sharded solve later.
+place the value is named: the 2-phase driver and the face-sharded solve
+(``parallel/faceshard.py``) pass it.
+
+``group`` of the MINRES drivers: on vectors split over the ranks of a
+process group (each rank's block, ``parallel/sharding.py``), every inner
+product -- the inner MINRES's and the outer residual norms -- is summed
+over it; ``None`` keeps today's local dots.
 
 The operators:
 Counterpart of the face-block branch of ``equilibrated_f32_ops`` in
@@ -57,7 +63,7 @@ __all__ = ["DEEP_ABS_TEST", "equilibrated_f32_ops", "split_table",
 # tolerance: on the shrinking per-pass right-hand side the absolute test
 # fires early and floors the driver near 4e-7, so deep-tolerance callers
 # drop it (the JAX package's 2-phase driver and bench.py do; its sharded
-# solve passes it too, faceshard.py:1022)
+# solve passes it too, faceshard.py:1022, as the port's does)
 DEEP_ABS_TEST = False
 
 F32, F64 = torch.float32, torch.float64
@@ -171,19 +177,22 @@ class _Outer:
     """The f64 outer residual of [[A, B^T], [B, 0]] (x0, x1) = (f, g) and
     its norm relative to the right-hand side's."""
 
-    def __init__(self, ops64, f, g):
+    def __init__(self, ops64, f, g, group=None):
         self.A, self.B, self.BT = ops64["A"], ops64["B"], ops64["BT"]
         self.f, self.g = f, g
-        self.rhs_norm = torch.sqrt(torch.dot(f, f) + torch.dot(g, g))
+        self.group = group
+        self.rhs_norm = torch.sqrt(self._sq(f, g))
+
+    def _sq(self, a, b):
+        s = torch.dot(a, a) + torch.dot(b, b)
+        return s if self.group is None else self.group.all_reduce(s)
 
     def residual(self, x):
         return (self.f - self.A(x[0]) - self.BT(x[1]),
                 self.g - self.B(x[0]))
 
     def rel(self, r):
-        r0, r1 = r
-        return float(torch.sqrt(torch.dot(r0, r0) + torch.dot(r1, r1))
-                     / self.rhs_norm)
+        return float(torch.sqrt(self._sq(*r)) / self.rhs_norm)
 
 
 def _refine(outer, tol, max_passes, inner_solve, factor=1.0, start=None):
@@ -266,7 +275,7 @@ def mixed_precision_saddle_solve_scaled(ops64: dict, ops32: dict, D, f, g,
     return x, r, steps, its
 
 
-def _minres_f32(ops32, D, inner_tol, inner_maxsteps, abs_test):
+def _minres_f32(ops32, D, inner_tol, inner_maxsteps, abs_test, group=None):
     """The f32 MINRES correction solve on the equilibrated block system
     [[A, B^T], [B, 0]] with the block-diagonal preconditioner
     [[preA, 0], [0, preM]]."""
@@ -281,7 +290,7 @@ def _minres_f32(ops32, D, inner_tol, inner_maxsteps, abs_test):
     def inner(r0, r1):
         res = minres(K32, ((D * r0).to(F32), r1.to(F32)), pre=pre32,
                      tol=inner_tol, maxsteps=inner_maxsteps,
-                     abs_test=abs_test)
+                     abs_test=abs_test, group=group)
         return (D * res.x[0].to(F64), res.x[1].to(F64)), res.iterations
 
     return inner
@@ -292,7 +301,7 @@ def mixed_precision_minres_refinement(ops64: dict, ops32: dict, D, f, g,
                                       inner_maxsteps: int = 800,
                                       inner_tol: float = 1e-5,
                                       max_refine: int = 8,
-                                      abs_test: bool = True):
+                                      abs_test: bool = True, group=None):
     """Refinement with f32 MINRES inner solves on the equilibrated saddle
     system (``D``: the equilibration of :func:`equilibrated_f32_ops`).
 
@@ -303,13 +312,13 @@ def mixed_precision_minres_refinement(ops64: dict, ops32: dict, D, f, g,
     default as in the JAX package -- it stops a pass as soon as the
     ABSOLUTE preconditioned residual clears ``inner_tol``, which floors the
     driver near 4e-7; refinement to a deep tolerance passes
-    :data:`DEEP_ABS_TEST`.
+    :data:`DEEP_ABS_TEST`.  ``group``: see the module docstring.
 
     Returns (x, rel_residual, refinement_steps, total_inner_iterations)."""
-    outer = _Outer(ops64, f, g)
+    outer = _Outer(ops64, f, g, group)
     x, _, r, steps, its = _refine(
         outer, tol, max_refine,
-        _minres_f32(ops32, D, inner_tol, inner_maxsteps, abs_test))
+        _minres_f32(ops32, D, inner_tol, inner_maxsteps, abs_test, group))
     return x, r, steps, its
 
 
@@ -320,7 +329,7 @@ def mixed_precision_minres_refinement_2phase(ops64: dict, ops32: dict, D, f,
                                              max_refine: int = 8,
                                              p2_inner_tol: float = 1e-4,
                                              p2_inner_maxsteps: int = 600,
-                                             max_p2: int = 6):
+                                             max_p2: int = 6, group=None):
     """:func:`mixed_precision_minres_refinement` (inner ``abs_test`` =
     :data:`DEEP_ABS_TEST`) plus the bench's phase-2 endgame: once the f32
     passes stall near their floor, MINRES refinement passes on the
@@ -330,13 +339,15 @@ def mixed_precision_minres_refinement_2phase(ops64: dict, ops32: dict, D, f,
     f32 preconditioner noise stays relative and each pass contracts the
     true residual toward the target.  ``ops64`` may be native f64
     operators, or the compensated double-single kernels wrapped back to
-    the unscaled system (the JAX bench's substitute).
+    the unscaled system (the JAX bench's substitute).  ``group``: see the
+    module docstring.
 
     Returns (x, rel_residual, (p1_passes, p2_passes), total_inner)."""
-    outer = _Outer(ops64, f, g)
+    outer = _Outer(ops64, f, g, group)
     x, rv, _, steps1, inner1 = _refine(
         outer, tol, max_refine,
-        _minres_f32(ops32, D, inner_tol, inner_maxsteps, DEEP_ABS_TEST))
+        _minres_f32(ops32, D, inner_tol, inner_maxsteps, DEEP_ABS_TEST,
+                    group))
 
     A64, B64, BT64 = ops64["A"], ops64["B"], ops64["BT"]
     preA32, preM32 = ops32["preA"], ops32["preM"]
@@ -351,7 +362,8 @@ def mixed_precision_minres_refinement_2phase(ops64: dict, ops32: dict, D, f,
 
     def inner2(r0, r1):
         res = minres(K64eq, (D * r0, r1), pre=pre64, tol=p2_inner_tol,
-                     maxsteps=p2_inner_maxsteps, abs_test=DEEP_ABS_TEST)
+                     maxsteps=p2_inner_maxsteps, abs_test=DEEP_ABS_TEST,
+                     group=group)
         return (D * res.x[0], res.x[1]), res.iterations
 
     x, _, r, steps2, inner2_total = _refine(outer, tol, max_p2, inner2,

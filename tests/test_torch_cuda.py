@@ -911,3 +911,53 @@ def test_reynolds_ensemble_on_card_matches_cpu():
         assert np.linalg.norm(g - w) <= 1e-8 * np.linalg.norm(w), i
     alone = sweep.run_reynolds_ensemble_mcs(mg, nus[2:], 2)
     assert torch.equal(alone[0], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_sharded_fast_ops_on_card_match_cpu(ranks):
+    """On the card: the face-sharded operators of ``parallel/faceshard.py``
+    (the GS preconditioner; kernels 1, 2 and 8 on each rank's tables) on 1
+    and 2 gloo ranks, all on ``cuda:0``, against one rank on the CPU in
+    this process (the plain versions), in the global layout: f32 ops
+    within 1e-5, f64 ops within 1e-12 of the largest entry, D equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from navier_stokes_tpu_torch.parallel import faceshard
+    from navier_stokes_tpu_torch.parallel.sharding import launch, single_rank
+
+    m = _plates_mcs("cpu")
+    rng = np.random.default_rng(5)
+    u = rng.standard_normal(m.n)
+    p = rng.standard_normal(m.Q.ndof)
+
+    def applied(n, run):
+        host = faceshard.shard_fast_tables(m, n, gs=True)
+        mQ, plan = host.common["mQ"], host.plan
+        out = run(host, plan.vel_to_sharded(u), plan.p_to_sharded(p, mQ))
+        return {k: (plan.p_to_global(v.numpy(), mQ) if k in ("B", "B64",
+                                                            "preM")
+                    else plan.vel_to_global(v.numpy()))
+                for k, v in out.items()}
+
+    def cpu(host, us, ps):
+        mesh = single_rank("gloo", device="cpu")
+        try:
+            return faceshard.fast_ops_rank(mesh, host.rank(0), host.common,
+                                           us, ps)
+        finally:
+            dist.destroy_process_group()
+
+    def card(host, us, ps):
+        return launch(faceshard.fast_ops_rank, ranks, host.common, us, ps,
+                      backend="gloo", device="cuda:0", threads=1,
+                      rank_args=[host.rank(s) for s in range(ranks)])
+
+    want, got = applied(1, cpu), applied(ranks, card)
+    assert np.array_equal(got["D"], want["D"])
+    for name in ("A", "preA", "B", "BT", "preM", "A64", "B64", "BT64"):
+        w, g = want[name].astype(np.float64), got[name].astype(np.float64)
+        bound = 1e-12 if name.endswith("64") else 1e-5
+        assert np.abs(g - w).max() <= bound * np.abs(w).max(), name

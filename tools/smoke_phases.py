@@ -8,13 +8,15 @@ phase functions and checks: ``cuda-tests`` (the card-only tests),
 chip_smoke.py runs 3, this tool can run all 5), ``sweep`` (the
 Reynolds-number ensemble: ``[sweep]`` on the curved f64 model at maxh 0.09,
 built here, from u = u_bc where chip_smoke.py starts from the flagship
-solution) and ``ns-sweep`` (the parameter-sweep harness:
-``[ns-sweep]``).  Prints the kernels' JSON entries of the phases run.
-Exits 1 when a phase fails.
+solution), ``ns-sweep`` (the parameter-sweep harness:
+``[ns-sweep]``) and ``shard`` (the sharded solves on torch.distributed:
+``[shard]``, on the curved f64 model at maxh 0.09 built here).  Prints the
+kernels' JSON entries of the phases run.  Exits 1 when a phase fails.
 
     python3 tools/smoke_phases.py [--phases cuda-tests,stokes,heat]
         [--heat-steps 5]
     python3 tools/smoke_phases.py --phases sweep,ns-sweep
+    python3 tools/smoke_phases.py --phases shard
 """
 
 import argparse
@@ -63,7 +65,12 @@ def main(argv=None) -> int:
              "sweep": "batched_local_matvec_f64_sweep"}
     reports = {n: cs.KernelReport(n, f"{cs.PALLAS_LOCAL}:26", cs.SRC_LOCAL,
                                   cs.F64_FLOPS_PER_S)
-               for n in names.values()}
+               for n in list(names.values())
+               + ["batched_local_matvec_f64_shard"]}
+    reports["block_mv_shard"] = cs.KernelReport("block_mv_shard",
+                                                f"{cs.PALLAS}:118")
+    reports["block_mv2_shard"] = cs.KernelReport("block_mv2_shard",
+                                                 f"{cs.PALLAS}:124")
     entries = []
     try:
         for phase in args.phases.split(","):
@@ -88,6 +95,24 @@ def main(argv=None) -> int:
                 secs, launches = cs.sweep_phase(torch, bm, lm, timer, gen,
                                                 reports, m, m.u_bc)
                 del m
+            elif phase == "shard":
+                from navier_stokes_tpu_torch.flagship import build_model
+
+                t0 = time.perf_counter()
+                m = build_model(cs.MAXH, order=cs.ORDER, nu=cs.NU,
+                                device="cuda")
+                cs.log(f"[shard] curved model at maxh {cs.MAXH}: "
+                       f"{time.perf_counter() - t0:.1f} s")
+                secs, launches = cs.shard_phase(torch, bm, lm, timer, gen,
+                                                reports, m)
+                del m
+                for name, key in (("block_mv_shard", "block_mv"),
+                                  ("block_mv2_shard", "block_mv2"),
+                                  ("batched_local_matvec_f64_shard",
+                                   "batched_local_matvec_f64")):
+                    entries.append(reports[name].entry(launches.get(key, 0)))
+                cs.log(f"[time] {phase} {secs:.1f} s")
+                continue
             elif phase == "ns-sweep":
                 secs, _ = cs.ns_sweep_phase(torch, bm, ROOT)
                 cs.log(f"[time] {phase} {secs:.1f} s")
