@@ -62,16 +62,20 @@ phases; any failed phase ends the run with a non-zero exit:
     50 iterations; then the two faceblock variants, additive and
     multicolor GS, on the shortened channel of
     tests/test_navier_stokes_mcs3d.py at maxh=0.35: kernel 8 on their f64
-    block inverses against its plain version, and a solve with their own
-    Bramble-Pasciak k and one with the JAX package's, held to its count;
-    the model's state is put back;
+    block inverses against its plain version, and a solve with the JAX
+    package's Bramble-Pasciak k, held to its count (the solve with their
+    own k was cut to make room for later phases); the model's state is
+    put back;
 12. transient: the float32 twin of the curved model (same host tables),
     ``make_step_fn(project_tol=1e-5)`` from ``u = u_bc`` as bench.py's
     ``measure_transient``: one cold step with the launch counters set to 0
     just before it, then n warm steps (n calibrated to about 10 s, 3..200):
     steps/s, the M* and projection CG counts of every step, the
     projection's reduction of ||B u||, whether a step is bitwise
-    repeatable, per-piece milliseconds and the device busy share; then 3
+    repeatable, per-piece milliseconds (the harness of
+    ``scripts/probe_transient``: each apply by graph replay and eagerly,
+    the CG solves and the step by the host clock, the standalone CG counts
+    equal to the step's) and the device busy share; then 3
     float64 steps (project_tol=1e-9) from the flagship solution, the
     counters read after the first; then repeat: two f32 steps from the
     same state must give bitwise equal increments and equal CG counts
@@ -104,7 +108,21 @@ phases; any failed phase ends the run with a non-zero exit:
     native f64 A, B, B^T as ops64 and once with the compensated
     ``block_mv_comp`` operators wrapped back to the unscaled system (held
     to the native ones within 1e-12 first): passes, inner iterations, the
-    true f64 residual (<= 1.01e-8) and seconds of each;
+    true f64 residual (<= 1.01e-8) and seconds of each; then probes: the
+    three attribution scripts of ``navier_stokes_tpu_torch/scripts`` on
+    the main path's solver and f32 twin -- ``microbench_sweep`` (every
+    piece of the GS preA by the slope between CUDA graphs of 10 and 60
+    chained applies and eagerly, every color step and the share of it its
+    row gathers take), ``probe_transient`` (from u_bc) and
+    ``audit_tables`` (the JAX script's cost model, the port's tables, and
+    the launches of one preA apply equal to its stream counts); then
+    skeleton-slow: the dof-level skeleton preconditioner
+    (``fast=False``), additive and GS, all tables f64, on the straight
+    channel at maxh 0.35, built on the card and on the CPU (plain
+    versions) and held together within 1e-12, against the fast path
+    (additive 1e-7; GS a gap under 0.5, both symmetric to 1e-8), kernel 8
+    in f64 launched in one apply of each and checked on its square tables,
+    and the per-apply ms of the slow and the fast preA;
 14. microbench: the two ported microbenchmark scripts
     (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
     7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
@@ -170,8 +188,9 @@ phases; any failed phase ends the run with a non-zero exit:
     MINRES to 1e-8, which stops at its 50,000 cap in both packages: held to
     the cap and to JAX's final error and distance from the direct solution
     within 10%).  ``[heat]``: ``HeatEquation`` at the reference's literals
-    (maxh 0.1, order 10: 200 triangles, 10,201 dofs), the first two time
-    steps of the study (3 large steps; three through PR 16;
+    (maxh 0.1, order 10: 200 triangles, 10,201 dofs), the first time
+    step of the study (1 large step; once three, then two, cut to make
+    room for later phases;
     tools/smoke_phases.py runs all five), each L2 error held to JAX's
     within 1e-10 of the solution's L2
     norm, the CG count of every solve and the seconds per step.  Kernel 8 is checked on every new table (HDG, mixed, MCS element
@@ -227,7 +246,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -273,6 +291,10 @@ REDESIGNED = {"block_mv": "kernel 5 at one sub-table; the GS solves by "
               "block_mv_soa": "tensor-map boxes through a producer/consumer "
                               "ring, u once per element tile"}
 PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
+# [skeleton-slow]: the straight channel of tests/test_skeleton_fast.py; the
+# dof-level preconditioner built on the card against the same built on the
+# CPU (plain versions), all tables f64
+SLOW_MAXH, SLOW_CARD_CPU = 0.35, 1e-12
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
 CUDA_TEST_CASES = 42  # 26 tests, 42 cases with their parameters
@@ -386,8 +408,9 @@ MCS_MAXSTEPS, MCS_BAND = 50000, 0.10
 # HeatEquation(maxh 0.1, order 10, 10 Gauss stages, subspace 5, CG to
 # 1e-13): the L2 errors of the first five time steps of the study (end
 # time 0.05) on the CPU in f64.  [heat] runs the first HEAT_RUN of them
-# (3 large steps, about 40,000 CG iterations; 3 of them, 8 large steps,
-# through PR 16, cut to make room for [shard]): the inner CG is host-bound on
+# (1 large step, about 15,700 CG iterations; once 3 of them, 8 large
+# steps, cut to 2 to make room for [shard] and to 1 for [probes] and
+# [skeleton-slow]): the inner CG is host-bound on
 # the card (one host read and about 27 launches per iteration: 0.36-0.43
 # ms on one host, 0.49-0.62 on another), so that the five took 170.8 s
 # and the fourth's 16 steps alone 72.5 s; `python3 tools/smoke_phases.py
@@ -404,7 +427,7 @@ HEAT_STEPS = (0.1, 0.03162277660168379, 0.01, 0.0031622776601683794, 0.001)
 HEAT_JAX = (0.004531476446483092, 0.00017125506665474163,
             1.2568817807744234e-05, 1.1420201716659314e-07,
             1.121995294735825e-08)
-HEAT_TOL, HEAT_RUN = 1e-10, 2
+HEAT_TOL, HEAT_RUN = 1e-10, 1
 # [sweep]: the 3D MCS Reynolds-number ensemble (parallel/sweep.py, the JAX
 # package's BASELINE config 5) on the curved f64 model at maxh 0.09: one
 # member per viscosity of geomspace(1e-3, 1e-2, SWEEP_MEMBERS), SWEEP_STEPS
@@ -1371,9 +1394,9 @@ def bpcg_phase(torch, bm, lm, timer, gen, m, solver, warm):
     B^T, rounded to float32: the first must break the residual bound, the
     second both.  Then the two faceblock variants (additive, multicolor GS)
     on the shortened channel at maxh=0.35: kernel 8 on each of their f64
-    block-inverse tables against its plain version, a solve with the
-    port's own scaling k and one with the JAX package's, whose count is
-    held to JAX's.  ``m.u`` and ``m.p`` are put back."""
+    block-inverse tables against its plain version, and a solve with the
+    JAX package's scaling k, whose count is held to JAX's.  ``m.u`` and
+    ``m.p`` are put back."""
     from navier_stokes_tpu_torch.flagship import uin
     from navier_stokes_tpu_torch.mesh.generators import (
         channel_with_cylinder_mesh_3d,
@@ -1484,7 +1507,10 @@ def bpcg_phase(torch, bm, lm, timer, gen, m, solver, warm):
                            f"faceblock {name} inverses {i}", A, gen)
         jax_n, jax_k = BPCG_SMALL_JAX[gs]
         counts = {}
-        for which, k in (("own k", None), ("JAX k", jax_k)):
+        # the JAX k alone: the solve with the port's own k (937 / 740
+        # iterations, printed only) was cut to make room for [probes] and
+        # [skeleton-slow]; the curved solve above takes its own k
+        for which, k in (("JAX k", jax_k),):
             bm.reset_launches()
             t0 = time.perf_counter()
             r = ms.SolveInitial(GS=gs, tol=BPCG_TOL, maxsteps=BPCG_MAXSTEPS,
@@ -1530,20 +1556,6 @@ def bench_phase(bench, m, m32, cold, warm, card):
     return line, secs
 
 
-def host_ms(torch, fn, reps=3):
-    """Median host-clock milliseconds of ``fn()`` ending in a synchronize
-    (pieces with their own host reads, as the CG solves)."""
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(ts)
-
-
 def projection_check(torch, m, u, label):
     """What the f32 projection does to ||B u|| on the right-hand side of one
     step from ``u``: it must reduce it by 1e-4.  Returns the step's masked
@@ -1559,14 +1571,28 @@ def projection_check(torch, m, u, label):
     return temp, v, p
 
 
+def check_probe_rows(rows, tag):
+    """``scripts/probe_transient``'s rows on the card: every single apply's
+    graph replay took time, and the standalone M* and projection CG counts
+    equal the step's own."""
+    check(all(r["replay_ms"] > 0 for r in rows if "replay_ms" in r),
+          f"{tag} a piece's graph replay took no time")
+    in_step = next(r for r in rows if r["piece"] == "in-step counts")
+    for r in rows:
+        if "iterations" in r:
+            key = "mstar" if r["piece"].startswith("mstar") else "project"
+            check(r["iterations"] == in_step[key], f"{tag} {r['piece']} "
+                  f"took {r['iterations']}, the step {in_step[key]}")
+
+
 def transient_phase(torch, bm, m, step, m64, u64_start):
     """bench.py's second metric on the port: the f32 SIMPLE step ``step`` of
     the stepping model ``m``, then 3 f64 steps of ``m64`` from the flagship
     solution.  Returns the launch counts of one (the cold) f32 step and of
     the first f64 step."""
     from navier_stokes_tpu_torch.flagship import transient_steps
-    from navier_stokes_tpu_torch.solvers.cg import cg
-    from navier_stokes_tpu_torch.utils.timers import per_apply_ms
+    from navier_stokes_tpu_torch.scripts import probe_transient
+    from navier_stokes_tpu_torch.utils.timers import host_ms
 
     def norm(v):
         return float(torch.linalg.norm(v.double()))
@@ -1620,42 +1646,20 @@ def transient_phase(torch, bm, m, step, m64, u64_start):
         f"{pr_[-1]}); max |u| {float(u.abs().max()):.4f}")
     check(max(pr_) < 2000 and max(ms_) < 2000, "a CG ran into maxsteps")
 
-    # the pieces of one step, and what the projection does to ||B u||
-    conv, A_step = m.convection, m._A_raw_step
-    Minv, pre2 = m._mass_chebyshev(), m._pre_proj_twolevel()
-    temp, v, p = projection_check(torch, m, u, "[transient]")
+    # what the projection does to ||B u||
+    _, v, _ = projection_check(torch, m, u, "[transient]")
     log(f"[transient] ||B u|| after the steps {norm(m.B_raw(u)):.3e}, of "
         f"u_bc {norm(m.B_raw(u0)):.3e}")
-    rhs_p = m.B_raw(v)
 
-    def S(q):
-        return m.B(Minv(m.BT(q)))
-
-    pieces = [
-        ("conv", lambda: conv(u)),
-        ("A_raw (kernel route)", lambda: A_step(u)),
-        ("mass_raw", lambda: m._mass_raw(u)),
-        ("mstar apply", lambda: m.mstar(u)),
-        ("Minv (Chebyshev 16)", lambda: Minv(temp)),
-        ("B_raw", lambda: m.B_raw(u)),
-        ("BT", lambda: m.BT(p)),
-        ("S apply (B Minv BT)", lambda: S(p)),
-        ("twolevel pre", lambda: pre2(p)),
-        ("twolevel block", lambda: pre2.block(p)),
-    ]
-    for name, fn in pieces:
-        log(f"[piece f32] {name:22s} "
-            f"{per_apply_ms(lambda _x: fn(), None, k=10):.4f} ms")
-    for name, fn in (
-            ("inv_mstar (CG 1e-4)", lambda: m._inv_mstar(temp, MSTAR_TOL)),
-            ("project (CG 1e-5)", lambda: m._project_velocity(
-                v, tol=PROJECT_TOL32)),
-            ("projection CG alone", lambda: cg(S, rhs_p, pre=pre2,
-                                               tol=PROJECT_TOL32,
-                                               maxsteps=2000)),
-            ("whole step", lambda: step(u))):
-        log(f"[piece f32] {name:22s} {host_ms(torch, fn):.2f} ms (host "
-            "clock, median of 3)")
+    # the pieces of one step: scripts/probe_transient's own harness (JAX
+    # names, graph replay and eager ms, the CG counts), then the projection
+    # as the step calls it
+    rows = probe_transient.probe(m, u, step,
+                                 log=lambda line: log("[piece f32]" + line))
+    check_probe_rows(rows, "[transient]")
+    ms = host_ms(lambda: m._project_velocity(v, tol=PROJECT_TOL32))
+    log(f"[piece f32]   {'project (CG 1e-5)':34s} {ms:10.1f} ms (host clock,"
+        " median of 3)")
 
     def run3():
         x = u
@@ -3336,6 +3340,145 @@ def shard_phase(torch, bm, lm, timer, gen, reports, m):
     return secs, launches
 
 
+def skeleton_slow_phase(torch, bm, lm, timer, gen, reports):
+    """[skeleton-slow]: the dof-level skeleton preconditioner
+    (``build_skeleton_preconditioner_3d(fast=False)``) on the straight
+    channel at maxh 0.35 (tests/test_skeleton_fast.py's), all tables f64,
+    the reference's unsymmetrized tables and coarse target 0.9, additive and
+    GS.  Each built on the card is held to the same preconditioner built
+    with ``device="cpu"`` (every wrapper its plain version) within 1e-12
+    relative on a seeded vector, and to the fast path by the CPU test's
+    bounds (additive 1e-7; GS a gap under 0.5 and both symmetric to 1e-8);
+    kernel 8 in f64 must launch when the counters, set to 0 just before,
+    are read after one apply of each; its square tables are checked
+    against the plain version.  Returns (seconds, launches)."""
+    import numpy as np
+
+    from navier_stokes_tpu_torch.flagship import build_model
+    from navier_stokes_tpu_torch.models.auxspace3d import (
+        build_skeleton_preconditioner_3d as build,
+    )
+    from navier_stokes_tpu_torch.utils.timers import per_apply_ms
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    m = build_model(SLOW_MAXH, order=ORDER, nu=NU, device="cuda",
+                    curved=False)
+    kw = dict(coarse_coefficient=m.nu, ext_dtype=f64, inv_dtype=f64,
+              panel_dtype=f64, sweep_dtype=f64, coarse_target=0.9,
+              symmetrize=False)
+    log(f"[skeleton-slow] straight channel at maxh {SLOW_MAXH}: {m.mesh.ne} "
+        f"tets, ndof {m.n}; model {time.perf_counter() - t_phase:.1f} s")
+    rng = np.random.default_rng(5)
+    x_cpu = torch.as_tensor(rng.standard_normal(m.n))
+    x = x_cpu.to("cuda")
+    a = x * m.free
+    b = torch.as_tensor(rng.standard_normal(m.n), device="cuda") * m.free
+    built = {}
+    for gs in (False, True):
+        secs = []
+        for dev, fast in (("cpu", False), ("cuda", False), ("cuda", True)):
+            t0 = time.perf_counter()
+            built[gs, dev, fast] = build(m.Xv, m.A_cond_np, m._dirich, dev,
+                                         f64, gs=gs, fast=fast, **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        log(f"[skeleton-slow] {'GS' if gs else 'additive'} setup: slow on the "
+            f"CPU {secs[0]:.1f} s, slow on the card {secs[1]:.1f} s, fast on "
+            f"the card {secs[2]:.1f} s")
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    ys = {gs: built[gs, "cuda", False](x) for gs in (False, True)}
+    torch.cuda.synchronize()
+    launches = dict(bm.LAUNCHES)
+    log(f"[skeleton-slow] launches of one slow apply each: {launches}")
+    check(launches["batched_local_matvec_f64"] > 0,
+          "batched_local_matvec_f64 never launched on the dof-level path")
+
+    def rel(p, q):
+        return float(torch.linalg.norm(p - q) / torch.linalg.norm(q))
+
+    def asym(pre):
+        lhs, rhs = float(torch.dot(pre(a), b)), float(torch.dot(a, pre(b)))
+        return abs(lhs - rhs) / max(abs(lhs), 1.0)
+
+    for gs in (False, True):
+        tag = "GS" if gs else "additive"
+        slow, fast = built[gs, "cuda", False], built[gs, "cuda", True]
+        card_cpu = rel(ys[gs].cpu(), built[gs, "cpu", False](x_cpu))
+        gap = rel(fast(x), ys[gs])
+        syms = (asym(slow), asym(fast))
+        ms_slow, ms_fast = per_apply_ms(slow, x), per_apply_ms(fast, x)
+        log(f"[skeleton-slow] {tag}: card against CPU {card_cpu:.3e}, fast "
+            f"against slow {gap:.3e}, asymmetry slow {syms[0]:.2e} fast "
+            f"{syms[1]:.2e}; per apply slow {ms_slow:.4f} ms, fast "
+            f"{ms_fast:.4f} ms")
+        check(card_cpu <= SLOW_CARD_CPU, f"[skeleton-slow] {tag}: the card "
+              f"is {card_cpu:.3e} from the CPU build")
+        if gs:
+            check(gap < 0.5 and max(syms) < 1e-8, f"[skeleton-slow] GS: gap "
+                  f"{gap:.3e}, asymmetry {max(syms):.2e}")
+        else:
+            check(gap < 1e-7, f"[skeleton-slow] additive: fast against slow "
+                  f"{gap:.3e}")
+        log(f"[kernels] batched_local_matvec on the {tag} dof-level tables")
+        for name, T in slow.parts["tables"].items():
+            if T.shape[-1] == T.shape[-2]:
+                check_local_mv(torch, lm, timer,
+                               reports["batched_local_matvec_f64_skeleton"],
+                               f"skeleton {tag} {name}", T, gen)
+    del built, m
+    return time.perf_counter() - t_phase, launches
+
+
+def probes_phase(solver, m32):
+    """[probes]: the three attribution scripts of
+    ``navier_stokes_tpu_torch/scripts`` at maxh 0.09 on the smoke's own
+    flagship ``solver`` and f32 twin ``m32``, their lines logged:
+    ``microbench_sweep`` (each preA piece by graph replay and eagerly, each
+    GS color step and its row gathers' share), ``probe_transient`` (the
+    step's pieces from u_bc; its CG counts must equal the step's) and
+    ``audit_tables`` (which raises unless the launches of one preA apply
+    equal its stream counts).  Returns seconds."""
+    import contextlib
+    import io
+
+    from navier_stokes_tpu_torch.scripts import (
+        audit_tables,
+        microbench_sweep,
+        probe_transient,
+    )
+
+    t_phase = time.perf_counter()
+
+    def run(name, fn):
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                return fn()
+        finally:
+            for line in buf.getvalue().splitlines():
+                log(f"[probes {name}] {line}")
+
+    rows = run("microbench_sweep",
+               lambda: microbench_sweep.main(MAXH, solver=solver))
+    check(all(r["replay_ms"] > 0 for r in rows),
+          "[probes] a sweep piece's graph replay took no time")
+    colors = [r for r in rows if r["piece"].startswith("color ")]
+    step_ms = sum(r["replay_ms"] for r in colors)
+    gather_ms = sum(r["gather_ms"] for r in colors)
+    log(f"[probes] the {len(colors)} GS color steps once each: "
+        f"{step_ms:.4f} ms by graph replay, their row gathers alone "
+        f"{gather_ms:.4f} ms ({gather_ms / step_ms:.3f})")
+    rows = run("probe_transient",
+               lambda: probe_transient.main(MAXH, m=m32))
+    check_probe_rows(rows, "[probes]")
+    audit = run("audit_tables",
+                lambda: audit_tables.main(MAXH, solver=solver))
+    check(audit["launches"], "[probes] the audit counted no launches")
+    return time.perf_counter() - t_phase
+
+
 def redesign_order(entries, reports):
     """The order in which the kernels are worth redesigning: first those
     slower than the one PyTorch call for the same function, by the factor;
@@ -3540,6 +3683,11 @@ def run():
         "batched_local_matvec_f64_shard": KernelReport(
             "batched_local_matvec_f64_shard", f"{PALLAS_LOCAL}:26",
             SRC_LOCAL, F64_FLOPS_PER_S),
+        # the dof-level skeleton preconditioner ([skeleton-slow]): kernel 8
+        # in f64 on its interior, S, block-Jacobi and GS block tables
+        "batched_local_matvec_f64_skeleton": KernelReport(
+            "batched_local_matvec_f64_skeleton", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
                            ("straight additive", solver_s, False)):
@@ -3706,7 +3854,14 @@ def run():
     # 13b. the 2-phase MINRES refinement driver on the main path's model
     t_refine = refine_phase(torch, bm, solver)
 
-    # 14. this slice's path: the two ported microbenchmark scripts
+    # 13c. the attribution scripts on the flagship solver and the f32 twin
+    t_probes = probes_phase(solver, m32)
+
+    # 13d. the dof-level skeleton preconditioner at maxh 0.35
+    t_slow, launches_slow = skeleton_slow_phase(torch, bm, lm, timer, gen,
+                                                reports)
+
+    # 14. the two ported microbenchmark scripts
     launches_mb = microbench_phase(bm)
 
     # 15. the SA-AMG coarse solve on a mesh above the dense limit
@@ -3768,7 +3923,9 @@ def run():
               "block_mv_shard": launches_shard.get("block_mv", 0),
               "block_mv2_shard": launches_shard.get("block_mv2", 0),
               "batched_local_matvec_f64_shard":
-                  launches_shard.get("batched_local_matvec_f64", 0)}
+                  launches_shard.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_f64_skeleton":
+                  launches_slow.get("batched_local_matvec_f64", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
@@ -3777,7 +3934,8 @@ def run():
         f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s, mcs2d "
         f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s, stokes {t_stokes:.1f} s, "
         f"heat {t_heat:.1f} s, sweep {t_sweep:.1f} s, ns-sweep "
-        f"{t_ns_sweep:.1f} s; new: shard {t_shard:.1f} s; whole run "
+        f"{t_ns_sweep:.1f} s, shard {t_shard:.1f} s; new: probes "
+        f"{t_probes:.1f} s, skeleton-slow {t_slow:.1f} s; whole run "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -20,8 +20,20 @@ transfer:
   colors -- with each color's residual from row panels of S;
 * ``gs=False``: the additive edge-star smoother plus the coarse correction.
 
-Every table apply (extension, its transpose, interior solve, M_F and
-M_F^T, S, edge-star inverses, GS panels and color solves) is a
+``fast=False`` builds the JAX package's dof-level formulation of the same
+preconditioner instead (its cross-check of the fast path): the vector-P1
+coarse correction through the full-space embedding ``hybrid_h1_embedding_3d``,
+the free-masked edge-star blocks of S by dof (``_edge_star_skeleton_blocks``),
+the extension and interior solve by gather and scatter, and either the
+additive block-Jacobi smoother or ``MulticolorGS`` around the full S apply.
+Its square per-element products (S, the interior solve, the block-Jacobi
+and GS block inverses) go through
+:func:`~navier_stokes_tpu_torch.ops.local_mv.batched_local_matvec`, in f32
+or f64; the rectangular extension products are einsums, as in the JAX
+package.
+
+On the fast path every table apply (extension, its transpose, interior
+solve, M_F and M_F^T, S, edge-star inverses, GS panels and color solves) is a
 :func:`~navier_stokes_tpu_torch.ops.block_mv.block_mv` launch, or with
 ``split_k`` > 1 a :func:`~navier_stokes_tpu_torch.ops.block_mv.
 block_mv_splitk` launch for the tables the JAX package splits (all but the
@@ -46,18 +58,21 @@ from ..device import resolve_device
 from ..fem.quadrature import tetrahedron_rule, triangle_rule
 from ..fem.reference import triangle_modal
 from ..fem.spaces import H1
-from ..ops.assembly import assemble_csr
+from ..ops.assembly import ScatterPlan, apply_local_matrices, assemble_csr
 from ..ops.block_mv import make_table_apply
 from ..ops.faceblock import (
     FaceBlockLayout,
+    _edge_star_faces,
     face_star_smoother,
     symmetric_part,
 )
+from ..ops.local_mv import batched_local_matvec
 from ..precond.amg import _ell, _ell_apply
 from ..precond.jacobi import (
     block_inverses,
     block_jacobi_inverses,
     extract_blocks_csr,
+    extract_blocks_from_local,
     padded_blocks,
 )
 from ..precond.multicolor import (
@@ -169,6 +184,7 @@ def build_skeleton_preconditioner_3d(
     ext_dtype=torch.bfloat16, inv_dtype=torch.bfloat16,
     panel_dtype=torch.float32, sweep_dtype=torch.float32,
     coarse_target: float = 1.6, split_k: int = 1, symmetrize: bool = True,
+    fast: bool = True,
 ):
     """Condensation-aware preconditioner for the condensed 3D MCS
     operator: exact batched solve of the element-interior block, the
@@ -198,7 +214,19 @@ def build_skeleton_preconditioner_3d(
     storage dtypes, so that the stored tables -- and with them the GS sweep
     -- are exactly symmetric.  Unsymmetrized, f64 roundoff crossing
     rounding boundaries leaves ~1e-7 of asymmetry in f32 storage.
-    ``False`` stores the reference's tables."""
+    ``False`` stores the reference's tables.
+
+    ``fast=False``: the JAX package's dof-level path
+    (:func:`_build_skeleton_slow`), which stores the extension, interior,
+    S and block-Jacobi tables rounded to ``sweep_dtype`` (the JAX
+    package's one ``store_dtype``, the "sweep" group) and the GS block
+    inverses in ``dtype``; ``ext_dtype``, ``inv_dtype`` and
+    ``panel_dtype`` are not read there, and ``split_k`` must be 1.
+    ``symmetrize`` acts on A_ii^{-1} and S on both paths; the dof-level
+    block inverses are stored as computed."""
+    if not fast and split_k != 1:
+        raise ValueError("the dof-level path (fast=False) has no split-k "
+                         "tables: split_k must be 1")
     mesh = V.mesh
     nbv = V.hdiv.n_basis
     n_face_tot = 4 * V.hdiv.n_face_dofs
@@ -218,6 +246,15 @@ def build_skeleton_preconditioner_3d(
 
     space = H1(mesh, 1, dirichlet=velocity_dirichlet)
     solve1 = coarse_p1_solver(space, coarse_coefficient, dtype, device)
+    if not fast:
+        eldofs = np.asarray(V.element_dofs)
+        preA = _build_skeleton_slow(
+            V, np.ascontiguousarray(eldofs[:, loc_skel]),
+            np.ascontiguousarray(eldofs[:, loc_int]), AinvAis, A_ii_inv,
+            S_loc, solve1, dof_scale, device, dtype, sweep_dtype, gs,
+            coarse_target)
+        preA.parts["coarse_amg_levels"] = getattr(solve1, "levels", 0)
+        return preA
 
     lay = FaceBlockLayout(V, device)
     TF, TFt = hybrid_h1_face_transfer(V, lay, dtype, split_k)
@@ -377,6 +414,136 @@ def _build_skeleton_fast(V, lay, AinvAis, A_ii_inv, S_loc, coarse_vc, cdt, gs,
 
     # component probes (face-layout in/out) for per-part timings
     parts.update(pre_skel=pre_skel_faces, tables=tables)
+    preA.parts = parts
+    return preA
+
+
+def _edge_star_skeleton_blocks(V) -> list[np.ndarray]:
+    """Edge-star patches on the skeleton: all face + facet dofs of the
+    faces containing each mesh edge, face by face in ascending order (the
+    JAX package's ``_edge_star_skeleton_blocks``,
+    navier_stokes_tpu/models/auxspace3d.py:272, in the same order)."""
+    nfd_v, nfd_f, nhd = V.hdiv.n_face_dofs, V.facet.n_face, V.hdiv.ndof
+    return [np.concatenate([f[:, None] * nfd_v + np.arange(nfd_v),
+                            nhd + f[:, None] * nfd_f + np.arange(nfd_f)],
+                           axis=1).ravel()
+            for f in _edge_star_faces(V.mesh)]
+
+
+def _stored(M, sdt, cdt, device) -> torch.Tensor:
+    """The table ``M`` rounded to its storage dtype ``sdt`` and held, exactly,
+    in the arithmetic dtype ``cdt`` on ``device``."""
+    M = torch.as_tensor(np.ascontiguousarray(M), device=device)
+    return M.to(sdt).to(cdt).contiguous()
+
+
+def _build_skeleton_slow(V, eldofs_skel, int_dofs, AinvAis, A_ii_inv, S_loc,
+                         solve1, dof_scale, device, cdt, sdt, gs,
+                         coarse_target):
+    """The dof-level rendering of the skeleton preconditioner
+    (navier_stokes_tpu/models/auxspace3d.py:452-535): gathers and
+    deterministic scatters over the full velocity vector, the square
+    per-element products through :func:`batched_local_matvec` in ``cdt``
+    (tables rounded to ``sdt``), the extension's rectangular products as
+    einsums.  ``preA.parts``: ``pre_skel`` (skeleton vectors in and out),
+    ``coarse_only``, ``S_apply`` and ``colors`` (GS) or ``smooth_only``
+    (additive), the coarse damping (GS) and ``tables``."""
+    mesh = V.mesh
+    nV, nv = V.ndof, mesh.nv
+    fmask = np.asarray(V.free_mask)
+    free = torch.as_tensor(fmask, device=device)
+
+    # coarse: vector-P1 embedding (full-space transfer; the extension
+    # overwrites its interior completion with the exact harmonic one)
+    T, TT = hybrid_h1_embedding_3d(V, cdt, device)
+    Dinv = (None if dof_scale is None else torch.as_tensor(
+        1.0 / np.asarray(dof_scale), device=device).to(cdt))
+
+    def coarse(r):
+        if Dinv is not None:
+            r = Dinv * r
+        zt = solve1(TT(r).reshape(3, nv).T)  # all 3 components at once
+        y = T(zt.T.reshape(-1))
+        return y if Dinv is None else Dinv * y
+
+    blks = [b[fmask[b]] for b in _edge_star_skeleton_blocks(V)]
+    blks = [b for b in blks if len(b)]
+    dofs, mats = extract_blocks_from_local(S_loc, eldofs_skel, blks, nV)
+
+    eld_s = torch.as_tensor(eldofs_skel.astype(np.int64), device=device)
+    int_t = torch.as_tensor(int_dofs.astype(np.int64), device=device)
+    int_flat = int_t.reshape(-1)
+    plan_s = ScatterPlan(eld_s, nV)
+    skel = torch.ones(nV, dtype=torch.bool, device=device)
+    skel[int_flat] = False
+    ext_tab = _stored(AinvAis, sdt, cdt, device)  # (ne, n_int, n_skel)
+    inner_tab = _stored(A_ii_inv, sdt, cdt, device)
+    tables = {"ext": ext_tab, "inner": inner_tab}
+
+    def ext(y):
+        """Harmonic extension: overwrite interiors from skeleton values."""
+        yi = -torch.einsum("eis,es->ei", ext_tab, y[eld_s])
+        return y.index_copy(0, int_flat, yi.reshape(-1))
+
+    def extT(x):
+        """Transpose: fold interior residual into skeleton, zero interiors."""
+        rs = -torch.einsum("eis,ei->es", ext_tab, x[int_t])
+        return torch.where(skel, x, 0.0) + plan_s(rs)
+
+    def inner(x):
+        yi = batched_local_matvec(inner_tab, x[int_t].contiguous())
+        return torch.zeros_like(x).index_copy(0, int_flat, yi.reshape(-1))
+
+    parts = {}
+    if gs:
+        S_tab = _stored(S_loc, sdt, cdt, device)
+        tables["S"] = S_tab
+
+        def S_apply(x):
+            xf = torch.where(free, x, 0.0)
+            y = apply_local_matrices(S_tab, plan_s, nV, xf, use_kernel=True)
+            return torch.where(free, y, 0.0)
+
+        colors = color_blocks(blks, nV, eldofs_skel)
+        mgs = MulticolorGS(dofs, mats, colors, nV, cdt, device)
+        for c, g in enumerate(mgs.groups):
+            tables[f"GS color {c} inverses"] = g[2]
+        # the example vector of the JAX package (default_rng(7))
+        rng = np.random.default_rng(7)
+        example = torch.as_tensor(rng.standard_normal(nV),
+                                  device=device).to(cdt) * free
+        coarse_gs, lam, theta = damped_coarse(coarse, S_apply, example,
+                                              target=coarse_target)
+
+        def pre_skel(xs):
+            y = mgs.forward(S_apply, xs, torch.zeros_like(xs))
+            y = y + coarse_gs(xs - S_apply(y))
+            return mgs.backward(S_apply, xs, y)
+
+        parts.update(coarse_only=coarse_gs, S_apply=S_apply, colors=colors,
+                     coarse_lambda=lam, coarse_theta=theta)
+    else:
+        # the blocks rounded to their storage dtype, inverted in f64 and
+        # stored rounded again (the JAX package's block_jacobi on
+        # ``mats`` cast to store_dtype)
+        blk = torch.from_numpy(mats).to(sdt).to(torch.float64).numpy()
+        inv = _stored(np.linalg.inv(blk), sdt, cdt, "cpu")
+        smooth = block_jacobi_inverses(dofs, inv, nV, cdt, device,
+                                       local=True)
+        tables["block-Jacobi inverses"] = smooth.table
+
+        def pre_skel(xs):
+            return smooth(xs) + coarse(xs)
+
+        parts.update(coarse_only=coarse, smooth_only=smooth)
+
+    def preA(x):
+        xf = torch.where(free, x, 0.0)
+        rs = torch.where(free, extT(xf), 0.0)
+        y = ext(pre_skel(rs)) + inner(xf)
+        return torch.where(free, y, x)
+
+    parts.update(pre_skel=pre_skel, tables=tables)
     preA.parts = parts
     return preA
 

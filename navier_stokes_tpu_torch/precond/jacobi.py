@@ -55,12 +55,15 @@ def block_jacobi(blocks_dofs: np.ndarray, block_mats: np.ndarray, ndof: int,
 
 
 def block_jacobi_inverses(blocks_dofs: np.ndarray, inv: torch.Tensor,
-                          ndof: int, dtype=torch.float64, device=None):
+                          ndof: int, dtype=torch.float64, device=None,
+                          local: bool = False):
     """:func:`block_jacobi` from its (nblocks, bmax, bmax) block inverses,
     stored in ``dtype`` on ``device`` (no copy when ``inv`` is that
-    already).  ``apply.table`` is the stored table."""
+    already).  ``local``: float32 blocks through
+    :func:`batched_local_matvec` too, as float64 blocks always are.
+    ``apply.table`` is the stored table."""
     device = resolve_device(device)
-    if dtype == torch.float64:
+    if dtype == torch.float64 or local:
         table = inv.to(device=device, dtype=torch.float64).contiguous()
         product = lambda xb: batched_local_matvec(table, xb)
     else:

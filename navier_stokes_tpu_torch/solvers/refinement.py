@@ -36,7 +36,8 @@ equilibration and the hi/lo split run in f64 on the host; the f32 tables go
 to the device once and serve both solve phases:
 
 * phase 1 (``ops32``): A32 = (A_hi + A_lo) u through one :func:`block_mv2`
-  stream, B32/BT32 likewise, the skeleton preconditioner preA32
+  stream, B32/BT32 likewise (``split=False``: the hi tables alone
+  through :func:`block_mv`), the skeleton preconditioner preA32
   (models/auxspace3d.py) and the pressure-mass preconditioner preM32;
 * phase 2 and the per-pass residuals (``ops_ds``): the same hi/lo tables
   through the compensated double-single kernel :func:`block_mv_comp`, f64
@@ -76,29 +77,42 @@ def split_table(A64: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
-def equilibrated_f32_ops(m, gs: bool = True, split_k: int = 1):
+def equilibrated_f32_ops(m, gs: bool = True, split: bool = True,
+                         with_ds: bool = True, split_k: int = 1):
     """Jacobi-equilibrated operator bundles for a 3D MCS model ``m``
     (:class:`~navier_stokes_tpu_torch.models.NavierStokesMCS`).
 
-    Returns ``(ops32, D, ops_ds)``:
+    Returns ``(ops32, D, ops_ds)``, or ``(ops32, D)`` when ``with_ds`` is
+    False:
 
     * ``ops32`` = dict(A, B, BT, preA, preM) acting in float32 on the SCALED
       velocity u~ = D^{-1} u (pressure unscaled);
     * ``D``: the (n,) float64 scaling on ``m.device``;
     * ``ops_ds`` = dict(A, B, BT): the same equilibrated system in float64
-      through the compensated kernel.
+      through the compensated kernel, from the hi/lo pair whatever
+      ``split``.
 
     Residual mapping for refinement: r~0 = D r0, r~1 = r1; solution mapping
-    dx0 = D dx~0.  This is ``equilibrated_f32_ops(gs, split=True,
-    with_ds=True)`` of the JAX package with bench.py's settings: ``gs``
-    (``BENCH_GS``) picks the symmetric multicolor GS skeleton
-    preconditioner over the additive one; ``split_k`` is ``NSTPU_SPLITK``
-    (1): above 1 the A32 pair, the compensated A, B, BT and the
-    preconditioner's split tables stream through the split-k kernels.  The
+    dx0 = D dx~0.  This is the JAX package's ``equilibrated_f32_ops(m, gs,
+    split, with_ds)`` with bench.py's settings as defaults (the JAX
+    function defaults to ``gs=False, split=False, with_ds=False``):
+    ``split`` streams A32, B32 and BT32 as the hi/lo pair (one
+    :func:`block_mv2` stream each); ``split=False`` streams the hi table
+    alone (:func:`block_mv`).  ``gs`` (``BENCH_GS``) picks the symmetric
+    multicolor GS skeleton preconditioner over the additive one;
+    ``split_k`` is ``NSTPU_SPLITK`` (1): above 1 the A32 pair, the
+    compensated A, B, BT and the preconditioner's split tables stream
+    through the split-k kernels (with ``split`` only).  The
     preconditioner's table storage groups (``NSTPU_SMOOTHER_BF16=ext,inv``)
     and coarse damping target (``NSTPU_COARSE_TARGET=1.6``) are bench.py's,
     the defaults of :func:`~navier_stokes_tpu_torch.models.auxspace3d.
-    build_skeleton_preconditioner_3d`.  Arithmetic is f32."""
+    build_skeleton_preconditioner_3d`.  Arithmetic is f32.  Only the JAX
+    function's face-block branch is ported: every 3D model of both
+    packages has a face-block layout ``m.fb``, and the skeleton
+    preconditioner is 3D only."""
+    if split_k > 1 and not split:
+        raise ValueError("split-k tables are streamed as the hi/lo pair: "
+                         "split_k > 1 needs split=True")
     dev = m.device
     lay = m.fb
     A_loc = m.A_cond_np
@@ -111,19 +125,18 @@ def equilibrated_f32_ops(m, gs: bool = True, split_k: int = 1):
     De = D[eldofs]
     A_s = A_loc * De[:, :, None] * De[:, None, :]
     free = m.free
+    n32 = 2 if split else 1  # tables of the f32 applies: hi (and lo)
+    npack = 2 if split or with_ds else 1  # the lo tables when any op uses them
 
     # one device copy of the hi/lo tables serves phase 1 and phase 2
-    A_hi_np, A_lo_np = split_table(lay.permute_blocks(A_s))
-    shared = lay.pack_elem_tables([A_hi_np, A_lo_np], split_k)
-    del A_hi_np, A_lo_np
-    _A32 = lay.elem_apply_tiled(shared)
-    _A_ds = lay.elem_apply_comp(*shared)
+    A_hi_lo = split_table(lay.permute_blocks(A_s))
+    shared = lay.pack_elem_tables(A_hi_lo[:npack], split_k)
+    del A_hi_lo
+    _A32 = lay.elem_apply_tiled(shared[:n32])
 
     B_sp = (m.B_loc_np * De[:, None, :])[:, :, lay.perm]
-    B_shared = lay.pack_elem_tables(split_table(B_sp))
-    _B32, _BT32 = lay.rect_apply_multi(B_shared, m.Q.element_dofs)
-    _B_ds, _BT_ds = lay.rect_apply_comp(*B_shared, m.Q.element_dofs,
-                                        split_k=split_k)
+    B_shared = lay.pack_elem_tables(split_table(B_sp)[:npack])
+    _B32, _BT32 = lay.rect_apply_multi(B_shared[:n32], m.Q.element_dofs)
 
     def A32(u):
         uf = torch.where(free, u, 0.0)
@@ -135,19 +148,27 @@ def equilibrated_f32_ops(m, gs: bool = True, split_k: int = 1):
     def BT32(p):
         return torch.where(free, _BT32(p), 0.0)
 
-    def A_ds(u):
-        uf = torch.where(free, u, 0.0)
-        return torch.where(free, _A_ds(uf), u)
-
-    def B_ds(u):
-        return _B_ds(torch.where(free, u, 0.0))
-
-    def BT_ds(p):
-        return torch.where(free, _BT_ds(p), 0.0)
-
     # the device tables each apply streams, for kernel checks and timings
-    for op, inner in ((A32, _A32), (B32, _B32), (BT32, _BT32), (A_ds, _A_ds),
-                      (B_ds, _B_ds), (BT_ds, _BT_ds)):
+    ops = [(A32, _A32), (B32, _B32), (BT32, _BT32)]
+    ops_ds = None
+    if with_ds:
+        _A_ds = lay.elem_apply_comp(*shared)
+        _B_ds, _BT_ds = lay.rect_apply_comp(*B_shared, m.Q.element_dofs,
+                                            split_k=split_k)
+
+        def A_ds(u):
+            uf = torch.where(free, u, 0.0)
+            return torch.where(free, _A_ds(uf), u)
+
+        def B_ds(u):
+            return _B_ds(torch.where(free, u, 0.0))
+
+        def BT_ds(p):
+            return torch.where(free, _BT_ds(p), 0.0)
+
+        ops += [(A_ds, _A_ds), (B_ds, _B_ds), (BT_ds, _BT_ds)]
+        ops_ds = dict(A=A_ds, B=B_ds, BT=BT_ds)
+    for op, inner in ops:
         op.tables = inner.tables
 
     preA32 = build_skeleton_preconditioner_3d(
@@ -161,8 +182,10 @@ def equilibrated_f32_ops(m, gs: bool = True, split_k: int = 1):
         return nu32 * p / diag_Mp32
 
     ops32 = dict(A=A32, B=B32, BT=BT32, preA=preA32, preM=preM32)
-    ops_ds = dict(A=A_ds, B=B_ds, BT=BT_ds)
-    return ops32, torch.as_tensor(D, device=dev), ops_ds
+    D_t = torch.as_tensor(D, device=dev)
+    if with_ds:
+        return ops32, D_t, ops_ds
+    return ops32, D_t
 
 
 # -- refinement drivers ------------------------------------------------------

@@ -17,7 +17,8 @@ import torch
 
 from ..ops.block_mv import device_spin
 
-__all__ = ["Timer", "KernelTimer", "per_apply_ms", "graphed"]
+__all__ = ["Timer", "KernelTimer", "per_apply_ms", "host_ms", "graphed",
+           "chain_slope_ms"]
 
 _COVER_CYCLES = 2_000_000  # device spin ahead of each timed call (KernelTimer)
 
@@ -116,18 +117,72 @@ def per_apply_ms(fn, x, k: int = 20) -> float:
     return s.elapsed_time(e) / k
 
 
-def graphed(fn):
-    """``fn()`` captured once as a CUDA graph; returns its replay, which
-    runs the same launches with no host work between them.  Timing the
-    replay times the device alone, as the JAX package's jitted chains do;
-    ``fn`` must not read the device from the host."""
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock milliseconds of ``fn()`` over ``reps`` calls after
+    one warm call, each ending in a synchronize (work that reads the device
+    from the host, as a CG solve)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def graphed(fn, warmup: int = 3):
+    """``fn()`` captured once as a CUDA graph, after ``warmup`` eager calls;
+    returns its replay, which runs the same launches with no host work
+    between them.  Timing the replay times the device alone, as the JAX
+    package's jitted chains do; ``fn`` must not read the device from the
+    host."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capturing stream
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
     return graph.replay
+
+
+def chain_slope_ms(fn, x, k1: int = 10, k2: int = 60, reps: int = 3) -> float:
+    """Device milliseconds per apply of ``fn`` at ``x``: the marginal slope
+    (t(k2) - t(k1)) / (k2 - k1) between two :func:`graphed` chains of k1
+    and k2 applies, each t the median of ``reps`` replays by CUDA events.
+    As the JAX package's microbenchmarks' scalar carry, each apply takes
+    ``x`` times a device scalar (equal to 1) computed from the last output,
+    so the applies run one after the other.  ``fn`` must not read the
+    device from the host: a piece that cannot be captured raises."""
+
+    def chain(k):
+        one = torch.ones((), dtype=x.dtype, device=x.device)
+
+        def run():
+            c = one
+            for _ in range(k):
+                y = fn(x * c)
+                n = torch.linalg.vector_norm(y.reshape(-1)[:512])
+                c = (1.0 + 1e-30 * torch.clamp(n, max=1.0)).to(x.dtype)
+
+        return graphed(run, warmup=1)
+
+    def median_ms(replay):
+        ts = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            replay()
+            e.record()
+            torch.cuda.synchronize()
+            ts.append(s.elapsed_time(e))
+        return statistics.median(ts)
+
+    t1 = median_ms(chain(k1))
+    t2 = median_ms(chain(k2))
+    return (t2 - t1) / (k2 - k1)

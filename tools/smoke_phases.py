@@ -10,13 +10,18 @@ Reynolds-number ensemble: ``[sweep]`` on the curved f64 model at maxh 0.09,
 built here, from u = u_bc where chip_smoke.py starts from the flagship
 solution), ``ns-sweep`` (the parameter-sweep harness:
 ``[ns-sweep]``) and ``shard`` (the sharded solves on torch.distributed:
-``[shard]``, on the curved f64 model at maxh 0.09 built here).  Prints the
-kernels' JSON entries of the phases run.  Exits 1 when a phase fails.
+``[shard]``, on the curved f64 model at maxh 0.09 built here),
+``skeleton-slow`` (the dof-level skeleton preconditioner at maxh 0.35:
+``[skeleton-slow]``) and ``probes`` (the attribution scripts on the
+flagship solver and its f32 twin at maxh 0.09, built here: ``[probes]``).
+Prints the kernels' JSON entries of the phases run.  Exits 1 when a phase
+fails.
 
     python3 tools/smoke_phases.py [--phases cuda-tests,stokes,heat]
         [--heat-steps 5]
     python3 tools/smoke_phases.py --phases sweep,ns-sweep
     python3 tools/smoke_phases.py --phases shard
+    python3 tools/smoke_phases.py --phases skeleton-slow,probes
 """
 
 import argparse
@@ -62,7 +67,8 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     names = {"stokes": "batched_local_matvec_f64_stokes",
              "heat": "batched_local_matvec_f64_heat",
-             "sweep": "batched_local_matvec_f64_sweep"}
+             "sweep": "batched_local_matvec_f64_sweep",
+             "skeleton-slow": "batched_local_matvec_f64_skeleton"}
     reports = {n: cs.KernelReport(n, f"{cs.PALLAS_LOCAL}:26", cs.SRC_LOCAL,
                                   cs.F64_FLOPS_PER_S)
                for n in list(names.values())
@@ -111,6 +117,30 @@ def main(argv=None) -> int:
                                   ("batched_local_matvec_f64_shard",
                                    "batched_local_matvec_f64")):
                     entries.append(reports[name].entry(launches.get(key, 0)))
+                cs.log(f"[time] {phase} {secs:.1f} s")
+                continue
+            elif phase == "skeleton-slow":
+                secs, launches = cs.skeleton_slow_phase(torch, bm, lm, timer,
+                                                        gen, reports)
+            elif phase == "probes":
+                from navier_stokes_tpu_torch.flagship import (
+                    FlagshipSolve,
+                    build_model,
+                )
+
+                t0 = time.perf_counter()
+                cache = {}
+                m = build_model(cs.MAXH, order=cs.ORDER, nu=cs.NU,
+                                device="cuda", assembly_cache=cache)
+                m32 = build_model(cs.MAXH, order=cs.ORDER, nu=cs.NU,
+                                  device="cuda", assembly_cache=cache,
+                                  mesh=m.mesh, geometry=m.geometry,
+                                  dtype=torch.float32)
+                solver = FlagshipSolve(m, tol=cs.TOL)
+                cs.log(f"[probes] curved model, f32 twin and flagship ops at "
+                       f"maxh {cs.MAXH}: {time.perf_counter() - t0:.1f} s")
+                secs = cs.probes_phase(solver, m32)
+                del solver, m, m32
                 cs.log(f"[time] {phase} {secs:.1f} s")
                 continue
             elif phase == "ns-sweep":
