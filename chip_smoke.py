@@ -11,7 +11,10 @@ phases; any failed phase ends the run with a non-zero exit:
    and print the build seconds and the card;
 2. cuda-tests: ``python -m pytest --noconftest -m cuda
    tests/test_torch_cuda.py`` from the repository root -- the card-only
-   tests, which import no JAX -- must pass all 40 cases, none skipped;
+   tests, which import no JAX -- must pass all 44 cases, none skipped.
+   They run in a process of their own while step 3 builds the models on
+   the host, and are waited for before the first timed kernel check, so
+   the setup seconds of step 3 are taken beside them (its lines say so);
 3. setup: the mesh, then the MAIN PATH's configuration -- bench.py's
    default: order-3 curved cylinder (335 curved tets), symmetric multicolor
    block-GS skeleton preconditioner, bf16 extension and inverse tables,
@@ -123,18 +126,27 @@ phases; any failed phase ends the run with a non-zero exit:
     (additive 1e-7; GS a gap under 0.5, both symmetric to 1e-8), kernel 8
     in f64 launched in one apply of each and checked on its square tables,
     and the per-apply ms of the slow and the fast preA;
-14. microbench: the two ported microbenchmark scripts
+14. microbench: the ported microbenchmark scripts
     (``navier_stokes_tpu_torch.scripts.microbench_dma`` on the
     7740 x 54 x 54 f32 table, ``microbench_apply2`` at maxh=0.09) with the
     launch counters set to 0 just before; each of the five table-stream
     wrappers must have launched, and the split-k variants must be bitwise
-    equal to ``block_mv``;
+    equal to ``block_mv``; then ``microbench_apply`` (y = A u by gather +
+    kernel 8 + scatter, by the face-block apply through kernel 8 and
+    kernel 1, and the einsum alone, with TF32 on and off) and
+    ``microbench_apply3`` (kernel 1 and kernel 2 against the einsums,
+    alone and in the face apply) at maxh=0.09, the counters set to 0
+    again: kernels 1, 2 and 8 (f32) must launch, every deviation within
+    its script's bound;
 15. amg: at maxh=0.04 (5,859 free velocity-P1 vertices, above the dense
     limit of 5,000, so both coarse solves are SA-AMG V-cycles):
     AMG-preconditioned CG on the P1 stiffness to 1e-8 in under 40
     iterations with the V-cycle symmetric to 1e-10, the curved GS flagship
     solve cold and warm to a true f64 residual <= 1.01e-8, and one cold and
-    three warm float32 transient steps;
+    three warm float32 transient steps.  The two-rank face-sharded solve of
+    step 20 runs in a process of its own beside this step's host setup
+    (lines marked "beside [shard-face]") and is waited for before its
+    first solve;
 16. hdg3d: ``NavierStokesHDG3D`` at the demo's configuration
     (scripts/navier_stokes_3d.py --hdg, the reference's
     NavierStokesSIMPLE_test_3D.py: the straight channel at maxh=0.09,
@@ -213,12 +225,35 @@ phases; any failed phase ends the run with a non-zero exit:
     JAX rule max(10, 0.1 n) of the single-device 358, the launch counters
     set to 0 just before and read after; world size 2: two gloo ranks on
     the one card (the port stages each collective through host memory),
-    the face-sharded solve at maxh 0.35 with the JAX package's sharded
-    tables and the dd solve of the 2D vertexstar model at maxh 0.3, each
+    the dd solve of the 2D vertexstar model at maxh 0.3 and
+    ([shard-face], in a process of its own during step 15) the
+    face-sharded solve at maxh 0.35 with the JAX package's sharded tables
+    at its sharded parity test's settings (two passes, tol 1e-6), each
     held to the JAX package's count at 2 shards
     (tools/jax_faceshard_reference.py); setup and solve seconds, inner
     iterations, passes, halo against owned face rows and collective calls
-    per inner iteration printed.
+    per inner iteration printed;
+21. graft: ``__graft_entry__``'s entry points as the port has them
+    (``navier_stokes_tpu_torch.graft_entry``): ``entry()``'s float32 step
+    of the 2D MCS model at maxh 0.25 on the card (kernel 8 must launch)
+    and on the CPU from the same state, within GRAFT_STEP_BOUND, their CG
+    counts within one; then, on a machine of several cards,
+    ``dryrun_multichip`` over all of them (four NCCL ranks on a four-card
+    one): the face-sharded 2-phase solve of the straight 3D channel at
+    maxh 0.35 to 1e-8, its inner count held to the JAX package's at that
+    world size (GRAFT_JAX), kernels 1, 2 and 8 launched, and the
+    Taylor-Hood batch step split over the ranks.  On one card the dry run's
+    spatial half at world size 1 is the same in-process NCCL solve as step
+    20's world size 1, so only its data-parallel half runs here (NCCL, one
+    rank in this process); ``tools/smoke_phases.py --phases graft`` runs
+    the whole dry run at any card count;
+22. dd3d: the dd solve's 3D branch (tests/test_parallel.py's 3D case, the
+    face+interior block smoother) at maxh 0.35, world size 1 (NCCL):
+    kernel 8 in f64 on the rank's A, B, B^T and block-inverse tables
+    against its plain version, ``ddshard.sharded_flagship_solve`` to 1e-8
+    (kernel 8 must launch) against the model's own ``SolveInitial(GS=
+    False)``: both converged, counts within max(5, 0.02 n), velocities
+    within 2e-3 of max |u| (the JAX test's bounds).
 
 The kernel checks of phase 4 also cover ``batched_local_matvec`` (float32
 and float64, each its own entry of the kernels line, on the mass,
@@ -246,6 +281,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -297,7 +333,7 @@ PROJECT_TOL32, PROJECT_TOL64, MSTAR_TOL = 1e-5, 1e-9, 1e-4
 SLOW_MAXH, SLOW_CARD_CPU = 0.35, 1e-12
 # [cuda-tests]: the card-only tests, JAX-free, run from the repository alone
 CUDA_TESTS = "tests/test_torch_cuda.py"
-CUDA_TEST_CASES = 42  # 26 tests, 42 cases with their parameters
+CUDA_TEST_CASES = 44  # 27 tests, 44 cases with their parameters
 # [bpcg]: the 3D model's own BPCG SolveInitial (auxspace GS, f64) on the
 # curved model at maxh=0.09, and the two faceblock variants on the shortened
 # channel of tests/test_navier_stokes_mcs3d.py:_channel3d
@@ -542,16 +578,18 @@ SWEEP_TIGHT_TOL = dict(max_abs_u=1e-9, dist_u0=1e-9, dist_u_bc=1e-9,
 # package's rule |d| <= max(10, 0.1 n) (tests/test_faceshard.py).  World
 # size 2: two gloo ranks on the one card (NCCL refuses two ranks on one
 # GPU; the port stages each collective's CUDA tensors through host memory
-# itself), the JAX package's sharded tables (f32, coarse target 0.9, as
-# computed) at SHARD_SMALL_MAXH, MULTICHIP_r05's size, with the JAX host's
-# element-interior functions (SWEEP_SMALL_BASES), at the settings of the
-# JAX package's sharded parity test (SHARD_SMALL_KW, tests/
-# test_faceshard.py: the 2-phase solve to 1e-8 took 125 s of staged
-# exchanges on one host, 908 inner against JAX's 932), and the dd solve of
-# the 2D vertexstar model at SHARD_DD_MAXH with the JAX package's k, each
-# held to the JAX package's count at 2 shards
-# (tools/jax_faceshard_reference.py on the CPU, runs card and dd: the face
-# solve by the same rule, the dd solve within 3)
+# itself): the dd solve of the 2D vertexstar model at SHARD_DD_MAXH with
+# the JAX package's k, held within 3 of the JAX package's count at 2
+# shards; and [shard-face], the JAX package's sharded tables (f32, coarse
+# target 0.9, as computed) at SHARD_SMALL_MAXH, MULTICHIP_r05's size, with
+# the JAX host's element-interior functions (SWEEP_SMALL_BASES), at the
+# settings of the JAX package's sharded parity test (SHARD_SMALL_KW,
+# tests/test_faceshard.py: two refinement passes), held to the JAX
+# package's count at 2 shards by the same rule as world size 1
+# (tools/jax_faceshard_reference.py on the CPU, runs card and dd).  Its
+# 60-115 s are staged host exchanges, so it runs in a process of its own
+# (tools/smoke_phases.py --phases shard-face) beside [amg]'s host setup,
+# and is waited for before [amg]'s first timed solve
 SHARD_MAIN_INNER = 358
 SHARD_INNER = dict(inner_tol=5e-7, inner_maxsteps=800)
 SHARD_BENCH_TABLES = dict(symmetrize=True, coarse_target=1.6)
@@ -563,6 +601,45 @@ SHARD_JAX = dict(
               halo_rows=(2377, 530), own_rows=(3744, 3214)),
     dd=dict(iterations=311, scale_k=35.6798441458756, tol=1e-9))
 SHARD_DD_DIFF = 1e-6  # velocity against the single-device SolveInitial
+# [graft]: __graft_entry__'s entry points (navier_stokes_tpu_torch.
+# graft_entry).  entry()'s float32 step of the 2D MCS model at maxh 0.25 on
+# the card and on the CPU (plain versions) from one state, within
+# GRAFT_STEP_BOUND of max |u| (kernel 8 and its plain version sum in
+# different orders; tests/test_torch_graft_entry.py holds the port to the
+# JAX package within 1e-6 on the CPU), the M* and projection CG counts
+# within one of each other.  Then
+# dryrun_multichip(torch.cuda.device_count()): the face-sharded 2-phase
+# solve of the straight 3D channel at maxh 0.35 to 1e-8 (with the JAX
+# host's element-interior functions, SWEEP_SMALL_BASES), its inner count
+# held by shard_match to the JAX package's at the same world size
+# (tools/jax_faceshard_reference.py --parts graft --graft-shards 1,4, the
+# JAX package on 1 and 4 virtual CPU devices; 125 s and 155 s there), and
+# the Taylor-Hood batch step split over the ranks, on four NCCL ranks on a
+# four-card machine.  On one card chip_smoke.py runs the batch step alone
+# (NCCL, one rank in this process): the spatial half at world size 1 is
+# [shard]'s world-size-1 solve on another model, and
+# tools/smoke_phases.py --phases graft runs it (GRAFT_JAX[1])
+GRAFT_STEP_BOUND = 1e-5
+GRAFT_JAX = {
+    1: dict(inner=991, passes=(3, 0), rel=1.9197279511821796e-12,
+            halo_rows=(0,), own_rows=(6958,)),
+    4: dict(inner=974, passes=(3, 0), rel=1.6810812163700603e-12,
+            halo_rows=(1688, 1919, 643, 764),
+            own_rows=(1960, 1784, 1695, 1519)),
+}
+# [dd3d]: tests/test_parallel.py's 3D dd case (the straight channel at maxh
+# 0.35, order 2, the faceblock preconditioner, float64): the dof-sharded
+# BPCG solve (ddshard.sharded_flagship_solve) at world size 1 (NCCL, this
+# process) to DD3D_TOL against the model's own SolveInitial(GS=False) to
+# the same tol, with the JAX test's bounds: both converged, the counts
+# within max(5, 0.02 n), the sharded velocity within DD3D_DIFF of max |u|.
+# The JAX package's counts beside them (tools/jax_faceshard_reference.py
+# --parts dd3d): 2,079 single; 2,278 sharded on 1 virtual device, whose
+# Lanczos k (244.637) starts from a random vector of the padded sharded
+# length -- outside its own 2% band there; 8.95e-4 of max |u| apart
+DD3D_MAXH, DD3D_TOL, DD3D_MAXSTEPS, DD3D_DIFF = 0.35, 1e-8, 6000, 2e-3
+DD3D_JAX = dict(single=2079, sharded=2278, scale_k=244.63652753521004,
+                diff=0.0008951549643574789)
 NS_SWEEP_TOL = 1e-10
 NS_SWEEP_JAX = {
     (0.125, 3, True): (138, 14.443043112317604),
@@ -587,6 +664,12 @@ EDGE_SPLITK = ((37, 6, 7, 8), (300, 54, 54, 8), (301, 4, 54, 16),
 EDGE_LOCAL = ((700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
               (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
               (3001, 4, 2), (5, 130, 3), (1, 1, 1))
+# kernel 8 on rectangular blocks, as the CPU tests (ne, nout, nin, offset):
+# the dd solve's B and B^T shapes, a CTA's rows over many elements or a
+# part of one, odd widths, views off a 16-byte boundary
+EDGE_RECT = ((300, 4, 54, 0), (300, 54, 4, 0), (77, 13, 5, 0),
+             (5, 1, 130, 0), (3, 130, 1, 0), (300, 4, 54, 1),
+             (77, 5, 13, 3), (301, 54, 4, 2))
 # kernels 1 and 2 at one sub-table, as the card tests (nblk, m, k): m * k
 # not whole 16-byte units, odd k in bf16, one block, stretches ending
 # mid-block, blocks wider than a CTA's rows, rows of an even number of
@@ -925,12 +1008,16 @@ def check_splitk(torch, bm, timer, rep, label, kind, tabs, k, tile, gen,
 
 def check_local_mv(torch, lm, timer, rep, label, A, gen):
     """``batched_local_matvec`` on the (ne, nb, nb) table ``A`` (f32 or
-    f64) against its plain version: within 2e-6 (f32) or 1e-13 (f64) of
-    sum_j |a_ij u_j|.  The yardstick is one ``torch.bmm``."""
-    ne, nb, _ = A.shape
+    f64; ``batched_local_matvec_rect`` on a rectangular (ne, nout, nin)
+    one) against its plain version: within 2e-6 (f32) or 1e-13 (f64) of
+    sum_j |a_ij u_j|.  The bound counts the table, u and y as they are.
+    The yardstick is one ``torch.bmm``."""
+    ne, nout, nin = A.shape
     f64 = A.dtype == torch.float64
-    u = torch.randn((ne, nb), generator=gen, device="cuda", dtype=A.dtype)
-    y = lm.batched_local_matvec(A, u)
+    mv = (lm.batched_local_matvec if nout == nin
+          else lm.batched_local_matvec_rect)
+    u = torch.randn((ne, nin), generator=gen, device="cuda", dtype=A.dtype)
+    y = mv(A, u)
     y_ref = lm.batched_local_matvec_plain(A, u)
     torch.cuda.synchronize()
     scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
@@ -941,7 +1028,7 @@ def check_local_mv(torch, lm, timer, rep, label, A, gen):
     check(bool(torch.isfinite(y).all()), f"{name}: non-finite")
     check(worst <= tol, f"{name}: {worst:.2e} > {tol:.0e} of sum|a u|")
     ub = u[:, :, None]
-    ms = timer(lambda: lm.batched_local_matvec(A, u))
+    ms = timer(lambda: mv(A, u))
     plain_ms = timer(lambda: lm.batched_local_matvec_plain(A, u))
     lib_ms = timer(lambda: torch.bmm(A, ub))
     nb_ = nbytes(A, u, y)
@@ -969,9 +1056,10 @@ def check_edges(torch, bm, lm):
       ``block_mv_comp`` on the unsplit table, kernels 5 and 6 within 1e-5
       of sum_j |a_ij x_j| of their plain versions, kernel 7 within 1e-12 of
       the row scale of the f64 product;
-    * kernel 8 on ``EDGE_LOCAL`` in both types, on views that start 0, 4,
-      8 or 12 bytes past a 16-byte boundary, within 2e-6 (f32) or 1e-13
-      (f64) of sum_j |a_ij u_j| of its plain version."""
+    * kernel 8 on ``EDGE_LOCAL`` (square) and ``EDGE_RECT`` (rectangular)
+      in both types, on views that start 0, 4, 8 or 12 bytes past a
+      16-byte boundary, within 2e-6 (f32) or 1e-13 (f64) of
+      sum_j |a_ij u_j| of its plain version."""
     import numpy as np
 
     def row_scale(A, x):
@@ -1098,22 +1186,25 @@ def check_edges(torch, bm, lm):
             n7 += 1
     n8 = 0
     for dt in (torch.float32, torch.float64):
-        for ne, nb, off in EDGE_LOCAL:
+        for ne, nout, nin, off in ([(ne, nb, nb, off)
+                                    for ne, nb, off in EDGE_LOCAL]
+                                   + list(EDGE_RECT)):
             def view(*shape):
                 n = int(np.prod(shape))
                 flat = torch.as_tensor(rng.standard_normal(off + n),
                                        device="cuda").to(dt)
                 return flat[off:].view(shape)
 
-            A, u = view(ne, nb, nb), view(ne, nb)
-            y = lm.batched_local_matvec(A, u)
+            A, u = view(ne, nout, nin), view(ne, nin)
+            y = (lm.batched_local_matvec if nout == nin
+                 else lm.batched_local_matvec_rect)(A, u)
             d = (y - lm.batched_local_matvec_plain(A, u)).abs().double()
             scale = torch.einsum("eij,ej->ei", A.double().abs(),
                                  u.double().abs()).clamp_min(1e-300)
             worst = float((d / scale).max())
             tol = 1e-13 if dt == torch.float64 else 2e-6
             check(bool(torch.isfinite(y).all()) and worst <= tol,
-                  f"batched_local_matvec {(ne, nb)} {str(dt)[6:]} at "
+                  f"batched_local_matvec {(ne, nout, nin)} {str(dt)[6:]} at "
                   f"{off * A.element_size()} bytes: {worst:.2e} > {tol:.0e}")
             n8 += 1
     log(f"[kernels] edges: block_mv on {n1} tables (f32 and bf16) and "
@@ -1124,7 +1215,8 @@ def check_edges(torch, bm, lm):
         f"block_mv_splitk on {n5} split tables (f32 and "
         f"bf16) bitwise = block_mv; block_mv2_splitk on {n6} bitwise = "
         f"block_mv2; block_mv_comp_splitk on {n7} bitwise = block_mv_comp; "
-        f"batched_local_matvec on {n8} tables within tolerance")
+        f"batched_local_matvec on {n8} tables (square and rectangular) "
+        "within tolerance")
 
 
 def check_ds(torch, bm, timer, rep, label, A_hi, A_lo, gen):
@@ -1350,28 +1442,42 @@ def ds_phase(torch, bm, solver, res):
     return launches
 
 
-def cuda_tests_phase(here):
-    """[cuda-tests]: ``python -m pytest --noconftest -m cuda`` on the
-    JAX-free card-test file, from the repository root; every case must
-    pass (none skipped)."""
-    import re
+# processes this script started; main() ends any still running
+CHILDREN = []
 
+
+def cuda_tests_start(here):
+    """Start ``python -m pytest --noconftest -m cuda`` on the JAX-free
+    card-test file, from the repository root, in the background; returns
+    (process, start time) for :func:`cuda_tests_phase`."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
            CUDA_TESTS, "-q", "-p", "no:cacheprovider"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
-                         timeout=900)
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def cuda_tests_phase(here, started=None):
+    """[cuda-tests]: the card tests (started here, or the ``started``
+    (process, start time) of :func:`cuda_tests_start`), waited for; every
+    case must pass (none skipped).  Returns the seconds since the start."""
+    import re
+
+    proc, t0 = started or cuda_tests_start(here)
+    stdout, stderr = proc.communicate(timeout=900)
     secs = time.perf_counter() - t0
-    lines = out.stdout.strip().splitlines()
+    lines = stdout.strip().splitlines()
     tail = lines[-1] if lines else ""
     log(f"[cuda-tests] python -m pytest --noconftest -m cuda {CUDA_TESTS}: "
-        f"rc {out.returncode}, {tail} ({secs:.1f} s)")
+        f"rc {proc.returncode}, {tail} ({secs:.1f} s since its start)")
     passed = re.search(r"(\d+) passed", tail)
-    ok = (out.returncode == 0 and passed is not None
+    ok = (proc.returncode == 0 and passed is not None
           and int(passed.group(1)) == CUDA_TEST_CASES
           and not re.search(r"failed|error|skipped|xfail|xpass", tail))
     if not ok:
-        for line in (lines + out.stderr.strip().splitlines())[-60:]:
+        for line in (lines + stderr.strip().splitlines())[-60:]:
             log(f"  [cuda-tests] {line}")
     check(ok, f"[cuda-tests] expected {CUDA_TEST_CASES} passed, got: {tail}")
     return secs
@@ -1839,11 +1945,18 @@ def check_stream_edges(torch, bm, sm):
 
 
 def microbench_phase(bm):
-    """Both ported microbenchmark scripts at full width, with the launch
-    counters set to 0 just before; each of the five wrappers must have
-    launched.  Returns the launch counts."""
+    """The ported microbenchmark scripts at full width.  microbench_dma and
+    microbench_apply2 with the launch counters set to 0 just before: each
+    of the five table-stream wrappers must have launched.  Then
+    microbench_apply and microbench_apply3 at maxh 0.09, the counters set
+    to 0 again: kernels 1, 2 and 8 (f32) must launch, every line must be
+    timed, and each script raises where a deviation leaves its bound
+    (TF32 on and off for microbench_apply's library line).  Returns the
+    launch counts of the first two scripts."""
     from navier_stokes_tpu_torch.scripts import (
+        microbench_apply,
         microbench_apply2,
+        microbench_apply3,
         microbench_dma,
     )
 
@@ -1866,14 +1979,42 @@ def microbench_phase(bm):
                key=lambda r: r["ms"])
     log(f"[microbench] fastest variant: {best['label']} {best['ms']:.4f} ms "
         f"({best['share']:.3f} of bound)")
+
+    bm.reset_launches()
+    log(f"[microbench] scripts.microbench_apply.main({MAXH})")
+    rows3 = microbench_apply.main(MAXH)
+    log(f"[microbench] scripts.microbench_apply3.main({MAXH})")
+    rows4 = microbench_apply3.main(MAXH)
+    launches2 = dict(bm.LAUNCHES)
+    log(f"[microbench] microbench_apply[3] launches {launches2}")
+    check(all(r["ms"] is not None and r["ms"] > 0 and r["graph_ms"] > 0
+              for r in rows3 + rows4),
+          "[microbench] a microbench_apply[3] line was not timed")
+    for name in ("block_mv", "block_mv2", "batched_local_matvec"):
+        check(launches2[name] > 0, f"{name} never launched in "
+              "microbench_apply[3]")
+    for r in rows3:
+        check(r["dev"] is None or r["dev"] <= r["bound"],
+              f"[microbench] {r['label']} ({r['precision']}): {r['dev']}")
+    check(all(r["dev"] is None or r["dev"] <= microbench_apply2.DEV_TOL
+              for r in rows4), "[microbench] microbench_apply3 deviates")
+    lib = {r["precision"]: r["graph_ms"] for r in rows3
+           if r["label"] == "einsum only"}
+    log(f"[microbench] einsum only (bmm) chained: TF32 on {lib['default']:.4f}"
+        f" ms, off {lib['highest']:.4f} ms")
     return launches
 
 
-def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
+def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry,
+              shard_face=None):
     """The SA-AMG coarse solve on a mesh whose P1 coarse spaces exceed the
     dense limit of 5,000 free vertices: (a) AMG-preconditioned CG on the P1
     stiffness, (b) the curved GS flagship solve cold and warm, (c) one cold
-    and three warm f32 transient steps."""
+    and three warm f32 transient steps.  ``shard_face``: the started
+    [shard-face] process (:func:`shard_face_start`), which runs beside (a)
+    and (b)'s host setup (their seconds are marked so) and is waited for
+    before (b)'s first solve.  Returns :func:`shard_face_wait`'s (seconds,
+    waited), or None."""
     import numpy as np
 
     from navier_stokes_tpu_torch.fem.spaces import H1
@@ -1884,6 +2025,7 @@ def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
     from navier_stokes_tpu_torch.precond.amg import build_sa_amg
     from navier_stokes_tpu_torch.solvers.cg import cg
 
+    beside = " (beside [shard-face])" if shard_face else ""
     t0 = time.perf_counter()
     mesh = channel_with_cylinder_mesh_3d(AMG_MAXH)
     space = H1(mesh, 1, dirichlet="inlet|wall|cyl")
@@ -1918,8 +2060,8 @@ def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
     plain = cg(A, b, tol=1e-8, maxsteps=2000)
     a1, a2 = float(torch.dot(pre(x), y)), float(torch.dot(x, pre(y)))
     true_rel = float(torch.linalg.norm(b - A(res.x)) / torch.linalg.norm(b))
-    log(f"[amg] (a) build_sa_amg {t_amg:.1f} s, {pre.levels} ELL levels; "
-        f"PCG to 1e-8 in {res.iterations} iterations (plain CG "
+    log(f"[amg] (a) build_sa_amg {t_amg:.1f} s{beside}, {pre.levels} ELL "
+        f"levels; PCG to 1e-8 in {res.iterations} iterations (plain CG "
         f"{plain.iterations}), |b - K x|/|b| {true_rel:.3e}; symmetry "
         f"|<Px,y> - <x,Py>| / |<Px,y>| = {abs(a1 - a2) / abs(a1):.3e}")
     check(res.converged and res.iterations < 40,
@@ -1944,12 +2086,13 @@ def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
     t_ops = time.perf_counter() - t0
     parts = solver.ops32["preA"].parts
     log(f"[amg] (b) {len(geo.curved_elements)} curved tets, ndof={m.n}+"
-        f"{m.Q.ndof}; model build {t_model:.1f} s, GS ops {t_ops:.1f} s, "
-        f"{len(parts['groups'])} colors, coarse AMG levels "
+        f"{m.Q.ndof}; model build {t_model:.1f} s, GS ops {t_ops:.1f} "
+        f"s{beside}, {len(parts['groups'])} colors, coarse AMG levels "
         f"{parts['coarse_amg_levels']}, coarse lambda "
         f"{parts['coarse_lambda']:.4f}")
     check(parts["coarse_amg_levels"] >= 1,
           "[amg] the skeleton preconditioner took the dense coarse inverse")
+    face = shard_face_wait(shard_face) if shard_face else None
     cold, launches = solve_and_check(torch, bm, solver, "amg curved GS cold")
     warm, _ = solve_and_check(torch, bm, solver, "amg curved GS warm")
     for name in ("block_mv", "block_mv2", "block_mv_comp"):
@@ -1992,6 +2135,7 @@ def amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry):
     check(max(pr_) < 2000 and max(ms_) < 2000, "[amg] a CG ran into maxsteps")
 
     projection_check(torch, m32, u, "[amg] (c)")
+    return face
 
 
 def repeat_phase(torch, m, step):
@@ -3158,16 +3302,14 @@ def shard_phase(torch, bm, lm, timer, gen, reports, m):
     bench.py's inner settings, the launch counters set to 0 just before it
     and read just after (kernels 1, 2 and 8 must launch): a true f64
     residual <= TOL, the inner count within the JAX rule of 358.  World
-    size 2 (two gloo ranks on the one card): the face-sharded solve at
-    SHARD_SMALL_MAXH (SHARD_SMALL_KW) and the dd solve on the 2D
-    vertexstar model at SHARD_DD_MAXH, each held to the JAX package's
-    count, the face solve's true residual <= its tol, the dd velocity
-    within SHARD_DD_DIFF of the single-device SolveInitial.  A failed rank
-    fails the phase.  Returns (seconds, launches of the world size 1
-    solve)."""
+    size 2 (two gloo ranks on the one card): the dd solve on the 2D
+    vertexstar model at SHARD_DD_MAXH, held to the JAX package's count,
+    its velocity within SHARD_DD_DIFF of the single-device SolveInitial
+    (the face-sharded solve on two ranks is :func:`shard_face_phase`, in a
+    process of its own).  A failed rank fails the phase.  Returns
+    (seconds, launches of the world size 1 solve)."""
     import torch.distributed as dist
 
-    from navier_stokes_tpu_torch.flagship import build_model
     from navier_stokes_tpu_torch.mesh import channel_with_cylinder_mesh
     from navier_stokes_tpu_torch.models import NavierStokesMCS
     from navier_stokes_tpu_torch.parallel import ddshard, faceshard
@@ -3279,35 +3421,6 @@ def shard_phase(torch, bm, lm, timer, gen, reports, m):
 
     # world size 2: gloo, both ranks on cuda:0
     ranks = Ranks(SHARD_RANKS, backend="gloo", device="cuda:0", threads=2)
-    tag = f"[shard] world size {SHARD_RANKS} (gloo), maxh={SHARD_SMALL_MAXH}"
-    t0 = time.perf_counter()
-    with carried_cell_bases(SWEEP_SMALL_BASES):
-        ms = build_model(SHARD_SMALL_MAXH, order=ORDER, nu=NU,
-                         device="cuda", curved=False)
-    log(f"{tag}: model {time.perf_counter() - t0:.1f} s, ndof "
-        f"{ms.n}+{ms.Q.ndof}")
-    t0 = time.perf_counter()
-    (xu, xp), rel, passes, inner, plan = \
-        faceshard.sharded_fast_flagship_solve(ms, ranks, **SHARD_SMALL_KW)
-    t_call = time.perf_counter() - t0
-    true = shard_true_rel(torch, ms, torch.as_tensor(xu, device="cuda"),
-                          torch.as_tensor(xp, device="cuda"))
-    jf = SHARD_JAX["face"]
-    log(f"{tag} sharded_fast_flagship_solve: inner {inner}, passes "
-        f"{passes}, driver rel {rel:.3e}, true f64 rel {true:.3e}, "
-        f"{t_call:.1f} s with the ranks' start (JAX at 2 shards: inner "
-        f"{jf['inner']}, passes {jf['passes']}, rel {jf['rel']:.3e}, halo "
-        f"{jf['halo_rows']} against owned {jf['own_rows']})")
-    shard_stats(tag, plan, inner, plan.run_stats)
-    check(true <= SHARD_SMALL_KW["tol"] and math.isfinite(true),
-          f"{tag}: true residual {true:.3e}")
-    check(shard_match(inner, jf["inner"]),
-          f"{tag}: {inner} inner iterations, JAX {jf['inner']}")
-    for name in ("block_mv", "block_mv2", "batched_local_matvec_f64"):
-        check(plan.run_stats["launches"].get(name, 0) > 0,
-              f"{tag}: {name} never launched in rank 0")
-    del ms
-
     tag = (f"[shard] world size {SHARD_RANKS} (gloo), dd, 2D "
            f"maxh={SHARD_DD_MAXH}")
     jd = SHARD_JAX["dd"]
@@ -3337,6 +3450,285 @@ def shard_phase(torch, bm, lm, timer, gen, reports, m):
           f"{tag}: kernel 8 never launched in rank 0")
     secs = time.perf_counter() - t_phase
     log(f"[shard] phase {secs:.1f} s")
+    return secs, launches
+
+
+def shard_face_phase(torch):
+    """[shard-face]: the face-sharded solve on two gloo ranks on the one
+    card at SHARD_SMALL_MAXH with SHARD_SMALL_KW (the JAX package's sharded
+    parity test's settings): the true f64 residual <= its tol, the inner
+    count held to the JAX package's at 2 shards by ``shard_match``, kernels
+    1, 2 and 8 (f64) launched in rank 0.  ``chip_smoke.py`` runs it in a
+    process of its own (:func:`shard_face_start`).  Returns its seconds."""
+    from navier_stokes_tpu_torch.flagship import build_model
+    from navier_stokes_tpu_torch.parallel import faceshard
+    from navier_stokes_tpu_torch.parallel.sharding import Ranks
+
+    t_phase = time.perf_counter()
+    ranks = Ranks(SHARD_RANKS, backend="gloo", device="cuda:0", threads=2)
+    tag = f"[shard] world size {SHARD_RANKS} (gloo), maxh={SHARD_SMALL_MAXH}"
+    t0 = time.perf_counter()
+    with carried_cell_bases(SWEEP_SMALL_BASES):
+        ms = build_model(SHARD_SMALL_MAXH, order=ORDER, nu=NU,
+                         device="cuda", curved=False)
+    log(f"{tag}: model {time.perf_counter() - t0:.1f} s, ndof "
+        f"{ms.n}+{ms.Q.ndof}")
+    t0 = time.perf_counter()
+    (xu, xp), rel, passes, inner, plan = \
+        faceshard.sharded_fast_flagship_solve(ms, ranks, **SHARD_SMALL_KW)
+    t_call = time.perf_counter() - t0
+    true = shard_true_rel(torch, ms, torch.as_tensor(xu, device="cuda"),
+                          torch.as_tensor(xp, device="cuda"))
+    jf = SHARD_JAX["face"]
+    log(f"{tag} sharded_fast_flagship_solve: inner {inner}, passes "
+        f"{passes}, driver rel {rel:.3e}, true f64 rel {true:.3e}, "
+        f"{t_call:.1f} s with the ranks' start (JAX at 2 shards: inner "
+        f"{jf['inner']}, passes {jf['passes']}, rel {jf['rel']:.3e}, halo "
+        f"{jf['halo_rows']} against owned {jf['own_rows']})")
+    shard_stats(tag, plan, inner, plan.run_stats)
+    check(true <= SHARD_SMALL_KW["tol"] and math.isfinite(true),
+          f"{tag}: true residual {true:.3e}")
+    check(shard_match(inner, jf["inner"]),
+          f"{tag}: {inner} inner iterations, JAX {jf['inner']}")
+    for name in ("block_mv", "block_mv2", "batched_local_matvec_f64"):
+        check(plan.run_stats["launches"].get(name, 0) > 0,
+              f"{tag}: {name} never launched in rank 0")
+    secs = time.perf_counter() - t_phase
+    log(f"[shard-face] phase {secs:.1f} s")
+    return secs
+
+
+def shard_face_start(here):
+    """Start ``tools/smoke_phases.py --phases shard-face`` in a process of
+    its own (and its own session, so that its rank processes can be ended
+    with it), its output to a temporary file; returns (process, that
+    file, start time) for :func:`shard_face_wait`."""
+    import tempfile
+
+    cmd = [sys.executable, os.path.join(here, "tools", "smoke_phases.py"),
+           "--phases", "shard-face"]
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(cmd, cwd=here, stdout=out,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    CHILDREN.append(proc)
+    return proc, out, time.perf_counter()
+
+
+def shard_face_wait(started):
+    """Wait for :func:`shard_face_start`'s process, log its ``[shard]``
+    lines, and fail unless it exited 0.  Returns (its seconds, the seconds
+    waited here)."""
+    proc, out, t_start = started
+    t0 = time.perf_counter()
+    proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    secs = time.perf_counter() - t_start
+    out.seek(0)
+    lines = out.read().strip().splitlines()
+    out.close()
+    for line in lines:
+        if line.startswith(("[shard]", "[shard-face]")):
+            log(line)
+    log(f"[shard-face] its process: rc {proc.returncode}, {secs:.1f} s since "
+        f"its start, {waited:.1f} s of it waited for here")
+    if proc.returncode != 0:
+        for line in lines[-60:]:
+            log(f"  [shard-face] {line}")
+    check(proc.returncode == 0, f"[shard-face] exited {proc.returncode}")
+    return secs, waited
+
+
+def graft_phase(torch, bm, spatial=None):
+    """[graft]: ``graft_entry.entry()``'s step on the card (launch
+    counters set to 0 just before it: kernel 8 in f32 must launch) and on
+    the CPU from the same state, held together within GRAFT_STEP_BOUND,
+    their CG counts within one; then the dry run over every card of the
+    machine.  ``spatial`` (default: more than one card): the whole
+    ``dryrun_multichip``: rel <= TOL, the inner count held to the JAX
+    package's at that world size (GRAFT_JAX; a world size without a JAX
+    count is printed only), kernels 1, 2 and 8 (f64) launched in rank 0's
+    solve and kernel 8 (f32) in its batch step, the batch of JAX's shape.
+    Else only its data-parallel half (``graft_entry.data_parallel_half``)
+    on one NCCL rank in this process, held the same way: on one card the
+    spatial half is [shard]'s world-size-1 solve again.  Returns (seconds,
+    the entry step's launches)."""
+    from navier_stokes_tpu_torch import graft_entry
+
+    t_phase = time.perf_counter()
+    fn, (u,) = graft_entry.entry()
+    fn_cpu, (u_cpu,) = graft_entry.entry(device="cpu")
+    check(torch.equal(u.cpu(), u_cpu), "[graft] entry(): the card's and "
+          "the CPU's models start from different states")
+    bm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = fn(u)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = dict(bm.LAUNCHES)
+    t0 = time.perf_counter()
+    y_cpu = fn_cpu(u_cpu)
+    t_cpu = time.perf_counter() - t0
+    it, it_cpu = fn.model.last_iterations, fn_cpu.model.last_iterations
+    scale = float(y_cpu.abs().max())
+    diff = float((y.cpu() - y_cpu).abs().max())
+    log(f"[graft] entry(): 2D MCS maxh {graft_entry.ENTRY_MAXH}, "
+        f"{tuple(y.shape)} {str(y.dtype)[6:]}; one step {t_card:.3f} s on "
+        f"the card (cold), {t_cpu:.3f} s on the CPU; card against CPU "
+        f"{diff:.3e} ({diff / scale:.2e} of max |u| {scale:.4f}); CG "
+        f"counts card {it}, CPU {it_cpu}; launches {launches}")
+    check(bool(torch.isfinite(y).all() and torch.isfinite(y_cpu).all()),
+          "[graft] entry(): a step is not finite")
+    check(diff <= GRAFT_STEP_BOUND * scale,
+          f"[graft] entry(): card and CPU {diff:.3e} apart")
+    for k in ("mstar", "project"):
+        check(abs(int(it[k]) - int(it_cpu[k])) <= 1,
+              f"[graft] entry(): {k} CG {it[k]} on the card, {it_cpu[k]} "
+              "on the CPU")
+    check(launches.get("batched_local_matvec", 0) > 0,
+          "[graft] entry(): kernel 8 (f32) never launched")
+
+    n = torch.cuda.device_count()
+    if spatial is None:
+        spatial = n > 1
+    if not spatial:
+        import torch.distributed as dist
+
+        from navier_stokes_tpu_torch.parallel.sharding import single_rank
+
+        tag = "[graft] data_parallel_half(one NCCL rank)"
+        t0 = time.perf_counter()
+        mesh = single_rank("nccl")
+        try:
+            batch = graft_entry.data_parallel_half(mesh)
+        finally:
+            dist.destroy_process_group()
+        shape = tuple(batch["out"].shape)
+        log(f"{tag}: {time.perf_counter() - t0:.1f} s; batch {shape}, CG "
+            f"{batch['iterations']}; launches {batch['launches']} (the "
+            "spatial half at world size 1 is [shard]'s world-size-1 solve: "
+            "tools/smoke_phases.py --phases graft runs it)")
+        check(bool(torch.isfinite(batch["out"]).all()),
+              f"{tag}: the batch is not finite")
+        check(batch["launches"].get("batched_local_matvec", 0) > 0,
+              f"{tag}: kernel 8 (f32) never launched in the batch step")
+        check(shape[0] == 1, f"{tag}: batch {shape}")
+        secs = time.perf_counter() - t_phase
+        log(f"[graft] phase {secs:.1f} s")
+        return secs, launches
+    tag = f"[graft] dryrun_multichip({n})"
+    t0 = time.perf_counter()
+    with carried_cell_bases(SWEEP_SMALL_BASES):
+        out = graft_entry.dryrun_multichip(n)
+    t_dry = time.perf_counter() - t0
+    stats = out["run_stats"]
+    jax = GRAFT_JAX.get(n)
+    log(f"{tag}: {t_dry:.1f} s (model {out['model_seconds']:.1f} s, solve "
+        f"call {out['solve_seconds']:.1f} s: rank 0's solve "
+        f"{stats['solve_seconds']:.3f} s); inner {out['inner']}, passes "
+        f"{out['passes']}, rel {out['rel']:.3e}; halo {out['halo_rows']} "
+        f"against owned {out['own_rows']}; batch {out['batch_shape']}, CG "
+        f"{out['batch_iterations']}; launches: solve {stats['launches']}, "
+        f"batch {out['batch_launches']}; collective calls "
+        f"{stats['collectives']}"
+        + (f" (JAX at {n}: inner {jax['inner']}, passes {jax['passes']}, "
+           f"rel {jax['rel']:.3e}, halo {jax['halo_rows']} against owned "
+           f"{jax['own_rows']})" if jax else
+           f" (no JAX count recorded at world size {n}: not held)"))
+    check(out["rel"] <= TOL, f"{tag}: rel {out['rel']:.3e}")
+    if jax:
+        check(shard_match(out["inner"], jax["inner"]),
+              f"{tag}: {out['inner']} inner iterations, JAX {jax['inner']}")
+    for name in ("block_mv", "block_mv2", "batched_local_matvec_f64"):
+        check(stats["launches"].get(name, 0) > 0,
+              f"{tag}: {name} never launched in rank 0's solve")
+    check(out["batch_launches"].get("batched_local_matvec", 0) > 0,
+          f"{tag}: kernel 8 (f32) never launched in the batch step")
+    check(out["batch_shape"][0] == n, f"{tag}: batch {out['batch_shape']}")
+    secs = time.perf_counter() - t_phase
+    log(f"[graft] phase {secs:.1f} s")
+    return secs, launches
+
+
+def dd3d_phase(torch, bm, lm, timer, gen, reports):
+    """[dd3d]: the dd solve's 3D branch (the face+interior block smoother)
+    on the JAX test's model (tests/test_parallel.py:127-153) at world size
+    1 (NCCL, this process): kernel 8 (f64) on the rank's A, B, B^T
+    (rectangular, as they are) and block-inverse tables against its plain
+    version, then ``ddshard.sharded_flagship_solve`` to DD3D_TOL with the
+    launch counters set to 0 just before it (kernel 8 in f64 must launch),
+    and the model's own ``SolveInitial(iterative=True, GS=False)``; the JAX
+    test's bounds between the two.  Returns (seconds, the sharded solve's
+    launches)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from navier_stokes_tpu_torch.flagship import uin
+    from navier_stokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_mesh_3d,
+    )
+    from navier_stokes_tpu_torch.models import NavierStokesMCS
+    from navier_stokes_tpu_torch.parallel import ddshard
+    from navier_stokes_tpu_torch.parallel.sharding import single_rank
+
+    t_phase = time.perf_counter()
+    tag = f"[dd3d] maxh={DD3D_MAXH}, world size 1"
+    t0 = time.perf_counter()
+    with carried_cell_bases(SWEEP_SMALL_BASES):
+        ns = NavierStokesMCS(
+            channel_with_cylinder_mesh_3d(DD3D_MAXH), nu=NU, inflow="inlet",
+            outflow="outlet", wall="wall|cyl", uin=uin, timestep=2e-3,
+            order=ORDER, preconditioner="faceblock", dtype=torch.float64,
+            device="cuda")
+    log(f"{tag}: model {time.perf_counter() - t0:.1f} s, ndof "
+        f"{ns.n}+{ns.Q.ndof}")
+    mesh = single_rank("nccl")
+    try:
+        t0 = time.perf_counter()
+        bundles, _, _ = ddshard.dd_flagship_tables(ns, 1)
+        log(f"{tag}: dd tables {time.perf_counter() - t0:.1f} s")
+        rep = reports["batched_local_matvec_f64_dd3d"]
+        for k in ("A", "B", "BT", "pre"):
+            T = ddshard.rank_dd_operator(bundles[0]["ops"][k], mesh).table
+            check_local_mv(torch, lm, timer, rep, f"dd3d {k}", T, gen)
+        del bundles
+        bm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, pu, _ = ddshard.sharded_flagship_solve(
+            ns, mesh, tol=DD3D_TOL, maxsteps=DD3D_MAXSTEPS)
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t0
+        launches = dict(bm.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    ns.SolveInitial(iterative=True, GS=False, tol=DD3D_TOL,
+                    maxsteps=DD3D_MAXSTEPS)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    single = ns.stokes_bpcg_iterations
+    u = ns.u.cpu().numpy()
+    u_sh = pu.to_global(res.x[0].cpu().numpy()) + ns.u_bc.cpu().numpy()
+    diff = float(np.abs(u_sh - u).max() / np.abs(u).max())
+    k8 = launches.get("batched_local_matvec_f64", 0)
+    log(f"{tag}: sharded_flagship_solve {res.iterations} BPCG iterations, "
+        f"converged {res.converged}, {t_sh:.3f} s with its tables; "
+        f"SolveInitial {single} ({t_single:.3f} s, k "
+        f"{ns.stokes_bpcg_scale_k:.3f}); velocity {diff:.3e} of max |u| "
+        f"apart; kernel-8 launches {k8} ({k8 / max(res.iterations, 1):.2f} "
+        f"per BPCG iteration); launches {launches} (JAX: single "
+        f"{DD3D_JAX['single']}, sharded {DD3D_JAX['sharded']} at its own k "
+        f"{DD3D_JAX['scale_k']:.3f}, {DD3D_JAX['diff']:.3e} apart)")
+    check(res.converged and single < DD3D_MAXSTEPS,
+          f"{tag}: a solve did not converge")
+    check(abs(res.iterations - single) <= max(5, 0.02 * single),
+          f"{tag}: sharded {res.iterations} against single {single}")
+    check(diff < DD3D_DIFF, f"{tag}: velocity {diff:.3e} apart")
+    check(k8 > 0, f"{tag}: kernel 8 (f64) never launched")
+    secs = time.perf_counter() - t_phase
+    log(f"[dd3d] phase {secs:.1f} s")
     return secs, launches
 
 
@@ -3548,8 +3940,10 @@ def run():
     card = bench.card_name()
     log(f"[card] {card}")
 
-    # 2. the card-only tests, from the repository alone (no JAX)
-    t_cuda_tests = cuda_tests_phase(here)
+    # 2. the card-only tests, from the repository alone (no JAX), in a
+    # process of their own beside the setup's host work; waited for
+    # before the first timed kernel check
+    cuda_tests = cuda_tests_start(here)
 
     # 3. setup: the main path (curved, GS) and slice 1's (straight, additive)
     t0 = time.perf_counter()
@@ -3571,7 +3965,9 @@ def run():
     ncolors = len(parts["groups"])
     log(f"[setup] maxh={MAXH}: {mesh.ne} tets, {mesh.nv} vertices, "
         f"{len(geo.curved_elements)} curved tets, ndof={m.n}+{m.Q.ndof}")
-    log(f"[setup] curved GS: mesh {t_mesh:.1f} s, curve {t_curve:.1f} s, "
+    # the setup seconds are taken beside [cuda-tests] on the same card
+    log(f"[setup] (beside [cuda-tests]) curved GS: mesh {t_mesh:.1f} s, "
+        f"curve {t_curve:.1f} s, "
         f"model build {t_model:.1f} s, GS ops {t_ops:.1f} s "
         + ", ".join(f"({k} {v:.1f} s)" for k, v in
                     solver.setup_seconds.items())
@@ -3591,7 +3987,8 @@ def run():
     t0 = time.perf_counter()
     solver_s = FlagshipSolve(m_s, tol=TOL, gs=False)
     t_ops_s = time.perf_counter() - t0
-    log(f"[setup] straight additive: model build {t_model_s:.1f} s, "
+    log(f"[setup] (beside [cuda-tests]) straight additive: model build "
+        f"{t_model_s:.1f} s, "
         f"operators {t_ops_s:.1f} s")
     check(m_s.n == 243312 and m_s.Q.ndof == 30960,
           f"unexpected size {m_s.n}+{m_s.Q.ndof}")
@@ -3608,13 +4005,16 @@ def run():
     step32 = m32.make_step_fn(project_tol=PROJECT_TOL32, mstar_tol=MSTAR_TOL)
     torch.cuda.synchronize()
     alpha, beta = m32._mass_chebyshev().bounds
-    log(f"[setup] transient f32: model build {t_model32:.1f} s (host tables "
+    log(f"[setup] (beside [cuda-tests]) transient f32: model build "
+        f"{t_model32:.1f} s (host tables "
         f"shared), step setup {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in m32.setup_seconds.items())
         + f"; Chebyshev bounds ({alpha:.5f}, {beta:.5f})")
     check(m32.dtype == torch.float32 and m32.u.dtype == torch.float32,
           "the stepping model is not float32")
     check(m32.n == m.n and m32.Q.ndof == m.Q.ndof, "the twin differs in size")
+
+    t_cuda_tests = cuda_tests_phase(here, cuda_tests)
 
     # 4. kernel checks on the main path's tables (and slice 1's)
     timer = KernelTimer()
@@ -3687,6 +4087,11 @@ def run():
         # in f64 on its interior, S, block-Jacobi and GS block tables
         "batched_local_matvec_f64_skeleton": KernelReport(
             "batched_local_matvec_f64_skeleton", f"{PALLAS_LOCAL}:26",
+            SRC_LOCAL, F64_FLOPS_PER_S),
+        # the dd solve's 3D branch ([dd3d]): kernel 8 in f64 on the rank's
+        # A, B, B^T and face+interior block-inverse tables
+        "batched_local_matvec_f64_dd3d": KernelReport(
+            "batched_local_matvec_f64_dd3d", f"{PALLAS_LOCAL}:26",
             SRC_LOCAL, F64_FLOPS_PER_S),
     }
     for label, s, keep in (("curved GS (main path)", solver, True),
@@ -3861,11 +4266,18 @@ def run():
     t_slow, launches_slow = skeleton_slow_phase(torch, bm, lm, timer, gen,
                                                 reports)
 
-    # 14. the two ported microbenchmark scripts
+    # 14. the ported microbenchmark scripts
+    t0 = time.perf_counter()
     launches_mb = microbench_phase(bm)
+    t_mb = time.perf_counter() - t0
 
     # 15. the SA-AMG coarse solve on a mesh above the dense limit
-    amg_phase(torch, bm, build_model, FlagshipSolve, cylinder_geometry)
+    # with the two-rank face-sharded solve of [shard] beside its host setup
+    t0 = time.perf_counter()
+    t_face, t_face_waited = amg_phase(
+        torch, bm, build_model, FlagshipSolve, cylinder_geometry,
+        shard_face=shard_face_start(here))
+    t_amg = time.perf_counter() - t0
 
     # 16. the 3D HDG model: the models of the MCS paths are let go first
     del solver, solver_s, solver_k, m_s, step32, m32, m
@@ -3891,6 +4303,10 @@ def run():
 
     # 19. the parameter-sweep harness run_ns_sweep
     t_ns_sweep, _ = ns_sweep_phase(torch, bm, here)
+
+    # 21. __graft_entry__'s entry points, then the dd solve's 3D branch
+    t_graft, _ = graft_phase(torch, bm)
+    t_dd3d, launches_dd3d = dd3d_phase(torch, bm, lm, timer, gen, reports)
 
     counts = {**{k: launches[k] for k in ("block_mv", "block_mv2",
                                           "block_mv_comp")},
@@ -3925,7 +4341,9 @@ def run():
               "batched_local_matvec_f64_shard":
                   launches_shard.get("batched_local_matvec_f64", 0),
               "batched_local_matvec_f64_skeleton":
-                  launches_slow.get("batched_local_matvec_f64", 0)}
+                  launches_slow.get("batched_local_matvec_f64", 0),
+              "batched_local_matvec_f64_dd3d":
+                  launches_dd3d.get("batched_local_matvec_f64", 0)}
     kernels = {"kernels": [rep.entry(counts[name])
                            for name, rep in reports.items()]}
     redesign_order(kernels["kernels"], reports)
@@ -3934,9 +4352,11 @@ def run():
         f"refine {t_refine:.1f} s, hdg3d {t_hdg:.1f} s, mcs2d "
         f"{t_mcs2d:.1f} s, th2d {t_th2d:.1f} s, stokes {t_stokes:.1f} s, "
         f"heat {t_heat:.1f} s, sweep {t_sweep:.1f} s, ns-sweep "
-        f"{t_ns_sweep:.1f} s, shard {t_shard:.1f} s; new: probes "
-        f"{t_probes:.1f} s, skeleton-slow {t_slow:.1f} s; whole run "
-        f"{time.perf_counter() - T_START:.1f} s")
+        f"{t_ns_sweep:.1f} s, shard {t_shard:.1f} s, shard-face "
+        f"{t_face:.1f} s beside [amg] ({t_face_waited:.1f} s waited for), "
+        f"amg {t_amg:.1f} s, probes {t_probes:.1f} s, skeleton-slow {t_slow:.1f} s; new: microbench "
+        f"{t_mb:.1f} s, graft {t_graft:.1f} s, dd3d {t_dd3d:.1f} s; whole "
+        f"run {time.perf_counter() - T_START:.1f} s")
     print(json.dumps(bench_line), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
@@ -3955,6 +4375,13 @@ def main():
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        for proc in CHILDREN:  # each in a session of its own, with its ranks
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
 
 
 if __name__ == "__main__":

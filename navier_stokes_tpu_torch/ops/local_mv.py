@@ -11,7 +11,10 @@ element-block Jacobi of the projection preconditioner.  The kernel lives in
 ``csrc/local_mv.cu`` (its own ``__global__`` template, instantiated for
 float and double: one bulk asynchronous copy of a 32-row stretch per CTA,
 one thread per row); it is bound by the table stream, ne*nb*nb*itemsize
-bytes / 3.35 TB/s.
+bytes / 3.35 TB/s.  :func:`batched_local_matvec_rect` runs the same kernel
+on rectangular (ne, nout, nin) blocks, which the Pallas kernel does not
+take: the dd solve's divergence couplings B and B^T
+(``parallel/ddshard.py``), unpadded.
 
 The wrapper checks device, dtype, shape and contiguity.  It takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
@@ -32,7 +35,7 @@ import torch
 from .block_mv import LAUNCHES, _device_kind, _launch, _stream, build_library
 
 __all__ = ["batched_local_matvec", "batched_local_matvec_plain",
-           "load_library"]
+           "batched_local_matvec_rect", "load_library"]
 
 _lib = None
 
@@ -42,7 +45,7 @@ def _bind(path):
     lib = ctypes.CDLL(str(path))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for fn in (lib.nstt_local_mv_f32, lib.nstt_local_mv_f64):
-        fn.argtypes = [p, p, p, i64, i32, p]
+        fn.argtypes = [p, p, p, i64, i32, i32, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -71,31 +74,46 @@ def batched_local_matvec(a_local: torch.Tensor,
     if a_local.dim() != 3 or a_local.shape[1] != a_local.shape[2]:
         raise ValueError("batched_local_matvec: expected (ne, nb, nb) blocks, "
                          f"got {tuple(a_local.shape)}")
+    return _local_mv(a_local, ue, "batched_local_matvec")
+
+
+def batched_local_matvec_rect(a_local: torch.Tensor,
+                              ue: torch.Tensor) -> torch.Tensor:
+    """(ne, nout, nin) x (ne, nin) -> (ne, nout), float32 or float64
+    throughout: :func:`batched_local_matvec`'s kernel on rectangular
+    blocks.  Bound by the table stream: ne*nout*nin*itemsize bytes /
+    3.35 TB/s."""
+    if a_local.dim() != 3:
+        raise ValueError("batched_local_matvec_rect: expected (ne, nout, "
+                         f"nin) blocks, got {tuple(a_local.shape)}")
+    return _local_mv(a_local, ue, "batched_local_matvec_rect")
+
+
+def _local_mv(a_local, ue, name):
     if a_local.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"batched_local_matvec: dtype {a_local.dtype} is "
+        raise TypeError(f"{name}: dtype {a_local.dtype} is "
                         "neither float32 nor float64")
-    ne, nb, _ = a_local.shape
+    ne, nout, nin = a_local.shape
     if ue.dtype != a_local.dtype:
-        raise TypeError(f"batched_local_matvec: blocks {a_local.dtype}, "
-                        f"vectors {ue.dtype}")
-    if tuple(ue.shape) != (ne, nb):
-        raise ValueError(f"batched_local_matvec: expected vectors {(ne, nb)}, "
+        raise TypeError(f"{name}: blocks {a_local.dtype}, vectors {ue.dtype}")
+    if tuple(ue.shape) != (ne, nin):
+        raise ValueError(f"{name}: expected vectors {(ne, nin)}, "
                          f"got {tuple(ue.shape)}")
     if ue.device != a_local.device:
-        raise ValueError(f"batched_local_matvec: vectors on {ue.device}, "
+        raise ValueError(f"{name}: vectors on {ue.device}, "
                          f"blocks on {a_local.device}")
     if not (a_local.is_contiguous() and ue.is_contiguous()):
-        raise ValueError("batched_local_matvec: operands must be contiguous")
+        raise ValueError(f"{name}: operands must be contiguous")
     if _device_kind(a_local) == "cpu":
         return batched_local_matvec_plain(a_local, ue)
-    y = torch.empty_like(ue)
+    y = ue.new_empty((ne, nout))
     if y.numel() == 0:
         return y
     lib = load_library()
     f32 = a_local.dtype == torch.float32
     fn = lib.nstt_local_mv_f32 if f32 else lib.nstt_local_mv_f64
-    _launch(fn, a_local.data_ptr(), ue.data_ptr(), y.data_ptr(), ne, nb,
-            _stream(a_local))
+    _launch(fn, a_local.data_ptr(), ue.data_ptr(), y.data_ptr(), ne, nout,
+            nin, _stream(a_local))
     LAUNCHES["batched_local_matvec" if f32
              else "batched_local_matvec_f64"] += 1
     return y

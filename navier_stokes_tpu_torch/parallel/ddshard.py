@@ -8,8 +8,8 @@ are PARTITIONED across the ranks (one padded block per rank, the layout of
 1. each rank packs the owned dofs that other ranks' elements touch into a
    fixed-size buffer;
 2. one ``all_gather`` of the packed buffers;
-3. local gather -> kernel 8 (``ops/local_mv.batched_local_matvec``, in the
-   tables' dtype; a rectangular coupling is zero-padded to square blocks)
+3. local gather -> kernel 8 (``ops/local_mv.batched_local_matvec_rect``,
+   in the tables' dtype, on square or rectangular blocks as they are)
    -> ``ScatterPlan`` over [own | halo];
 4. the contributions a rank computed for dofs owned elsewhere go back by a
    second packed ``all_gather`` and are added by their owners.
@@ -29,12 +29,13 @@ import numpy as np
 import torch
 
 from ..ops.assembly import ScatterPlan
-from ..ops.local_mv import batched_local_matvec
+from ..ops.local_mv import batched_local_matvec_rect
 from .sharding import DeviceMesh, Ranks, fresh_table
 
 __all__ = ["DofPartition", "partition_dofs", "block_element_partition",
            "dd_operator_tables", "rank_dd_operator", "build_dd_operator",
-           "dd_flagship_tables", "dd_solve_rank", "sharded_flagship_solve"]
+           "dd_flagship_tables", "rank_dd_ops", "dd_solve_rank",
+           "sharded_flagship_solve"]
 
 
 @dataclass(frozen=True)
@@ -235,15 +236,12 @@ def rank_dd_operator(tab: dict, mesh: DeviceMesh, dtype=torch.float64):
     """This rank's apply of a sharded operator from its tables (one shard
     of :func:`dd_operator_tables`): x (npad_in,) own block -> y
     (npad_out,) own block, through two ``all_gather``s, kernel 8 in
-    ``dtype`` and two ``ScatterPlan``s.  ``apply.table``: the device table
-    (square: a rectangular coupling is zero-padded to its larger side)."""
+    ``dtype`` (on a rectangular coupling as it is:
+    ``batched_local_matvec_rect``) and two ``ScatterPlan``s.
+    ``apply.table``: the device table."""
     dev = mesh.device
     mats = tab["mats"]
-    ne_max, nout, nin = mats.shape
-    nsq = max(nout, nin)
-    sq = np.zeros((ne_max, nsq, nsq), mats.dtype)
-    sq[:, :nout, :nin] = mats
-    m = fresh_table(sq, dev, dtype)
+    m = fresh_table(mats, dev, dtype)
     npad_in, npad_out = tab["npad_in"], tab["npad_out"]
 
     def idx(a):
@@ -266,10 +264,7 @@ def rank_dd_operator(tab: dict, mesh: DeviceMesh, dtype=torch.float64):
         packed = torch.where(pmask, x[pack], 0.0)
         every = mesh.all_gather(packed).reshape(-1)
         x_loc = torch.cat([x, torch.where(hmask, every[halo], 0.0)])
-        ue = x_loc[edi]
-        if nin < nsq:
-            ue = torch.cat([ue, ue.new_zeros((ne_max, nsq - nin))], dim=1)
-        ye = batched_local_matvec(m, ue.contiguous())[:, :nout]
+        ye = batched_local_matvec_rect(m, x_loc[edi].contiguous())
         y = plan_out(ye)
         every = mesh.all_gather(y[npad_out:]).reshape(-1)
         return y[:npad_out] + plan_rev(torch.where(rmask, every[rsrc], 0.0))
@@ -357,25 +352,17 @@ def dd_flagship_tables(ns, n_shards: int) -> tuple[list, DofPartition,
     return bundles, pu, pp
 
 
-def dd_solve_rank(mesh: DeviceMesh, bundle: dict, tol: float = 1e-8,
-                  maxsteps: int = 4000, scale_k=None,
-                  local_dots: bool = False):
-    """Rank body of :func:`sharded_flagship_solve`: this rank's operators
-    from its bundle (:func:`dd_flagship_tables`), BPCG v2 with every inner
-    product summed over the ranks, and the solution's blocks gathered.
-    ``local_dots=True`` is a control that leaves the inner products local
-    (the ranks then disagree on the step lengths).  Returns (result with
-    ``x`` = the whole partitioned (u, p) on every rank, launches of this
-    rank's kernels during the solve)."""
-    from ..ops.block_mv import LAUNCHES, reset_launches
-    from ..solvers.bpcg import bramble_pasciak_cg_opt
-
+def rank_dd_ops(mesh: DeviceMesh, bundle: dict):
+    """This rank's saddle-system operators from its bundle
+    (:func:`dd_flagship_tables`) on its blocks of the partitioned
+    vectors: (A, B, B^T, preA, preM), masked to the free velocity dofs as
+    the model's (A and preA the identity on the others), in the bundle's
+    dtype."""
     dev, dt = mesh.device, bundle["dtype"]
     A_dd, B_dd, BT_dd, pre_dd = (rank_dd_operator(bundle["ops"][k], mesh, dt)
                                  for k in ("A", "B", "BT", "pre"))
     free = torch.as_tensor(bundle["free"], device=dev)
-    f, g, diag = (fresh_table(bundle[k], dev, dt)
-                  for k in ("f", "g", "diag_Mp"))
+    diag = fresh_table(bundle["diag_Mp"], dev, dt)
     nu = bundle["nu"]
 
     def A(x):
@@ -393,6 +380,42 @@ def dd_solve_rank(mesh: DeviceMesh, bundle: dict, tol: float = 1e-8,
     def preM(p):
         return nu * p / diag
 
+    return A, B, BT, preA, preM
+
+
+def dd_ops_rank(mesh: DeviceMesh, bundle: dict, u_sh, p_sh):
+    """Test helper, not part of the module's interface (a rank body must
+    be importable by the spawned ranks): this rank's :func:`rank_dd_ops`
+    applied once each to its blocks of the partitioned velocity ``u_sh``
+    and pressure ``p_sh`` (whole, ``part.to_sharded`` layout).  Returns
+    name -> the whole partitioned result (gathered): ``A``, ``B``, ``BT``,
+    ``preA``."""
+    A, B, BT, preA, _ = rank_dd_ops(mesh, bundle)
+    dev, dt = mesh.device, bundle["dtype"]
+    nu_, np_ = len(bundle["free"]), len(bundle["g"])
+    r = mesh.rank
+    u = torch.as_tensor(u_sh)[r * nu_:(r + 1) * nu_].to(dev, dt)
+    p = torch.as_tensor(p_sh)[r * np_:(r + 1) * np_].to(dev, dt)
+    out = dict(A=A(u), B=B(u), BT=BT(p), preA=preA(u))
+    return {k: mesh.all_gather(v).reshape(-1) for k, v in out.items()}
+
+
+def dd_solve_rank(mesh: DeviceMesh, bundle: dict, tol: float = 1e-8,
+                  maxsteps: int = 4000, scale_k=None,
+                  local_dots: bool = False):
+    """Rank body of :func:`sharded_flagship_solve`: this rank's operators
+    from its bundle (:func:`dd_flagship_tables`), BPCG v2 with every inner
+    product summed over the ranks, and the solution's blocks gathered.
+    ``local_dots=True`` is a control that leaves the inner products local
+    (the ranks then disagree on the step lengths).  Returns (result with
+    ``x`` = the whole partitioned (u, p) on every rank, launches of this
+    rank's kernels during the solve)."""
+    from ..ops.block_mv import LAUNCHES, reset_launches
+    from ..solvers.bpcg import bramble_pasciak_cg_opt
+
+    A, B, BT, preA, preM = rank_dd_ops(mesh, bundle)
+    dev, dt = mesh.device, bundle["dtype"]
+    f, g = (fresh_table(bundle[k], dev, dt) for k in ("f", "g"))
     reset_launches()
     res = bramble_pasciak_cg_opt(A, B, BT, preA, preM, f, g, tol=tol,
                                  maxsteps=maxsteps, rel_err=True,

@@ -25,6 +25,7 @@ from navier_stokes_tpu_torch.ops import stream_mv as sm
 from navier_stokes_tpu_torch.ops.local_mv import (
     batched_local_matvec,
     batched_local_matvec_plain,
+    batched_local_matvec_rect,
 )
 from navier_stokes_tpu_torch.utils.timers import KernelTimer, Timer
 
@@ -443,6 +444,39 @@ def test_batched_local_matvec_kernel_matches_plain_on_card(dtype):
         scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
         d = (y - batched_local_matvec_plain(A, u)).abs().double()
         assert float((d / scale).max()) <= TOL[dtype]
+    torch.cuda.synchronize()
+    key = ("batched_local_matvec" if dtype == "float32"
+           else "batched_local_matvec_f64")
+    assert bm.LAUNCHES[key] == len(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_local_matvec_rect_kernel_matches_plain_on_card(dtype):
+    """On the card: kernel 8 on rectangular (ne, nout, nin) blocks against
+    its plain version: the dd solve's B and B^T shapes at its 3D size, and
+    the edges of ``EDGE_RECT`` (test_torch_local_mv.py), views at 4-, 8-
+    and 12-byte offsets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bm.reset_launches()
+    shapes = [(3180, 4, 54, 0), (3180, 54, 4, 0), (300, 4, 54, 0),
+              (300, 54, 4, 0), (77, 13, 5, 0), (5, 1, 130, 0),
+              (3, 130, 1, 0), (300, 4, 54, 1), (77, 5, 13, 3),
+              (301, 54, 4, 2)]
+    for ne, nout, nin, off in shapes:
+        fa = torch.randn(off + ne * nout * nin, generator=gen, device="cuda",
+                         dtype=dt)
+        fu = torch.randn(off + ne * nin, generator=gen, device="cuda",
+                         dtype=dt)
+        A, u = fa[off:].view(ne, nout, nin), fu[off:].view(ne, nin)
+        y = batched_local_matvec_rect(A, u)
+        assert y.shape == (ne, nout)
+        scale = torch.einsum("eij,ej->ei", A.double().abs(), u.double().abs())
+        d = (y - batched_local_matvec_plain(A, u)).abs().double()
+        assert float((d / scale.clamp_min(1e-300)).max()) <= TOL[dtype]
     torch.cuda.synchronize()
     key = ("batched_local_matvec" if dtype == "float32"
            else "batched_local_matvec_f64")

@@ -6,6 +6,10 @@ products with the JAX package's Pallas kernels.
   mode, and ``apply_local_matrices`` against the JAX function with and
   without ``use_pallas``: float32 to rtol 2e-6 of sum_j |a_ij u_j| (f32 sums
   in another order), float64 to 1e-13 of it.
+* ``batched_local_matvec_rect`` (kernel 8 on rectangular blocks) against
+  the JAX dd apply's ``jnp.einsum("eij,ej->ei")``
+  (``navier_stokes_tpu/parallel/ddshard.py:279``) at the shapes of B and
+  B^T and at the edges of the CTA stretches, to the same tolerances.
 * ``block_mv_ds`` (kernel 3; on the CPU its plain version) against
   ``tiled_bmv_ds(interpret=True)`` on the data of
   tests/test_pallas_mv.py:93-122, square, rectangular, odd k and the
@@ -32,6 +36,7 @@ from navier_stokes_tpu_torch.ops import block_mv as bm
 from navier_stokes_tpu_torch.ops.local_mv import (
     batched_local_matvec,
     batched_local_matvec_plain,
+    batched_local_matvec_rect,
 )
 
 NE, NB, TILE = 37, 14, 16  # tests/test_pallas_mv.py's shapes
@@ -44,6 +49,13 @@ TOL = {"float32": 2e-6, "float64": 1e-13}
 EDGE_LOCAL = [(700, 54, 0), (3001, 4, 0), (77, 12, 0), (77, 13, 0),
               (1, 1, 0), (1, 54, 0), (5, 130, 0), (700, 54, 1), (77, 13, 1),
               (3001, 4, 2), (5, 130, 3), (1, 1, 1)]
+# Rectangular blocks (ne, nout, nin, offset): the dd solve's B (4 x 54) and
+# B^T (54 x 4), a CTA's rows spanning many elements (1 x 130) or a part of
+# one (130 x 1), odd widths, views off a 16-byte boundary (chip_smoke.py's
+# EDGE_RECT)
+EDGE_RECT = [(300, 4, 54, 0), (300, 54, 4, 0), (77, 13, 5, 0),
+             (5, 1, 130, 0), (3, 130, 1, 0), (300, 4, 54, 1),
+             (77, 5, 13, 3), (301, 54, 4, 2)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -106,6 +118,43 @@ def test_batched_local_matvec_edges_match_jax_kernel(ne, nb, off, dtype):
     err = np.abs(got.numpy().astype(np.float64) - want)
     assert (err / _row_scale(A.numpy(), u.numpy()).clip(1e-300)).max() \
         <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ne,nout,nin,off", EDGE_RECT)
+def test_batched_local_matvec_rect_matches_jax_einsum(ne, nout, nin, off,
+                                                      dtype):
+    """Kernel 8 on rectangular blocks (its plain version on the CPU)
+    against the JAX dd apply's einsum, on views ``off`` elements into
+    their allocation."""
+    rng = np.random.default_rng(ne + nout + nin + off)
+    fa = rng.standard_normal(off + ne * nout * nin).astype(dtype)
+    fu = rng.standard_normal(off + ne * nin).astype(dtype)
+    A = _offset_view(fa, off, ne, nout, nin)
+    u = _offset_view(fu, off, ne, nin)
+    want = np.asarray(jnp.einsum("eij,ej->ei", jnp.asarray(A.numpy()),
+                                 jnp.asarray(u.numpy())))
+    got = batched_local_matvec_rect(A, u)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (ne, nout)
+    scale = np.einsum("eij,ej->ei", np.abs(A.numpy()).astype(np.float64),
+                      np.abs(u.numpy()).astype(np.float64))
+    err = np.abs(got.numpy().astype(np.float64) - want)
+    assert (err / scale.clip(1e-300)).max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["dim", "shape", "mixed", "bf16"])
+def test_batched_local_matvec_rect_rejects_bad_inputs(case):
+    A, u = torch.zeros((4, 3, 5)), torch.zeros((4, 5))
+    if case == "dim":
+        A = torch.zeros((4, 15))
+    elif case == "shape":
+        u = torch.zeros((4, 3))
+    elif case == "mixed":
+        u = u.double()
+    else:
+        A, u = A.bfloat16(), u.bfloat16()
+    with pytest.raises((TypeError, ValueError)):
+        batched_local_matvec_rect(A, u)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

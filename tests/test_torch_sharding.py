@@ -254,8 +254,8 @@ def test_ensemble_on_two_ranks_equals_unsharded():
 
 def test_build_dd_operator_on_one_rank_matches_the_model(dd_model):
     """``build_dd_operator`` on a one-rank gloo group in this process: the
-    partitioned A (square, kernel 8) and B (rectangular, zero-padded
-    square) applies equal the model's unsharded ones within 1e-12."""
+    partitioned A (square) and B (rectangular) applies, kernel 8 on their
+    blocks as they are, equal the model's unsharded ones within 1e-12."""
     ns = dd_model[0]
     eldofs = np.asarray(ns.Xv.element_dofs)
     eldofs_p = np.asarray(ns.Q.element_dofs)

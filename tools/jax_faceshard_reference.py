@@ -1,8 +1,9 @@
-"""The JAX package's sharded solves at 2 shards, on the CPU.
+"""The JAX package's sharded solves on virtual CPU devices.
 
-Runs ``navier_stokes_tpu.parallel`` on 2 virtual CPU devices
-(``--xla_force_host_platform_device_count``) in float64 and prints one
-JSON object per solve:
+Runs ``navier_stokes_tpu.parallel`` on virtual CPU devices
+(``--xla_force_host_platform_device_count``: 2 for ``face`` and ``dd``,
+the world sizes asked for ``graft`` and ``dd3d``) in float64 and prints
+one JSON object per solve:
 
 * ``face``: ``faceshard.sharded_fast_flagship_solve`` on the straight 3D
   channel with cylinder (tests/test_faceshard.py's model: order 2, nu 1e-3,
@@ -20,14 +21,26 @@ JSON object per solve:
 * ``dd``: ``ddshard.sharded_flagship_solve`` on the 2D channel at maxh
   0.3 with the vertexstar preconditioner (tests/test_parallel.py's model,
   tol 1e-9), with the Bramble-Pasciak ``scale_k`` its Lanczos gives on the
-  sharded vectors (start vector ``jax.random.PRNGKey(0)``).
+  sharded vectors (start vector ``jax.random.PRNGKey(0)``);
+* ``graft``: the ``dryrun`` run (``__graft_entry__.dryrun_multichip``'s
+  spatial half) at each world size of ``--graft-shards`` (default 1, the
+  one-card machine's; 4 for a four-card one);
+* ``dd3d``: tests/test_parallel.py's 3D dd case -- the straight 3D
+  channel at maxh 0.35 with the faceblock preconditioner, the model's
+  ``SolveInitial(iterative=True, GS=False, tol=1e-8, maxsteps=6000)`` and
+  ``ddshard.sharded_flagship_solve`` to 1e-8 at each world size of
+  ``--dd3d-shards`` (default 1): BPCG counts, the sharded solve's
+  Bramble-Pasciak k, the sharded velocity's distance from the single solve over max
+  |u|, and seconds.
 
-``chip_smoke.py`` ``[shard]`` holds the port's counts on the card to these
-(``SHARD_JAX``), and PERF.md records them.
+``chip_smoke.py`` ``[shard]``, ``[graft]`` and ``[dd3d]`` hold the port's
+counts on the card to these (``SHARD_JAX``, ``GRAFT_JAX``, ``DD3D_JAX``),
+and PERF.md records them.
 
     JAX_PLATFORMS=cpu python3 tools/jax_faceshard_reference.py \\
-        [--parts face,dd] [--face-runs cpu-test,parity,card,dryrun]
-        [--save]
+        [--parts face,dd,graft,dd3d]
+        [--face-runs cpu-test,parity,card,dryrun] [--save]
+        [--graft-shards 1,4] [--dd3d-shards 1]
 """
 
 import argparse
@@ -54,6 +67,7 @@ FACE_RUNS = {
 }
 SOLUTION = os.path.join(ROOT, "tools", "jax_faceshard_x.npz")
 DD_MAXH, DD_TOL, DD_MAXSTEPS = 0.3, 1e-9, 3000
+DD3D_MAXH, DD3D_TOL, DD3D_MAXSTEPS = 0.35, 1e-8, 6000
 
 
 def uin3(p):
@@ -67,7 +81,7 @@ def uin2(p):
                      np.zeros(len(p))], 1)
 
 
-def face_part(run, save=False):
+def face_part(run, save=False, shards=SHARDS):
     from navier_stokes_tpu.mesh import channel_with_cylinder_mesh_3d
     from navier_stokes_tpu.models.navier_stokes_mcs import NavierStokesMCS
     from navier_stokes_tpu.parallel.faceshard import (
@@ -84,12 +98,12 @@ def face_part(run, save=False):
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
     (xu, xp), rel, passes, inner, plan = sharded_fast_flagship_solve(
-        ns, device_mesh(SHARDS), **kw)
+        ns, device_mesh(shards), **kw)
     t_solve = time.perf_counter() - t0
     if save:
         np.savez_compressed(SOLUTION, x_u=xu.astype(np.float32),
                             x_p=xp.astype(np.float32))
-    return dict(part="face", run=run, maxh=maxh, shards=SHARDS,
+    return dict(part="face", run=run, maxh=maxh, shards=shards,
                 ne=ns.mesh.ne, nface=ns.mesh.nface, n=ns.n, np=ns.Q.ndof, **kw,
                 inner=int(inner), passes=passes, rel=float(rel),
                 halo_rows=[len(h) for h in plan.halo_faces],
@@ -132,17 +146,75 @@ def dd_part():
                 solve_seconds=t_solve)
 
 
+def dd3d_part(shards):
+    from navier_stokes_tpu.mesh import channel_with_cylinder_mesh_3d
+    from navier_stokes_tpu.models.navier_stokes_mcs import NavierStokesMCS
+    from navier_stokes_tpu.parallel.ddshard import sharded_flagship_solve
+    from navier_stokes_tpu.parallel.sharding import device_mesh
+    from navier_stokes_tpu.solvers import bpcg
+
+    def model():
+        return NavierStokesMCS(
+            channel_with_cylinder_mesh_3d(DD3D_MAXH), nu=1e-3,
+            inflow="inlet", outflow="outlet", wall="wall|cyl", uin=uin3,
+            timestep=2e-3, order=2, preconditioner="faceblock")
+
+    ks = []
+    own = bpcg.bp_scale_factor
+
+    def recording(*a, **k):
+        out = own(*a, **k)
+        ks.append(float(out[0]))
+        return out
+
+    # the model's SolveInitial takes its k inside a jit (not recorded)
+    single = model()
+    t0 = time.perf_counter()
+    single.SolveInitial(iterative=True, GS=False, tol=DD3D_TOL,
+                        maxsteps=DD3D_MAXSTEPS)
+    t_single = time.perf_counter() - t0
+    u = np.asarray(single.u)
+    out = [dict(part="dd3d", run="single", maxh=DD3D_MAXH,
+                ne=single.mesh.ne, n=single.n, np=single.Q.ndof,
+                tol=DD3D_TOL, iterations=int(single.stokes_bpcg_iterations),
+                solve_seconds=t_single)]
+    bpcg.bp_scale_factor = recording
+    try:
+        for s in shards:
+            ns = model()
+            t0 = time.perf_counter()
+            res, pu, _ = sharded_flagship_solve(
+                ns, device_mesh(s), tol=DD3D_TOL, maxsteps=DD3D_MAXSTEPS)
+            t_solve = time.perf_counter() - t0
+            u_sh = pu.to_global(np.asarray(res.x[0])) + np.asarray(ns.u_bc)
+            out.append(dict(part="dd3d", run="sharded", shards=s,
+                            maxh=DD3D_MAXH, tol=DD3D_TOL,
+                            iterations=int(res.iterations),
+                            converged=bool(res.converged), scale_k=ks[-1],
+                            diff_over_max_u=float(np.abs(u_sh - u).max()
+                                                  / np.abs(u).max()),
+                            solve_seconds=t_solve))
+    finally:
+        bpcg.bp_scale_factor = own
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default="face,dd")
     ap.add_argument("--face-runs", default="cpu-test,parity,card,dryrun")
     ap.add_argument("--save", action="store_true",
                     help="write the cpu-test run's solution")
+    ap.add_argument("--graft-shards", default="1")
+    ap.add_argument("--dd3d-shards", default="1")
     args = ap.parse_args(argv)
+    graft = [int(s) for s in args.graft_shards.split(",")]
+    dd3d = [int(s) for s in args.dd3d_shards.split(",")]
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
-            flags + f" --xla_force_host_platform_device_count={SHARDS}")
+            flags + " --xla_force_host_platform_device_count="
+            f"{max([SHARDS] + graft + dd3d)}")
     sys.path.insert(0, ROOT)
     import jax
 
@@ -155,6 +227,12 @@ def main(argv=None):
                 run, args.save and run == "cpu-test")), flush=True)
     if "dd" in parts:
         print(json.dumps(dd_part()), flush=True)
+    if "graft" in parts:
+        for n in graft:
+            print(json.dumps(face_part("dryrun", shards=n)), flush=True)
+    if "dd3d" in parts:
+        for line in dd3d_part(dd3d):
+            print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

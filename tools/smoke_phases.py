@@ -9,19 +9,27 @@ chip_smoke.py runs 3, this tool can run all 5), ``sweep`` (the
 Reynolds-number ensemble: ``[sweep]`` on the curved f64 model at maxh 0.09,
 built here, from u = u_bc where chip_smoke.py starts from the flagship
 solution), ``ns-sweep`` (the parameter-sweep harness:
-``[ns-sweep]``) and ``shard`` (the sharded solves on torch.distributed:
+``[ns-sweep]``), ``shard`` (the sharded solves on torch.distributed:
 ``[shard]``, on the curved f64 model at maxh 0.09 built here),
+``shard-face`` (the face-sharded solve on two gloo ranks at maxh 0.35,
+which chip_smoke.py runs through this tool in a process of its own),
 ``skeleton-slow`` (the dof-level skeleton preconditioner at maxh 0.35:
-``[skeleton-slow]``) and ``probes`` (the attribution scripts on the
-flagship solver and its f32 twin at maxh 0.09, built here: ``[probes]``).
+``[skeleton-slow]``), ``probes`` (the attribution scripts on the
+flagship solver and its f32 twin at maxh 0.09, built here: ``[probes]``),
+``microbench`` (the four ported microbenchmark scripts:
+``[microbench]``), ``graft`` (``graft_entry.entry`` and the whole
+``dryrun_multichip`` over every card of the machine, also at world size 1:
+``[graft]``) and
+``dd3d`` (the dd solve's 3D branch at maxh 0.35: ``[dd3d]``).
 Prints the kernels' JSON entries of the phases run.  Exits 1 when a phase
 fails.
 
     python3 tools/smoke_phases.py [--phases cuda-tests,stokes,heat]
         [--heat-steps 5]
     python3 tools/smoke_phases.py --phases sweep,ns-sweep
-    python3 tools/smoke_phases.py --phases shard
+    python3 tools/smoke_phases.py --phases shard,shard-face
     python3 tools/smoke_phases.py --phases skeleton-slow,probes
+    python3 tools/smoke_phases.py --phases microbench,graft,dd3d
 """
 
 import argparse
@@ -68,7 +76,8 @@ def main(argv=None) -> int:
     names = {"stokes": "batched_local_matvec_f64_stokes",
              "heat": "batched_local_matvec_f64_heat",
              "sweep": "batched_local_matvec_f64_sweep",
-             "skeleton-slow": "batched_local_matvec_f64_skeleton"}
+             "skeleton-slow": "batched_local_matvec_f64_skeleton",
+             "dd3d": "batched_local_matvec_f64_dd3d"}
     reports = {n: cs.KernelReport(n, f"{cs.PALLAS_LOCAL}:26", cs.SRC_LOCAL,
                                   cs.F64_FLOPS_PER_S)
                for n in list(names.values())
@@ -143,10 +152,21 @@ def main(argv=None) -> int:
                 del solver, m, m32
                 cs.log(f"[time] {phase} {secs:.1f} s")
                 continue
-            elif phase == "ns-sweep":
-                secs, _ = cs.ns_sweep_phase(torch, bm, ROOT)
-                cs.log(f"[time] {phase} {secs:.1f} s")
+            elif phase in ("ns-sweep", "microbench", "graft", "shard-face"):
+                t0 = time.perf_counter()
+                if phase == "ns-sweep":
+                    cs.ns_sweep_phase(torch, bm, ROOT)
+                elif phase == "microbench":
+                    cs.microbench_phase(bm)
+                elif phase == "graft":
+                    cs.graft_phase(torch, bm, spatial=True)
+                else:
+                    cs.shard_face_phase(torch)
+                cs.log(f"[time] {phase} {time.perf_counter() - t0:.1f} s")
                 continue
+            elif phase == "dd3d":
+                secs, launches = cs.dd3d_phase(torch, bm, lm, timer, gen,
+                                               reports)
             else:
                 raise ValueError(f"unknown phase {phase!r}")
             rep = reports[names[phase]]
