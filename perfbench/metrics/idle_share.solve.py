@@ -1,0 +1,8 @@
+"""``idle_share.solve`` (device trace, device layer): the share of the
+traced solve's window in which no operation ran on the device (percent)."""
+
+from perfbench.metrics._idle import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
