@@ -1310,7 +1310,10 @@ def profile_device(torch, run, label, what):
         run()
     rows = []  # kernels only: an operator's row repeats its kernels' time
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a record_function range (the program's ns: spans) has a device
+        # row of its own that spans its kernels
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:

@@ -16,7 +16,9 @@ products would lose the orthogonality (and the Ritz values with it).
 The loop runs on the host (setup code, a few tens of iterations) with the
 vector work on the vectors' device.  The start vector is the port's own
 draw: ``jax.random.PRNGKey(0)`` cannot be reproduced, so pass ``v0`` where
-a run must be repeatable against other data.
+a run must be repeatable against other data.  Under a profiler the call
+is the span ``lanczos`` around ``lanczos.apply``, ``lanczos.pre`` and the
+two ``lanczos.read`` spans of each step (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +26,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import traced, wrap
+
 __all__ = ["lanczos_eigenvalues", "condition_estimate"]
 
 
+@traced("lanczos")
 def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
                         iterations: int = 40,
                         v0: torch.Tensor | None = None,
@@ -53,6 +58,9 @@ def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
     def reduce(t):
         return t if group is None else group.all_reduce(t)
 
+    Af, pref, read = (wrap("lanczos.apply", Af), wrap("lanczos.pre", pref),
+                      wrap("lanczos.read", float))
+
     if v0 is None:
         v0 = torch.randn(n, generator=torch.Generator().manual_seed(0),
                          dtype=torch.float64)
@@ -70,13 +78,13 @@ def lanczos_eigenvalues(A, pre, example_vec: torch.Tensor,
     for j in range(m):
         v = Vb[j]
         w = Af(v)
-        alpha = float(reduce(torch.dot(v, w)))
+        alpha = read(reduce(torch.dot(v, w)))
         # full reorthogonalization in the dual: w -= Z^T (V w); rows past j
         # are zero so they contribute nothing.  Two passes.
         for _ in range(2):
             w = w - Zb.T @ reduce(Vb @ w)
         v_new = pref(w)
-        beta = float(torch.sqrt(torch.abs(reduce(torch.dot(w, v_new)))))
+        beta = read(torch.sqrt(torch.abs(reduce(torch.dot(w, v_new)))))
         diag[j] = alpha
         if beta < 1e-10 * (abs(alpha) + 1.0):  # breakdown: keep offd[j] = 0
             continue

@@ -43,6 +43,7 @@ from ..precond.chebyshev import chebyshev_preconditioner
 from ..solvers.bpcg import bp_scale_factor, bramble_pasciak_cg_opt
 from ..solvers.cg import cg
 from ..utils.timers import Timer
+from ..utils.tracing import traced
 from .auxspace3d import build_auxspace_preconditioner_3d
 from .stokes_hybrid3d import (
     piola_values,
@@ -292,6 +293,7 @@ class NavierStokesHDG3D:
         self.f = self.f + torch.as_tensor(out, device=self.device).to(
             self.dtype)
 
+    @traced("stokes_solve")
     def SolveInitial(self, timesteps=None, iterative: bool = True,
                      GS: bool = True, tol: float = 1e-8,
                      maxsteps: int = 100000, scale_k=None):

@@ -83,6 +83,7 @@ from ..precond.twolevel import coarse_p1_solver
 from ..solvers.bpcg import bp_scale_factor, bramble_pasciak_cg_opt
 from ..solvers.cg import cg
 from ..utils.timers import Timer
+from ..utils.tracing import traced
 from .auxspace3d import build_skeleton_preconditioner_3d
 from .stokes_hybrid import (
     A_PRECONDITIONERS,
@@ -1054,6 +1055,7 @@ class NavierStokesMCS:
                     device=self.device))
         return self._conv_v
 
+    @traced("convection")
     def convection(self, u):
         conv = self._build_convection()
         nhd = self.V.ndof
@@ -1173,6 +1175,7 @@ class NavierStokesMCS:
             self._preA_cache[GS] = pre
         return self._preA_cache[GS]
 
+    @traced("stokes_solve")
     def SolveInitial(self, timesteps=None, iterative: bool = True,
                      GS: bool = True, tol: float = 1e-10,
                      maxsteps: int = 100000, scale_k=None):
@@ -1216,6 +1219,7 @@ class NavierStokesMCS:
         self.stokes_bpcg_scale_k = float(scale_k)
         return res
 
+    @traced("mstar_cg")
     def _inv_mstar(self, rhs, precision: float = 1e-4, maxsteps: int = 2000):
         res = cg(self.mstar, rhs, pre=self.preMstar, tol=precision,
                  maxsteps=maxsteps)
@@ -1273,6 +1277,7 @@ class NavierStokesMCS:
         if not self.outflow:
             # enclosed flow: block + demean (the pure-Neumann coarse
             # Laplacian is singular)
+            @traced("twolevel")
             def pre_enc(p):
                 y = block(p - torch.mean(p))
                 return y - torch.mean(y)
@@ -1299,6 +1304,7 @@ class NavierStokesMCS:
         Tref_t = torch.as_tensor(Tref, device=dev).to(dtype)
         to_vertices = ScatterPlan(els, mesh.nv)
 
+        @traced("twolevel")
         def pre(p):
             pe = p.reshape(ne, mQ)
             g = to_vertices(pe @ Tref_t)
@@ -1312,6 +1318,7 @@ class NavierStokesMCS:
         pre.coarse_amg_levels = getattr(solve1, "levels", 0)
         return pre
 
+    @traced("projection")
     def _project_velocity(self, u, tol: float = 1e-9, maxsteps: int = 2000):
         Minv = self._mass_chebyshev()
 
@@ -1348,6 +1355,7 @@ class NavierStokesMCS:
         conv, A_raw = self.convection, self._A_raw_step
         inv_mstar, project = self._inv_mstar, self._project_velocity
 
+        @traced("step")
         def step(u):
             temp = conv(u) + f - A_raw(u)
             temp = torch.where(free, temp, 0.0)

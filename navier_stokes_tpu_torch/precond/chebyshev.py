@@ -7,12 +7,14 @@ approximation of the velocity mass inverse inside the transient step's
 projection.  The apply needs no host read.
 
 Spectral bounds come from the Lanczos estimator (linalg/lanczos.py) unless
-``bounds`` is given.
+``bounds`` is given.  Under a profiler each apply is the span
+``chebyshev`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
 
 from ..linalg.lanczos import lanczos_eigenvalues
+from ..utils.tracing import traced
 
 __all__ = ["chebyshev_preconditioner"]
 
@@ -40,6 +42,7 @@ def chebyshev_preconditioner(A, base_pre, example_vec, degree: int = 4,
     delta = 0.5 * (beta - alpha)
     sigma1 = theta / delta
 
+    @traced("chebyshev")
     def apply(b):
         # standard Chebyshev iteration for M z = b with M = (base_pre A)
         # preconditioned by base_pre; z accumulates the polynomial in

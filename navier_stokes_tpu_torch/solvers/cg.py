@@ -5,7 +5,10 @@ projection inverses of the transient step).  The JAX package runs the
 iteration as one ``lax.while_loop`` on the device; here the vector work and
 the scalar recurrence (alpha, beta as 0-d tensors, in the vectors' own
 precision) stay on the device, and the convergence test before each
-iteration reads ONE scalar back to the host: rho = <r, z>.
+iteration reads ONE scalar back to the host: rho = <r, z>.  Under a
+profiler the solve is the span ``cg`` (its ``iterations`` set at exit)
+around ``cg.apply``, ``cg.pre`` and ``cg.read`` spans
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..utils.tracing import traced, wrap
 
 __all__ = ["SolverResult", "cg", "cg_solve"]
 
@@ -32,6 +37,7 @@ class SolverResult:
     converged: bool
 
 
+@traced("cg")
 def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
        tol: float = 1e-8, maxsteps: int = 200,
        rel_err: bool = True, group=None) -> SolverResult:
@@ -49,6 +55,8 @@ def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
             return group.all_reduce(torch.dot(a, c))
     if pre is None:
         pre = lambda v: v
+    A, pre, read = (wrap("cg.apply", A), wrap("cg.pre", pre),
+                    wrap("cg.read", float))
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
@@ -58,7 +66,7 @@ def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
 
     z = pre(r)
     rho = dot(r, z)
-    rho_h = float(rho)
+    rho_h = read(rho)
     err0 = math.sqrt(abs(rho_h))
     errors = np.full(maxsteps + 1, np.nan)
     errors[0] = 1.0
@@ -75,7 +83,7 @@ def cg(A, b: torch.Tensor, pre=None, x0: torch.Tensor | None = None,
         rho_new = dot(r, z)
         p = z + (rho_new / rho) * p
         rho = rho_new
-        rho_h = float(rho)  # the iteration's one host read
+        rho_h = read(rho)  # the iteration's one host read
         it += 1
         errors[it] = math.sqrt(abs(rho_h)) / err0 if err0 else math.nan
     converged = math.sqrt(abs(rho_h)) <= threshold

@@ -10,6 +10,9 @@ The JAX package runs the loop as one ``lax.while_loop`` on the device.  Here
 the vector work stays on the device and the scalar recurrence runs on the
 host in the vectors' own precision (numpy float32 / float64 scalars, as the
 JAX loop computes them): each iteration reads back two inner products.
+Under a profiler the solve is the span ``minres`` (its ``iterations`` set
+at exit) around ``minres.apply``, ``minres.pre`` and ``minres.read`` spans
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..linalg.pytree import _leaves, taxpy, tdot, tscale, tsub, tzeros_like
+from ..utils.tracing import traced, wrap
 
 __all__ = ["SolverResult", "minres"]
 
@@ -37,6 +41,7 @@ class SolverResult:
     converged: bool
 
 
+@traced("minres")
 def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
            initialize: bool = True, tol: float = 1e-7,
            abs_test: bool = True, group=None) -> SolverResult:
@@ -52,6 +57,8 @@ def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
     every inner product is summed over it (``linalg/pytree.tdot``)."""
     if pre is None:
         pre = lambda v: v
+    mat, pre, read = (wrap("minres.apply", mat), wrap("minres.pre", pre),
+                      wrap("minres.read", torch.Tensor.item))
     # a bare tensor is one block (the solution is then a tensor); any
     # other sequence of blocks is taken as a tuple
     if not isinstance(rhs, torch.Tensor):
@@ -66,7 +73,7 @@ def minres(mat, rhs, pre=None, sol=None, maxsteps: int = 100,
     one = sdt.type(1.0)
 
     def scalar(t):
-        return sdt.type(t.item())
+        return sdt.type(read(t))
 
     z = pre(v)
     gamma = np.sqrt(scalar(tdot(z, v, group)))

@@ -995,3 +995,40 @@ def test_sharded_fast_ops_on_card_match_cpu(ranks):
         w, g = want[name].astype(np.float64), got[name].astype(np.float64)
         bound = 1e-12 if name.endswith("64") else 1e-5
         assert np.abs(g - w).max() <= bound * np.abs(w).max(), name
+
+
+# -- program spans on the profiler's clock (utils/tracing.py) -------------
+
+
+@pytest.mark.cuda
+def test_span_holds_its_kernel_on_card():
+    """A kernel launched and synchronized inside a program span runs, on
+    the profiler's clock, inside the span's buffered interval (within
+    20 us): the host's ``time.time_ns()`` and the device times the
+    profiler maps onto it agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from navier_stokes_tpu_torch.utils import tracing
+
+    x = torch.randn(1 << 24, device="cuda")
+    y = x * 2.0
+    torch.cuda.synchronize()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            with tracing.span("probe"):
+                torch.mul(x, 2.0, out=y)
+                torch.cuda.synchronize()
+    spans = [r for r in tracing.records() if r.name == "probe"]
+    tracing.reset()
+    kernels = sorted(
+        (ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        for ev in prof.profiler.kineto_results.events()
+        if str(ev.device_type()).endswith("CUDA")
+        and not ev.is_user_annotation())
+    assert len(spans) == len(kernels) == 5
+    for r, (s, e) in zip(spans, kernels):
+        assert r.start - 20_000 <= s < e <= r.end + 20_000
